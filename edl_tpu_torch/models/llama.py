@@ -1,0 +1,437 @@
+"""Llama-3-family decoder, serving half — the port of
+``edl_tpu/models/llama.py`` (dense weights, contiguous KV cache).
+
+Params are a dict-of-tensors tree with the reference's keys and its
+scan-stacked layout (every per-layer weight carries a leading
+[n_layers] axis); layer ``i`` reads the ``[i]`` view of each stacked
+leaf. Weights are held in ``cfg.dtype``: the reference casts every f32
+master to ``cfg.dtype`` at its use (``_matw``, ``_rmsnorm``, the
+embedding), so holding them cast is numerically the same and halves
+the memory (16.1 GB for Llama-3-8B in bf16).
+
+The numerics follow the reference op for op: RMSNorm variance in f32,
+RoPE angles in f32 with cos/sin cast to the activation dtype, decode
+scores divided into f32 (the reference divides by a NumPy scalar,
+which promotes) and masked with that dtype's minimum, softmax in f32.
+The decode path updates the KV cache IN PLACE (unique-index writes)
+where the reference donates the buffers to XLA.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from edl_tpu_torch.ops.flash_attention import attention_auto, flash_supported
+from edl_tpu_torch.utils.device import DeviceLike, resolve_device
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab: int = 128256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16  # activation (and serving weight) dtype
+    use_flash: bool = False  # prefill attention through ops/flash_attention
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def to_meta(self) -> Dict:
+        """JSON-safe architecture record — the reference's export
+        manifest format (``LlamaConfig.to_meta``)."""
+        return {
+            "family": "llama",
+            "vocab": self.vocab,
+            "d_model": self.d_model,
+            "n_layers": self.n_layers,
+            "n_heads": self.n_heads,
+            "n_kv_heads": self.n_kv_heads,
+            "d_ff": self.d_ff,
+            "rope_theta": self.rope_theta,
+            "norm_eps": self.norm_eps,
+            "dtype": str(self.dtype).replace("torch.", ""),
+            "use_flash": self.use_flash,
+        }
+
+    @classmethod
+    def from_meta(cls, meta: Dict) -> "LlamaConfig":
+        if meta.get("family") != "llama":
+            raise ValueError(f"not a llama export: family={meta.get('family')!r}")
+        if meta["dtype"] not in _DTYPES:
+            raise ValueError(f"unsupported dtype {meta['dtype']!r}")
+        return cls(
+            vocab=int(meta["vocab"]),
+            d_model=int(meta["d_model"]),
+            n_layers=int(meta["n_layers"]),
+            n_heads=int(meta["n_heads"]),
+            n_kv_heads=int(meta["n_kv_heads"]),
+            d_ff=int(meta["d_ff"]),
+            rope_theta=float(meta["rope_theta"]),
+            norm_eps=float(meta["norm_eps"]),
+            dtype=_DTYPES[meta["dtype"]],
+            use_flash=bool(meta.get("use_flash", False)),
+        )
+
+    @classmethod
+    def llama3_8b(cls) -> "LlamaConfig":
+        return cls()
+
+    @classmethod
+    def tiny(cls, vocab: int = 256) -> "LlamaConfig":
+        """Test size: same architecture, toy dims (the reference's)."""
+        return cls(
+            vocab=vocab,
+            d_model=64,
+            n_layers=2,
+            n_heads=4,
+            n_kv_heads=2,
+            d_ff=128,
+            dtype=torch.float32,
+        )
+
+
+def init_params(
+    cfg: LlamaConfig,
+    seed: int = 0,
+    device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
+) -> Dict:
+    """Random param tree with the reference's shapes and init scales,
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
+    (one draw per leaf, in the reference's leaf order), held in
+    ``dtype`` (default ``cfg.dtype``). The draws are not the reference's
+    ``jax.random`` bits; to compare the two, carry weights across with
+    :func:`edl_tpu_torch.models.convert.params_from_numpy`."""
+    dev = resolve_device(device)
+    dt = dtype or cfg.dtype
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    d, h, kv, hd, ff, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.head_dim, cfg.d_ff, cfg.n_layers)
+
+    def normal(*shape, scale):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return w.mul_(scale).to(dt)
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev, dtype=dt)
+
+    return {
+        "embed": normal(cfg.vocab, d, scale=0.02),
+        "layers": {
+            "ln1": ones(L, d),
+            "wq": normal(L, d, h * hd, scale=d ** -0.5),
+            "wk": normal(L, d, kv * hd, scale=d ** -0.5),
+            "wv": normal(L, d, kv * hd, scale=d ** -0.5),
+            "wo": normal(L, h * hd, d, scale=(h * hd) ** -0.5),
+            "ln2": ones(L, d),
+            "w1": normal(L, d, ff, scale=d ** -0.5),
+            "w3": normal(L, d, ff, scale=d ** -0.5),
+            "w2": normal(L, ff, d, scale=ff ** -0.5),
+        },
+        "ln_f": ones(d),
+        "lm_head": normal(d, cfg.vocab, scale=d ** -0.5),
+    }
+
+
+def _layer_params(params: Dict, i: int) -> Dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _embed(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig):
+    return params["embed"][tokens].to(cfg.dtype)
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x.float() * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
+
+
+def _rope_tables(
+    cfg: LlamaConfig, t: int, device, positions: Optional[torch.Tensor] = None
+):
+    """RoPE (cos, sin), each [B or 1, T, 1, hd/2] in ``cfg.dtype``:
+    angles in f32, then cast, as the reference's ``_rope``. Positions
+    are shared by every layer, so a pass computes the tables once (XLA
+    dedupes the reference's per-layer recomputation; eager PyTorch
+    would launch it 2 x n_layers times). ``positions`` [T] or [B, T]
+    (per-row absolute positions, the slot decode) overrides 0..T-1."""
+    hd = cfg.head_dim
+    # a Python-scalar base: no host-to-device copy (a pageable copy
+    # stalls the host behind every queued kernel)
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    freqs = 1.0 / torch.pow(float(cfg.rope_theta), exps)
+    if positions is None:
+        positions = torch.arange(t, device=device)
+    angles = positions.float()[..., :, None] * freqs  # [..., T, hd/2]
+    if angles.dim() == 2:
+        angles = angles[None]
+    cos = torch.cos(angles)[:, :, None, :].to(cfg.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(cfg.dtype)
+    return cos, sin
+
+
+def _rope(x: torch.Tensor, tables) -> torch.Tensor:
+    """Rotary embedding over [B, T, H, hd] with :func:`_rope_tables`."""
+    cos, sin = tables
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: LlamaConfig
+) -> torch.Tensor:
+    """Causal GQA attention. q [B,T,H,hd]; k,v [B,T,KV,hd]. With
+    ``cfg.use_flash`` and a flash-supported T it is the flash op (the
+    Hopper kernel on CUDA); otherwise the reference's dense path."""
+    b, t, h, hd = q.shape
+    if cfg.use_flash and flash_supported(t):
+        return attention_auto(q, k, v, causal=True)
+    groups = h // k.shape[2]
+    k = k.repeat_interleave(groups, dim=2)
+    v = v.repeat_interleave(groups, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q, k).float() / math.sqrt(hd)
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def _matw(a: torch.Tensor, w) -> torch.Tensor:
+    """``a @ W`` for a dense weight. The reference's weight-only int8
+    record ``{"q8", "s8"}`` is not ported yet."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "int8 weight records are not ported yet (ROADMAP Queue A "
+            "item 3: serving modes and --int8)"
+        )
+    return a @ w.to(a.dtype)
+
+
+def _qkv(cfg: LlamaConfig, a: torch.Tensor, lp: Dict, rope):
+    b, t, _ = a.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _matw(a, lp["wq"]).reshape(b, t, h, hd)
+    k = _matw(a, lp["wk"]).reshape(b, t, kv, hd)
+    v = _matw(a, lp["wv"]).reshape(b, t, kv, hd)
+    q = _rope(q, rope)
+    k = _rope(k, rope)
+    return q, k, v
+
+
+def _mlp(cfg: LlamaConfig, x: torch.Tensor, lp: Dict) -> torch.Tensor:
+    """Post-attention SwiGLU block, residual included."""
+    m = _rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    gate = torch.nn.functional.silu(_matw(m, lp["w1"]))
+    up = _matw(m, lp["w3"])
+    return x + _matw(gate * up, lp["w2"])
+
+
+def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
+    """One decoder layer → (out, k, v); the prefill collects k/v."""
+    b, t, _ = x.shape
+    a = _rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, a, lp, rope)
+    o = attention(q, k, v, cfg).reshape(b, t, -1)
+    x = x + _matw(o, lp["wo"])
+    return _mlp(cfg, x, lp), k, v
+
+
+@torch.no_grad()
+def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig):
+    """tokens [B, T] → logits [B, T, vocab] (f32)."""
+    x = _embed(params, tokens, cfg)
+    rope = _rope_tables(cfg, tokens.shape[1], x.device)
+    for i in range(cfg.n_layers):
+        x, _, _ = _layer(cfg, x, _layer_params(params, i), rope)
+    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    return _matw(x, params["lm_head"]).float()
+
+
+@torch.no_grad()
+def prefill_padded(
+    params: Dict, tokens: torch.Tensor, last, cfg: LlamaConfig
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill over an END-padded prompt batch [B, Tb] → (logits at each
+    row's ``last`` index [B, V] f32, k/v caches [L, B, Tb, KV, hd]).
+    Causality makes end-padding invisible to every real position, so
+    the serving engine buckets prompt lengths."""
+    b = tokens.shape[0]
+    x = _embed(params, tokens, cfg)
+    rope = _rope_tables(cfg, tokens.shape[1], x.device)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, k, v = _layer(cfg, x, _layer_params(params, i), rope)
+        ks.append(k)
+        vs.append(v)
+    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    last = torch.as_tensor(last, device=x.device).reshape(-1).expand(b)
+    xl = x[torch.arange(b, device=x.device), last]  # each row's last real token
+    logits = _matw(xl, params["lm_head"]).float()
+    return logits, torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def decode_step_slots(
+    params: Dict,
+    tok: torch.Tensor,
+    pos: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    cfg: LlamaConfig,
+):
+    """One continuous-batching decode step over B independent KV slots.
+    tok/pos [B] (previous token, the cache position this step writes);
+    kc/vc [L, B, S, KV, hd], updated IN PLACE at (row, pos[row]) —
+    unique indices. Returns (logits [B, V] f32, kc, vc)."""
+    b = tok.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    groups = h // kvh
+    s = kc.shape[2]
+    rows = torch.arange(b, device=tok.device)
+    mask = (torch.arange(s, device=tok.device)[None, :] <= pos[:, None])
+    mask = mask[:, None, None, None, :]
+    x = _embed(params, tok[:, None], cfg)
+    rope = _rope_tables(cfg, 1, x.device, pos[:, None])
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        a = _rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, knew, vnew = _qkv(cfg, a, lp, rope)
+        kc[i, rows, pos] = knew[:, 0]
+        vc[i, rows, pos] = vnew[:, 0]
+        qg = q.reshape(b, 1, kvh, groups, hd)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg, kc[i])
+        scores = scores.float() / math.sqrt(hd)
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        o = torch.einsum("bkgts,bskd->btkgd", probs, vc[i]).reshape(b, 1, h * hd)
+        x = x + _matw(o, lp["wo"])
+        x = _mlp(cfg, x, lp)
+    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = _matw(x[:, 0], params["lm_head"]).float()
+    return logits, kc, vc
+
+
+def _categorical(logits: torch.Tensor, generator) -> torch.Tensor:
+    """One draw per row from softmax(logits), on the device, no sync."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.no_grad()
+def decode_horizon_slots(
+    params: Dict,
+    tok: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    rem: torch.Tensor,
+    eosv: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    cfg: LlamaConfig,
+    horizon: int,
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 1.0,
+    sampling: bool = False,
+):
+    """``horizon`` slot-decode steps with per-slot termination on the
+    device: a row that emits its ``eosv`` token or exhausts ``rem``
+    freezes (tok/pos/rem stop, output lanes read -1) and keeps
+    re-running an idempotent step. Every mask is a ``torch.where`` on
+    the device — the loop never syncs the host. Returns
+    ``(toks [B, horizon], tok, pos, active, rem, kc, vc)``."""
+    outs = []
+    for _ in range(horizon):
+        logits, kc, vc = decode_step_slots(params, tok, pos, kc, vc, cfg)
+        if sampling:
+            nxt = _categorical(logits / temperature, generator)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        nxt = torch.where(active, nxt.to(tok.dtype), tok)
+        outs.append(torch.where(active, nxt, -1))
+        pos = torch.where(active, pos + 1, pos)
+        rem = torch.where(active, rem - 1, rem)
+        hit = active & (eosv >= 0) & (nxt == eosv)
+        active = active & ~hit & (rem > 0)
+        tok = nxt
+    return torch.stack(outs, dim=1), tok, pos, active, rem, kc, vc
+
+
+def _sample(logits, temperature, generator, top_k: int, top_p: float):
+    """The reference's sampler: greedy at temperature 0, else
+    categorical over ``logits / temperature`` after top-k truncation
+    and nucleus filtering (exclusive cumulative mass < p, so the first
+    token always stays eligible)."""
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    if not top_k and top_p >= 1.0:
+        return _categorical(logits / temperature, generator)
+    m = top_k if top_k else logits.shape[-1]
+    vals, idx = torch.topk(logits, m, dim=-1)
+    scaled = vals / temperature
+    if top_p < 1.0:
+        probs = torch.softmax(scaled, dim=-1)
+        cum = torch.cumsum(probs, dim=-1) - probs
+        scaled = torch.where(cum < top_p, scaled, -math.inf)
+    j = _categorical(scaled, generator)
+    return torch.gather(idx, 1, j[:, None])[:, 0]
+
+
+@torch.no_grad()
+def generate(
+    params: Dict,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    max_new: int,
+    temperature: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    top_k: int = 0,
+    top_p: float = 1.0,
+) -> torch.Tensor:
+    """Autoregressive generation from a prompt [B, T0] → [B, max_new]:
+    greedy at ``temperature == 0``, else sampling with an explicit
+    ``generator`` (required) and the top-k / top-p controls. Greedy
+    tokens match the reference's; sampled streams are deterministic per
+    generator seed but not the reference's ``jax.random`` draws."""
+    if temperature > 0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a torch.Generator")
+    if temperature <= 0 and (top_k or top_p < 1.0):
+        raise ValueError(
+            "top_k/top_p require temperature > 0 "
+            "(greedy decoding ignores them)"
+        )
+    if max_new < 1:
+        raise ValueError(f"max_new must be >= 1, got {max_new}")
+    if top_k < 0 or top_k > cfg.vocab:
+        raise ValueError(f"top_k must be in [0, vocab], got {top_k}")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    b, t0 = tokens.shape
+    dev = tokens.device
+    logits, ks, vs = prefill_padded(params, tokens, t0 - 1, cfg)
+    shape = (cfg.n_layers, b, t0 + max_new, cfg.n_kv_heads, cfg.head_dim)
+    kc = torch.zeros(shape, dtype=ks.dtype, device=dev)
+    vc = torch.zeros(shape, dtype=vs.dtype, device=dev)
+    kc[:, :, :t0] = ks
+    vc[:, :, :t0] = vs
+    out = []
+    for i in range(max_new):
+        tok = _sample(logits, temperature, generator, top_k, top_p)
+        out.append(tok)
+        if i + 1 < max_new:
+            pos = torch.full((b,), t0 + i, dtype=torch.long, device=dev)
+            logits, kc, vc = decode_step_slots(params, tok, pos, kc, vc, cfg)
+    return torch.stack(out, dim=1)

@@ -1,0 +1,1 @@
+"""runtime layer of the PyTorch/CUDA port (mirrors edl_tpu/runtime)."""
