@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (edl_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # what the card check runs
+    python3 chip_smoke.py --profile   # also: torch.profiler over one
+                                      # train step, CUDA events per phase
 
-1. Builds every kernel of the serving path from the sources in this
-   checkout (``edl_tpu_torch/ops/csrc/*.cu``, nvcc, sm_90a).
+1. Builds every kernel of the serving and training paths from the
+   sources in this checkout (``edl_tpu_torch/ops/csrc/*.cu``, one nvcc
+   per source, all at once, sm_90a).
 2. Kernel phase: the flash-attention forward kernel against its plain
    PyTorch version (``flash_attention_ref``) on the card, bf16, B=1,
    H=32, KV=8, d=128 (Llama-3-8B's attention), T in {8, 128, 1024,
@@ -15,7 +18,21 @@
    the same running maxima. Times (CUDA events, after warm-up, inputs
    left warm in L2 as a prefill leaves them) for the kernel, the plain
    version and ``scaled_dot_product_attention`` as a yardstick only.
-3. Slice phase: Llama-3-8B at full width and depth, bf16,
+3. Training-kernel phase: the lse forward and the dQ and dK/dV backward
+   kernels against ``flash_attention_lse_ref`` / ``flash_attention_bwd_ref``
+   on the card, bf16, d=128: B=4 T=2048 H=16 KV=8 causal (the flagship's
+   attention, the main shape), T in {100, 128, 1024} causal, T=1024
+   non-causal (H=16, KV=8), and H=32 KV=8 at T=1024. Tolerances: the
+   forward output as in 2; lse |kernel - plain| <= 1e-4 (f32 on both
+   sides, same tiles, only the f32 summation order differs); dq/dk/dv
+   <= 1e-2 * max|plain| + 2^-7 * |plain| (both round p and ds to bf16
+   before the same products, sum in f32 in different orders, and round
+   the result to bf16; the absolute term covers entries whose sums
+   cancel). The backward is compared from the kernel's own residuals.
+   Times for each kernel, the plain versions, and SDPA
+   (``enable_gqa=True``) forward and ``backward`` under autograd as the
+   library yardstick (never called by the port).
+4. Slice phase: Llama-3-8B at full width and depth, bf16,
    ``use_flash=True``, random weights from a seeded generator on the
    card, served through ``ContinuousBatchingEngine`` (8 slots x 2048
    positions, horizon 8): eight requests with prompts in the buckets
@@ -24,6 +41,19 @@
    == prefills x 32 layers, and teacher-forced agreement — a dense
    forward over prompt + generated puts every chosen token within
    0.1 x (row std) of its row's maximum logit.
+5. Train phase: the flagship training config (bench.py:69
+   ``flagship_train_config``: d2048/L16/H16/KV8/ff6144/v32768, bf16
+   activations, f32 masters, ``use_flash``, full remat) at full width and
+   depth, one ``synthetic_tokens`` batch [4, 2048+1] (seed 0),
+   ``adamw(1e-3)`` through ``make_train_step``: one warm-up step, then
+   5 timed steps on the same batch.
+   Checks: finite losses, the last below the first; per step exactly
+   32 ``flash_fwd_lse`` (two per layer: the forward and the remat
+   recompute both run with grad on), 16 ``flash_bwd_dq``, 16
+   ``flash_bwd_dkv`` and 0 ``flash_fwd`` launches; and at the first
+   batch the flash loss and gradients against the dense (non-flash)
+   path's: loss within 1e-4 relative, every leaf's gradient cosine
+   >= 0.999.
 
 Prints one JSON line per phase, then ``{"kernels": [...]}``, then the
 card's name and power limit, then ``{"ok": true, "device": ...}`` as
@@ -34,6 +64,7 @@ exits 1 before printing any result. Needs one card.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -44,6 +75,19 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TEACHER_EPS = 0.1  # chosen logit within EPS x row std of the row max
 KERNEL_SHAPES = [(t, c) for t in (8, 128, 1024, 1536, 2048) for c in (True, False)]
+# training kernels: (B, T, H, KV, causal); the first is the main shape
+TRAIN_MAIN = (4, 2048, 16, 8, True)
+TRAIN_SHAPES = [TRAIN_MAIN, (4, 100, 16, 8, True), (4, 128, 16, 8, True),
+                (4, 1024, 16, 8, True), (4, 1024, 16, 8, False),
+                (1, 1024, 32, 8, True)]
+LSE_ATOL = 1e-4
+GRAD_ATOL_OF_MAX = 1e-2
+TRAIN_STEPS = 5
+# flash vs dense at the first batch (H100, first runs: loss rel diff
+# 5.7e-6, worst leaf cosine 0.99949 on wq -- the dense path's bf16
+# scores are the coarser of the two)
+LOSS_RTOL = 1e-4
+GRAD_MIN_COS = 0.999
 
 
 def _smi() -> str:
@@ -69,10 +113,18 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(b, t, h, kv, d, causal):
+def _bound(b, t, h, kv, d, causal, flops_per_pair=4, q_like=2, kv_like=2,
+           rows_f32=0):
+    """Least time on the card: the larger of the FLOPs over the bf16 peak
+    and the bytes over the HBM rate. ``flops_per_pair`` x d FLOPs per
+    live (query, key) pair per query head (4 for the forward's two
+    products, 2 more per further product); ``q_like`` bf16 [B,T,H,d]
+    and ``kv_like`` bf16 [B,T,KV,d] tensors each read or written once,
+    plus ``rows_f32`` f32 [B,H,T] rows (lse, delta)."""
     pairs = t * (t + 1) // 2 if causal else t * t
-    flops = 4.0 * d * h * b * pairs
-    nbytes = 2.0 * (2 * b * t * h * d + 2 * b * t * kv * d)
+    flops = float(flops_per_pair) * d * h * b * pairs
+    nbytes = (2.0 * (q_like * b * t * h * d + kv_like * b * t * kv * d)
+              + 4.0 * rows_f32 * b * h * t)
     f_ms = flops / PEAK_BF16_FLOPS * 1e3
     b_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
@@ -122,6 +174,115 @@ def kernel_phase(card):
     return rows
 
 
+def _grad_err(got, want, name, where):
+    """Max abs error; raises past 1e-2 * max|plain| + 2^-7 * |plain|."""
+    import torch
+
+    want = want.float()
+    diff = (got.float() - want).abs()
+    tol = GRAD_ATOL_OF_MAX * want.abs().max() + 2 ** -7 * want.abs()
+    if not (torch.isfinite(got.float()).all() and bool((diff <= tol).all())):
+        raise AssertionError(f"{name} disagrees at {where}: max abs err "
+                             f"{float(diff.max())}, max |plain| "
+                             f"{float(want.abs().max())}")
+    return float(diff.max())
+
+
+def train_kernel_phase(card):
+    """lse forward, dQ and dK/dV kernels against their plain versions at
+    TRAIN_SHAPES; returns the rows by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from edl_tpu_torch.ops import flash_attention as fa
+
+    rows = {}
+    for shape in TRAIN_SHAPES:
+        b, t, h, kv, causal = shape
+        where = f"B={b} T={t} H={h} KV={kv} causal={causal}"
+        gen = torch.Generator(device="cuda").manual_seed(b * t + h + causal)
+        q, do = (torch.randn(b, t, h, 128, generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, t, kv, 128, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        blk = 64 if t % 64 == 0 else t  # one block below T=128 (T=100)
+        want_out, want_lse = fa.flash_attention_lse_ref(q, k, v, causal, blk,
+                                                        blk)
+        diff = (out.float() - want_out.float()).abs()
+        if not bool((diff <= 2e-2 + 2 ** -7 * want_out.float().abs()).all()):
+            raise AssertionError(f"flash_fwd_lse output disagrees at {where}:"
+                                 f" max abs err {float(diff.max())}")
+        lse_err = float((lse - want_lse).abs().max())
+        if not (torch.isfinite(lse).all() and lse_err <= LSE_ATOL):
+            raise AssertionError(f"flash_fwd_lse lse disagrees at {where}: "
+                                 f"max abs err {lse_err}")
+
+        def plain_bwd():
+            return fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                              blk, blk)
+
+        wdq, wdk, wdv = plain_bwd()
+        errs = {"dq": _grad_err(dq, wdq, "flash_bwd_dq", where),
+                "dk": _grad_err(dk, wdk, "flash_bwd_dkv dk", where),
+                "dv": _grad_err(dv, wdv, "flash_bwd_dkv dv", where)}
+        del wdq, wdk, wdv
+
+        # the library yardstick: SDPA forward (grad on, so it keeps its
+        # logsumexp) and its backward, dq, dk and dv in one call
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def lib_fwd():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        lib_out = lib_fwd()
+        lib_fwd_ms = _time_ms(lib_fwd, 10)
+        lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True), 10)
+        del lib_out
+        delta = fa._delta(out, do).contiguous()
+        fwd_ms = _time_ms(lambda: fa.flash_attention_lse_cuda(q, k, v, causal),
+                          10)
+        dq_ms = _time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                      causal), 10)
+        dkv_ms = _time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse,
+                                                        delta, causal), 10)
+        plain_fwd_ms = _time_ms(lambda: fa.flash_attention_lse_ref(
+            q, k, v, causal, blk, blk), 1, 1)
+        plain_bwd_ms = _time_ms(plain_bwd, 1, 1)
+        bounds = {
+            "flash_fwd_lse": _bound(b, t, h, kv, 128, causal, 4, 2, 2, 1),
+            "flash_bwd_dq": _bound(b, t, h, kv, 128, causal, 6, 3, 2, 2),
+            "flash_bwd_dkv": _bound(b, t, h, kv, 128, causal, 8, 2, 4, 2),
+            # the whole backward: FA2's five products, q k v o dO lse
+            # delta read once, dq dk dv written once
+            "backward": _bound(b, t, h, kv, 128, causal, 10, 4, 4, 2),
+        }
+        row = {
+            "phase": "train_kernels", "B": b, "T": t, "H": h, "KV": kv,
+            "causal": causal, "lse_max_abs_err": lse_err,
+            "dq_max_abs_err": errs["dq"], "dk_max_abs_err": errs["dk"],
+            "dv_max_abs_err": errs["dv"],
+            "tol": {"lse": LSE_ATOL,
+                    "grads": "1e-2*max|plain| + 2^-7*|plain|"},
+            "flash_fwd_lse_ms": fwd_ms, "flash_bwd_dq_ms": dq_ms,
+            "flash_bwd_dkv_ms": dkv_ms, "plain_fwd_lse_ms": plain_fwd_ms,
+            "plain_bwd_ms": plain_bwd_ms, "library_fwd_ms": lib_fwd_ms,
+            "library_bwd_ms": lib_bwd_ms,
+            "bound_ms": {n: v[0] for n, v in bounds.items()},
+            "bound_by": {n: v[1] for n, v in bounds.items()},
+            "card": card,
+        }
+        rows[shape] = row
+        print(json.dumps(row), flush=True)
+    return rows
+
+
 def slice_phase(card):
     import dataclasses
 
@@ -153,7 +314,7 @@ def slice_phase(card):
     eng.run()
 
     prefills0 = metrics.dispatches["prefill"]
-    fa.launches = 0
+    fa.reset_launches()
     torch.cuda.synchronize()
     t_run = time.perf_counter()
     for i in range(4):
@@ -164,8 +325,11 @@ def slice_phase(card):
     res = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
-    launches = fa.launches
+    counts = fa.launch_counts()
+    launches = counts["flash_fwd"]
     prefills = metrics.dispatches["prefill"] - prefills0
+    if any(counts[k] for k in fa.KERNELS if k != "flash_fwd"):
+        raise AssertionError(f"serving launched a training kernel: {counts}")
 
     if eng.recoveries:
         raise AssertionError(f"engine recovered {eng.recoveries} times")
@@ -221,6 +385,206 @@ def slice_phase(card):
     return launches
 
 
+def _flagship_train_config():
+    """bench.py:69 ``flagship_train_config``, as a literal: d2048/L16/
+    H16/KV8/ff6144/v32768, bf16 activations (f32 masters), flash
+    attention, full per-layer remat."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+
+    return llama.LlamaConfig(
+        vocab=32768, d_model=2048, n_layers=16, n_heads=16, n_kv_heads=8,
+        d_ff=6144, dtype=torch.bfloat16, use_flash=True, remat=True)
+
+
+def _dense_agreement(params, cfg, batch):
+    """Flash vs dense (use_flash=False, plain autograd attention) loss
+    and gradients at the same params and batch."""
+    import dataclasses
+
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.train import trainer
+
+    f_loss, f_grads = trainer.value_and_grad(llama.make_loss_fn(cfg))(
+        params, batch)
+    dense = dataclasses.replace(cfg, use_flash=False)
+    d_loss, d_grads = trainer.value_and_grad(llama.make_loss_fn(dense))(
+        params, batch)
+    cos = {}
+    for (name, a), b in zip(_named_leaves(f_grads), trainer.leaves(d_grads)):
+        cos[name] = float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0))
+    del f_grads, d_grads
+    rel = abs(float(f_loss) - float(d_loss)) / abs(float(d_loss))
+    worst = min(cos, key=cos.get)
+    if not (rel <= LOSS_RTOL and cos[worst] >= GRAD_MIN_COS):
+        raise AssertionError(
+            f"flash vs dense: loss {float(f_loss)} vs {float(d_loss)} "
+            f"(rel {rel:.3g} > {LOSS_RTOL}?), worst grad cosine "
+            f"{cos[worst]:.5f} on {worst} (< {GRAD_MIN_COS}?)")
+    return {"flash_loss": float(f_loss), "dense_loss": float(d_loss),
+            "loss_rel_diff": rel, "loss_rtol": LOSS_RTOL,
+            "grad_min_cos": cos[worst], "grad_min_cos_leaf": worst,
+            "grad_cos_gate": GRAD_MIN_COS}
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _named_leaves(tree[k],
+                                                       f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def train_phase(card, profile: bool):
+    """The flagship at full width and depth through make_train_step."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.train import trainer
+
+    cfg = _flagship_train_config()
+    b, t = 4, 2048
+    # one batch, every step: the loss must fall on it
+    batch = {"tokens": torch.from_numpy(llama.synthetic_tokens(
+        np.random.RandomState(0), b, t, cfg.vocab)["tokens"]).cuda()}
+    params = trainer.trainable(
+        llama.init_params(cfg, seed=0, device="cuda", dtype=torch.float32))
+    agree = _dense_agreement(params, cfg, batch)
+    torch.cuda.empty_cache()
+
+    tx = trainer.adamw(1e-3)
+    state = trainer.TrainState.create(params, tx)
+    step = trainer.make_train_step(llama.make_loss_fn(cfg), tx)
+    state, m = step(state, batch)  # warm-up (allocator, cuBLAS)
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    # per step: the forward and the remat recompute both run with grad
+    # on, so each runs the lse forward once per layer; each backward
+    # sweep runs once per layer; the primal (no-grad) forward never
+    L = cfg.n_layers
+    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L}
+    if counts != {k: TRAIN_STEPS * v for k, v in want.items()}:
+        raise AssertionError(f"launches over {TRAIN_STEPS} steps {counts}, "
+                             f"want {want} per step")
+    step_s = wall / TRAIN_STEPS
+    tok_s = b * t / step_s
+    flops_tok = llama.train_flops_per_token(cfg, t)
+    row = {
+        "phase": "train", "model": "flagship_train (bench.py:69)",
+        "layers": L, "batch": b, "seq": t, "params_f32": True,
+        "remat": "full", "optimizer": "adamw(1e-3)", "steps": TRAIN_STEPS,
+        "losses": losses, "launches": counts, "launches_per_step": want,
+        "step_s": step_s, "tokens_per_s": tok_s,
+        "train_flops_per_token": flops_tok,
+        "mfu": flops_tok * tok_s / PEAK_BF16_FLOPS,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        **agree, "card": card,
+    }
+    print(json.dumps(row), flush=True)
+    if profile:
+        _profile_step(card, step, state, batch, llama, cfg, step_s)
+    return counts
+
+
+def _kernel_family(name):
+    n = name.lower()
+    for keys, fam in (
+            (("flash_bwd_dq",), "flash_bwd_dq"),
+            (("flash_bwd_dkv",), "flash_bwd_dkv"),
+            (("flash_fwd",), "flash_fwd_lse"),
+            (("nvjet", "gemm", "xmma", "cutlass"), "matmul"),
+            (("multi_tensor", "adam"), "optimizer"),
+            (("softmax", "nll_loss", "cross_entropy"), "cross_entropy"),
+            (("copy",), "cast/copy"),
+            (("reduce",), "reduction")):
+        if any(k in n for k in keys):
+            return fam
+    return "elementwise/other"
+
+
+def _profile_step(card, step, state, batch, llama, cfg, step_s):
+    """Where one train step's device time goes: torch.profiler's device
+    kernels summed by name and by family, against the unprofiled step
+    time; and CUDA events around the forward, the backward (with the
+    remat recompute) and the optimizer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels, calls = {}, 0
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)
+                or re.fullmatch(r"[\w.]+#[\w.]+", ev.key)):
+            # CPU ops and annotated ranges (Optimizer.step#AdamW.step):
+            # the kernels inside them are listed on their own. Kernel
+            # names may hold a '#' too ({lambda()#3}), never this form.
+            continue
+        ms = getattr(ev, "self_device_time_total", 0) / 1e3
+        if ms > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + ms
+            calls += ev.count
+    fams = {}
+    for name, ms in kernels.items():
+        fam = _kernel_family(name)
+        fams[fam] = fams.get(fam, 0.0) + ms
+    device_ms = sum(kernels.values())
+
+    opt = state.opt_state
+    loss_fn = llama.make_loss_fn(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    opt.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss = loss_fn(state.params, batch)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    opt.step()
+    ev[3].record()
+    ev[3].synchronize()
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "train_profile.json"), "w") as f:
+        json.dump({"kernels_ms": kernels, "card": card}, f, indent=1)
+    print(json.dumps({
+        "phase": "train_profile", "kernel_launches": calls,
+        "device_kernel_ms": device_ms, "step_ms": step_s * 1e3,
+        "device_busy_share": device_ms / (step_s * 1e3),
+        "by_family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": [(n[:90], ms) for n, ms in top],
+        "events_ms": {"forward": ev[0].elapsed_time(ev[1]),
+                      "backward_with_recompute": ev[1].elapsed_time(ev[2]),
+                      "optimizer": ev[2].elapsed_time(ev[3])},
+        "card": card,
+    }), flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -242,22 +606,54 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    profile = "--profile" in sys.argv[1:]
+
+    sources = ["flash_fwd", "flash_bwd"]
     t0 = time.perf_counter()
-    _build.build("flash_fwd")
-    fa._kernel()
-    print(json.dumps({"phase": "build", "kernels": ["flash_fwd"],
-                      "build_s": time.perf_counter() - t0}), flush=True)
+    _build.build_all(sources)  # one nvcc each, all at once
+    for entry in ("flash_fwd_bf16", "flash_fwd_lse_bf16", "flash_bwd_dq_bf16",
+                  "flash_bwd_dkv_bf16"):
+        fa._kernel(entry)
+    print(json.dumps({
+        "phase": "build", "kernels": list(fa.KERNELS),
+        "sources": [f"{n}.cu" for n in sources],
+        "build_s": time.perf_counter() - t0,
+        # <head dim, causal[, with lse]>: registers a thread, spill bytes
+        "ptxas": {k: v for n in sources
+                  for k, v in _build.ptxas_info(n).items()},
+    }), flush=True)
 
     rows = kernel_phase(card)
+    train_rows = train_kernel_phase(card)
+    torch.cuda.empty_cache()
     launches = slice_phase(card)
+    torch.cuda.empty_cache()
+    train_counts = train_phase(card, profile)
 
-    # the main path's largest prefill: the 1000-token prompt's bucket
+    # the serving path's largest prefill: the 1000-token prompt's bucket
     main = rows[(1024, True)]
+    tmain = train_rows[TRAIN_MAIN]
+    tshape = "B4 T2048 H16 KV8 d128 causal bf16"
+    src = "edl_tpu_torch/ops/csrc/"
+    ref = "edl_tpu/ops/flash_attention.py:"
+
+    def train_entry(name, source, replaces, err, ms, plain, library):
+        return {
+            "name": name, "route": "cuda", "source": src + source,
+            "replaces": ref + replaces, "launches": train_counts[name],
+            "max_abs_err": max(r[e] for r in train_rows.values()
+                               for e in err),
+            "ms": tmain[ms], "plain_ms": tmain[plain],
+            "bound_ms": tmain["bound_ms"][name],
+            "bound_by": tmain["bound_by"][name],
+            "library_ms": tmain[library], "shape": tshape,
+        }
+
     summary = {"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "edl_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "edl_tpu/ops/flash_attention.py:100",
+        "source": src + "flash_fwd.cu",
+        "replaces": ref + "100",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
         "ms": main["kernel_ms"],
@@ -266,7 +662,20 @@ def main() -> int:
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shape": "B1 T1024 H32 KV8 d128 causal bf16",
-    }]}
+    },
+        # with_lse=True: the fwd rule _flash_fwd (:363) of the same kernel
+        train_entry("flash_fwd_lse", "flash_fwd.cu", "100",
+                    ["lse_max_abs_err"], "flash_fwd_lse_ms",
+                    "plain_fwd_lse_ms", "library_fwd_ms"),
+        # the plain backward and SDPA's backward each compute dq, dk and
+        # dv in one call: their times stand beside both sweeps
+        train_entry("flash_bwd_dq", "flash_bwd.cu", "226",
+                    ["dq_max_abs_err"], "flash_bwd_dq_ms", "plain_bwd_ms",
+                    "library_bwd_ms"),
+        train_entry("flash_bwd_dkv", "flash_bwd.cu", "287",
+                    ["dk_max_abs_err", "dv_max_abs_err"], "flash_bwd_dkv_ms",
+                    "plain_bwd_ms", "library_bwd_ms"),
+    ]}
     print(json.dumps(summary), flush=True)
     print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

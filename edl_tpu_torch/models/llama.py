@@ -1,13 +1,16 @@
-"""Llama-3-family decoder, serving half — the port of
-``edl_tpu/models/llama.py`` (dense weights, contiguous KV cache).
+"""Llama-3-family decoder — the port of ``edl_tpu/models/llama.py``:
+the serving half (dense weights, contiguous KV cache) and the training
+half (differentiable ``forward`` with per-layer remat, ``make_loss_fn``,
+``synthetic_tokens``, ``train_flops_per_token``).
 
 Params are a dict-of-tensors tree with the reference's keys and its
 scan-stacked layout (every per-layer weight carries a leading
-[n_layers] axis); layer ``i`` reads the ``[i]`` view of each stacked
-leaf. Weights are held in ``cfg.dtype``: the reference casts every f32
-master to ``cfg.dtype`` at its use (``_matw``, ``_rmsnorm``, the
-embedding), so holding them cast is numerically the same and halves
-the memory (16.1 GB for Llama-3-8B in bf16).
+[n_layers] axis). Serving holds the weights in ``cfg.dtype``: the
+reference casts every f32 master to ``cfg.dtype`` at its use
+(``_matw``, ``_rmsnorm``, the embedding), so holding them cast is
+numerically the same and halves the memory (16.1 GB for Llama-3-8B in
+bf16). Training holds f32 masters (``init_params(..., dtype=float32)``)
+and casts at each use, as the reference does.
 
 The numerics follow the reference op for op: RMSNorm variance in f32,
 RoPE angles in f32 with cos/sin cast to the activation dtype, decode
@@ -21,12 +24,18 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from edl_tpu_torch.models.losses import row_mean
+from edl_tpu_torch.obs import costmodel
 from edl_tpu_torch.ops.flash_attention import attention_auto, flash_supported
-from edl_tpu_torch.utils.device import DeviceLike, resolve_device
+from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
+                                        resolve_device)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -43,7 +52,14 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16  # activation (and serving weight) dtype
-    use_flash: bool = False  # prefill attention through ops/flash_attention
+    use_flash: bool = False  # attention through ops/flash_attention
+    # rematerialize each layer in the backward pass: only the [B,T,d]
+    # layer inputs are saved across layers (torch.utils.checkpoint).
+    # Training-only: neither field rides to_meta.
+    remat: bool = False
+    # what the remat saves besides layer inputs: "full" (nothing, the
+    # flagship's) is ported; "attn" / "mlp" / "dots" are not yet
+    remat_policy: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -250,13 +266,51 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
     return _mlp(cfg, x, lp), k, v
 
 
-@torch.no_grad()
-def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig):
-    """tokens [B, T] → logits [B, T, vocab] (f32)."""
+def _remat_policy(cfg: LlamaConfig) -> None:
+    """The remat FLOPs/HBM dial. "full" (recompute everything but the
+    layer input) is torch.utils.checkpoint as it is; the policies that
+    save named residuals are not ported."""
+    if cfg.remat_policy in ("attn", "mlp", "dots"):
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
+            f"Queue A item 2); use remat_policy='full' or remat=False"
+        )
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
+def _unbind_layers(params: Dict) -> List[Dict]:
+    """Per-layer views of the stacked [L, ...] leaves, taken with ONE
+    ``unbind`` per leaf: under autograd its backward stacks the L layer
+    gradients once, where L separate ``[i]`` indexings would each add a
+    full-size [L, ...] zero gradient."""
+    keys = list(params["layers"])
+    cols = [params["layers"][k].unbind(0) for k in keys]
+    return [dict(zip(keys, vals)) for vals in zip(*cols)]
+
+
+def _layer_out(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
+    return _layer(cfg, x, lp, rope)[0]
+
+
+def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            mesh=None, plan=None):
+    """tokens [B, T] → logits [B, T, vocab] (f32). Differentiable: with
+    params that require grad it builds the graph, with ``cfg.remat``
+    each layer is checkpointed (non-reentrant) and recomputed in the
+    backward. Serving params do not require grad, so serving builds no
+    graph. A sharding ``plan``/``mesh`` raises (not ported yet)."""
+    require_unsharded(plan, mesh, "llama.forward")
+    if cfg.remat:
+        _remat_policy(cfg)
     x = _embed(params, tokens, cfg)
     rope = _rope_tables(cfg, tokens.shape[1], x.device)
-    for i in range(cfg.n_layers):
-        x, _, _ = _layer(cfg, x, _layer_params(params, i), rope)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _unbind_layers(params):
+        if remat:
+            x = checkpoint(_layer_out, cfg, x, lp, rope, use_reentrant=False)
+        else:
+            x = _layer_out(cfg, x, lp, rope)
     x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
     return _matw(x, params["lm_head"]).float()
 
@@ -435,3 +489,51 @@ def generate(
             pos = torch.full((b,), t0 + i, dtype=torch.long, device=dev)
             logits, kc, vc = decode_step_slots(params, tok, pos, kc, vc, cfg)
     return torch.stack(out, dim=1)
+
+
+# -- training -----------------------------------------------------------------
+
+
+def train_flops_per_token(cfg: LlamaConfig, seq: int) -> float:
+    """Model FLOPs per trained token (fwd+bwd), the MFU numerator:
+    6 × matmul params (embedding lookup excluded, lm_head included) plus
+    causal attention 12·L·(T/2)·d_attn; remat recompute is not counted.
+    The formula lives in ``obs/costmodel.py``."""
+    return costmodel.train_flops_per_token(cfg, seq)
+
+
+def make_loss_fn(cfg: LlamaConfig, plan=None, mesh=None):
+    """Next-token cross entropy; batch = {tokens [B, T+1]} (plus the
+    runtime's optional real-row weights ``_w`` [B]). Per-row mean over T
+    of ``logsumexp − target logit`` on the f32 logits, then
+    :func:`row_mean`. A sharding ``plan``/``mesh`` raises."""
+    require_unsharded(plan, mesh, "llama.make_loss_fn")
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        logits = forward(params, inputs, cfg)
+        b, t, v = logits.shape
+        ce = F.cross_entropy(logits.reshape(b * t, v),
+                             targets.reshape(b * t).long(),
+                             reduction="none").reshape(b, t)
+        return row_mean(ce.mean(dim=-1), batch)
+
+    return loss_fn
+
+
+def synthetic_tokens(
+    rng: np.random.RandomState, batch: int, seq: int, vocab: int
+) -> Dict[str, np.ndarray]:
+    """Markov-ish synthetic text: next token correlates with current, so
+    the loss curve has signal. The reference's draws, in its order, so
+    one seed gives the same arrays on both sides."""
+    toks = np.zeros((batch, seq + 1), np.int32)
+    toks[:, 0] = rng.randint(0, vocab, batch)
+    drift = rng.randint(1, 7, (batch,))
+    for t in range(1, seq + 1):
+        noise = rng.rand(batch) < 0.1
+        toks[:, t] = np.where(
+            noise, rng.randint(0, vocab, batch), (toks[:, t - 1] + drift) % vocab
+        )
+    return {"tokens": toks}

@@ -3,30 +3,37 @@ through ``ctypes``.
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with
 a plain C interface (no PyTorch headers: a build takes seconds, not
-minutes). The library lands in ``edl_tpu_torch/_build/`` (gitignored)
-under a name that carries the hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads the cached library.
-A failed build raises with nvcc's own error output. Only the sources in
-this package are ever compiled.
+minutes); :func:`build_all` runs one nvcc per source, all at once. The
+library lands in ``edl_tpu_torch/_build/`` (gitignored) under a name
+that carries the hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source or header rebuilds and an unchanged
+one loads the cached library.
+A failed build raises with nvcc's own error output; a good one keeps
+ptxas's report (registers and spills per kernel, ``-Xptxas -v``) beside
+the library, read by :func:`ptxas_info`. Only the sources in this
+package are ever compiled.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "ops", "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS: List[str] = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -49,9 +56,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to for its current content."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to for its current content (and
+    that of every shared header)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -74,11 +85,49 @@ def build(name: str) -> str:
                 f"nvcc failed building {name}.cu (rc {res.returncode}):\n"
                 f"{' '.join(cmd)}\n{res.stderr}{res.stdout}"
             )
+        with open(out[:-3] + ".ptxas.txt", "w") as f:
+            f.write(res.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def ptxas_info(name: str) -> Dict[str, Dict[str, int]]:
+    """Registers a thread and spill bytes (stores + loads) of every
+    kernel of the built ``csrc/<name>.cu``, from ptxas's report; kernels
+    are named ``<function><template args>``, e.g. ``flash_bwd_dkv<128,1>``."""
+    with open(library_path(name)[:-3] + ".ptxas.txt") as f:
+        lines = f.read().splitlines()
+    info: Dict[str, Dict[str, int]] = {}
+    kernel = None
+    for line in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(\w+)_kernelI((?:Li\d+E|Lb[01]E)+)", m.group(1))
+            # the mangled name is <namespace hash><length><name>: the
+            # kernel's name follows the last digit (it has none itself)
+            kernel = (re.sub(r"^.*\d", "", k.group(1)) + "<"
+                      + ",".join(re.findall(r"L[ib](\d+)E", k.group(2)))
+                      + ">") if k else m.group(1)
+            info[kernel] = {"registers": 0, "spill_bytes": 0}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and kernel:
+            info[kernel]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            info[kernel]["registers"] = int(m.group(1))
+    return info
+
+
+def build_all(names: Sequence[str]) -> List[str]:
+    """:func:`build` every source in ``names`` at once, one nvcc process
+    each; returns the library paths in order."""
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,11 @@
 // Causal / full GQA flash-attention forward for Hopper (sm_90a), bf16.
 //
-// Replaces edl_tpu/ops/flash_attention.py::_flash_kernel on its primal,
-// no-gradient path (with_lse=False): the attention that every serving
-// prefill runs when LlamaConfig.use_flash is set.
+// Replaces edl_tpu/ops/flash_attention.py::_flash_kernel on both of its
+// paths: the primal, no-gradient one (with_lse=False, entry
+// flash_fwd_bf16), which every serving prefill runs when
+// LlamaConfig.use_flash is set, and the training one (with_lse=True,
+// _flash_fwd, entry flash_fwd_lse_bf16), which also writes the per-row
+// base-2 logsumexp the backward kernels (flash_bwd.cu) consume.
 //
 // What it computes is _flash_kernel's function, not its grid:
 //   s = (q . k^T) * sm_scale * log2(e)         f32 accumulation
@@ -13,42 +16,46 @@
 //   alpha = exp2(m - m_new), l = l*alpha + rowsum(p) (p in f32),
 //   acc = acc*alpha + bf16(p) . v                f32 accumulation
 //   out = bf16(acc / max(l, 1e-20))
+//   with lse: lse = m + log2(max(l, 1e-20)), f32, one value per valid
+//   row in a compact [B*H, T] array (the TPU kernel's lane-replicated
+//   [.., 128] layout was a Mosaic constraint; rows past T are not
+//   written)
 // Query head h reads KV head h / (H / KV); K/V are never repeated.
 //
 // Bound on an H100 SXM: the larger of FLOPs / 989 TF/s (bf16 tensor
-// cores) and bytes / 3.35 TB/s (q, k, v read once, out written once).
-// At the serving shapes (d = 128, T >= 128) it is bound by operations.
+// cores) and bytes / 3.35 TB/s (q, k, v read once, out and lse written
+// once). At the serving and training shapes (d = 128, T >= 128) it is
+// bound by operations.
 //
 // Design, simple by intent: one thread block of 4 warps per
 // (b*h, 64-query tile); the Q tile is staged through shared memory into
 // registers, then a loop inside the block walks 64-key K/V tiles up to
 // the causal limit. Each warp owns 16 query rows and runs both products
 // on mma.sync m16n8k16 (bf16 in, f32 accumulate); the S accumulator is
-// re-packed in registers as the A operand of P.V. No cp.async, no
+// re-packed in registers as the A operand of P.V. The lse costs one
+// log2 and one f32 store per row at the end. No cp.async, no
 // pipelining, no wgmma/TMA: those are left to a later change that makes
 // the kernel fast. Built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
-// and called through the plain C entry point flash_fwd_bf16 (ctypes).
-// The kernel allocates nothing and does not synchronise; it launches on
-// the stream it is given.
+// and called through the plain C entry points (ctypes). The kernel
+// allocates nothing and does not synchronise; it launches on the stream
+// it is given.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // keys per K/V tile
-constexpr int kThreads = 128; // 4 warps x 16 query rows
-constexpr float kNegInf = -1e30f;
+using namespace edl;
+constexpr int kBQ = kTile;  // query rows per block
+constexpr int kBK = kTile;  // keys per K/V tile
 
 struct Args {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // [B*H, T] compact, written only by the kWithLse variant
   int T, H, groups;
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
@@ -57,48 +64,7 @@ struct Args {
   float scale;  // sm_scale * log2(e)
 };
 
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x -> low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  uint32_t a = *reinterpret_cast<unsigned short*>(&lo);
-  uint32_t b = *reinterpret_cast<unsigned short*>(&hi);
-  return a | (b << 16);
-}
-
-// D (16x8 f32) += A (16x16 bf16, row) . B (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 64 rows x D of a [.., T, .., D] tensor into shared memory (row stride
-// LD elements), 16 bytes per thread per step; rows past `valid` are
-// zero-filled so no stale bits reach the products.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g,
-                                          long long row_stride, int valid) {
-  constexpr int kVecPerRow = D / 8;
-  for (int i = threadIdx.x; i < 64 * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) {
-      val = *reinterpret_cast<const uint4*>(g + r * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(s + r * LD + c) = val;
-  }
-}
-
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kWithLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(Args p) {
   constexpr int LD = D + 8;  // padded row: conflict-free fragment loads
@@ -129,17 +95,9 @@ __global__ void __launch_bounds__(kThreads)
 
   // Q fragments (A operand, 16 rows x D) stay in registers
   uint32_t qf[D / 16][4];
-  {
-    const __nv_bfloat16* qs = sQ + (warp * 16) * LD;
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-      const __nv_bfloat16* base = qs + kc * 16 + 2 * t;
-      qf[kc][0] = *reinterpret_cast<const uint32_t*>(base + g * LD);
-      qf[kc][1] = *reinterpret_cast<const uint32_t*>(base + (g + 8) * LD);
-      qf[kc][2] = *reinterpret_cast<const uint32_t*>(base + g * LD + 8);
-      qf[kc][3] =
-          *reinterpret_cast<const uint32_t*>(base + (g + 8) * LD + 8);
-    }
+  for (int kc = 0; kc < D / 16; ++kc) {
+    mma_a_from_smem<LD>(qf[kc], sQ + (warp * 16) * LD, kc * 16, g, t);
   }
 
   float acc[D / 8][4];
@@ -166,13 +124,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = sK + (nt * 8 + g) * LD + 2 * t;
 #pragma unroll
       for (int kc = 0; kc < D / 16; ++kc) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(kr + kc * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + kc * 16 + 8);
+        uint32_t b0, b1;
+        mma_b_nmajor<LD>(b0, b1, sK + (nt * 8) * LD + kc * 16, g, t);
         mma_bf16(s[nt], qf[kc], b0, b1);
       }
     }
@@ -225,21 +180,15 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // acc += bf16(P) . V — the S accumulator layout of two adjacent
-    // 8-key tiles is exactly the A fragment of one 16-key chunk
+    // acc += bf16(P) . V -- P never leaves registers
 #pragma unroll
     for (int kc = 0; kc < kBK / 16; ++kc) {
       uint32_t a[4];
-      a[0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const __nv_bfloat16* vr = sV + (kc * 16 + 2 * t) * LD + g;
+      mma_a_from_acc(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vc = vr + dt * 8;
-        const uint32_t b0 = pack_raw(vc[0], vc[LD]);
-        const uint32_t b1 = pack_raw(vc[8 * LD], vc[9 * LD]);
+        uint32_t b0, b1;
+        mma_b_kmajor<LD>(b0, b1, sV + (kc * 16) * LD + dt * 8, g, t);
         mma_bf16(acc[dt], a, b0, b1);
       }
     }
@@ -256,20 +205,59 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t w = pack_f32(acc[dt][2 * r] / l, acc[dt][2 * r + 1] / l);
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) = w;
     }
+    // the four threads of a row group hold the same m and l: one writes
+    if (kWithLse && t == 0) {
+      p.lse[static_cast<long long>(bh) * T + row] = m_run[r] + log2f(l);
+    }
   }
 }
 
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kWithLse>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   constexpr int LD = D + 8;
   const int smem = (kBQ + 2 * kBK) * LD * int(sizeof(__nv_bfloat16));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kCausal>,
+      flash_fwd_kernel<D, kCausal, kWithLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.T + kBQ - 1) / kBQ, B * a.H);
-  flash_fwd_kernel<D, kCausal><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<D, kCausal, kWithLse><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <bool kWithLse>
+int dispatch(const Args& a, int B, int D, int causal, cudaStream_t st) {
+  cudaError_t err;
+  if (D == 64) {
+    err = causal ? launch<64, true, kWithLse>(a, B, st)
+                 : launch<64, false, kWithLse>(a, B, st);
+  } else if (D == 128) {
+    err = causal ? launch<128, true, kWithLse>(a, B, st)
+                 : launch<128, false, kWithLse>(a, B, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return int(err);
+}
+
+bool fill(Args& a, const void* q, const void* k, const void* v, void* o,
+          float* lse, int B, int T, int H, int KV, const long long* s,
+          float scale) {
+  if (T < 1 || B < 1 || KV < 1 || H % KV != 0) return false;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
+  a.T = T;
+  a.H = H;
+  a.groups = H / KV;
+  a.q_sb = s[0]; a.q_st = s[1]; a.q_sh = s[2];
+  a.k_sb = s[3]; a.k_st = s[4]; a.k_sh = s[5];
+  a.v_sb = s[6]; a.v_st = s[7]; a.v_sh = s[8];
+  a.o_sb = s[9]; a.o_st = s[10]; a.o_sh = s[11];
+  a.scale = scale;
+  return true;
 }
 
 }  // namespace
@@ -284,30 +272,29 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               long long v_sb, long long v_st, long long v_sh,
                               long long o_sb, long long o_st, long long o_sh,
                               float scale, int causal, void* stream) {
-  if (T < 1 || B < 1 || KV < 1 || H % KV != 0) {
+  const long long s[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                           v_sb, v_st, v_sh, o_sb, o_st, o_sh};
+  Args a;
+  if (!fill(a, q, k, v, o, nullptr, B, T, H, KV, s, scale)) {
     return int(cudaErrorInvalidValue);
   }
+  return dispatch<false>(a, B, D, causal,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// As flash_fwd_bf16, plus lse: f32 [B*H, T] contiguous (row b*H + h).
+extern "C" int flash_fwd_lse_bf16(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int T, int H, int KV, int D, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+    long long v_sb, long long v_st, long long v_sh, long long o_sb,
+    long long o_st, long long o_sh, float scale, int causal, void* stream) {
+  const long long s[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                           v_sb, v_st, v_sh, o_sb, o_st, o_sh};
   Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.o = static_cast<__nv_bfloat16*>(o);
-  a.T = T;
-  a.H = H;
-  a.groups = H / KV;
-  a.q_sb = q_sb; a.q_st = q_st; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_st = k_st; a.k_sh = k_sh;
-  a.v_sb = v_sb; a.v_st = v_st; a.v_sh = v_sh;
-  a.o_sb = o_sb; a.o_st = o_st; a.o_sh = o_sh;
-  a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 64) {
-    err = causal ? launch<64, true>(a, B, st) : launch<64, false>(a, B, st);
-  } else if (D == 128) {
-    err = causal ? launch<128, true>(a, B, st) : launch<128, false>(a, B, st);
-  } else {
-    err = cudaErrorInvalidValue;
+  if (lse == nullptr ||
+      !fill(a, q, k, v, o, static_cast<float*>(lse), B, T, H, KV, s, scale)) {
+    return int(cudaErrorInvalidValue);
   }
-  return int(err);
+  return dispatch<true>(a, B, D, causal, static_cast<cudaStream_t>(stream));
 }

@@ -51,3 +51,15 @@ def tree_device(tree) -> Optional[torch.device]:
         if d is not None:
             return d
     return None
+
+
+def require_unsharded(plan=None, mesh=None, what: str = "this path") -> None:
+    """Raise unless ``plan``/``mesh`` describe one device: the port runs
+    on one card until the mesh slice lands. ``plan`` is duck typed as
+    the reference's ``MeshPlan`` (``axes`` = ((name, size), ...))."""
+    sharded = [(a, n) for a, n in getattr(plan, "axes", ()) if n > 1]
+    if mesh is not None or sharded:
+        raise NotImplementedError(
+            f"{what}: mesh/sharding plans {sharded or mesh} are not ported "
+            f"yet (ROADMAP Queue A item 2); the port trains on one card"
+        )

@@ -1,14 +1,44 @@
 """Hopper kernels of edl_tpu_torch on the card, held against their
-plain PyTorch versions. Needs a CUDA card and nvcc; skips without one.
-This file imports no JAX, so it runs on a machine without it:
+plain PyTorch versions, and one training step on the card. Needs a CUDA
+card and nvcc; skips without one. This file imports no JAX, so it runs
+on a machine without it:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from edl_tpu_torch.ops import flash_attention as tfa
+
+# bf16 backward tolerance: |kernel - plain| <= 1e-2 * max|plain| +
+# 2^-7 * |plain|. Both sides round p and ds to bf16 before the same
+# products and sum in f32 in different orders, then round the result to
+# bf16 (one ulp is 2^-8 relative); the absolute term covers entries near
+# zero, whose sums cancel.
+GRAD_ATOL_OF_MAX = 1e-2
+# lse is f32 on both sides, from the same base-2 online softmax on the
+# same 64 x 64 tiles: only the f32 summation order of s and l differs.
+LSE_ATOL = 1e-4
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+def _plain_block(t):
+    """The kernels' 64-row tiles where T divides them; else one block,
+    the reference's own blocking below T=128 (T=100)."""
+    return 64 if t % 64 == 0 else t
+
+
+def _randn(gen, *shape):
+    return torch.randn(*shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -18,14 +48,9 @@ def test_cuda_kernel_matches_plain_version(t, causal):
     """The Hopper kernel against flash_attention_ref on the card (bf16,
     H=32, KV=8, d=128). Tolerance: 2e-2 absolute plus 2^-7 relative —
     both sides round the output to bf16 and sum in different orders."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _need_card()
     gen = torch.Generator(device="cuda").manual_seed(t)
-    q, k, v = (
-        torch.randn(1, t, n, 128, generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-        for n in (32, 8, 8)
-    )
+    q, k, v = (_randn(gen, 1, t, n, 128) for n in (32, 8, 8))
     before = tfa.launches
     got = tfa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -33,3 +58,82 @@ def test_cuda_kernel_matches_plain_version(t, causal):
     want = tfa.flash_attention_ref(q, k, v, causal, 64, 64)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2 ** -7)
+
+
+def _assert_grad_close(got, want, name):
+    want = want.float()
+    diff = (got.float() - want).abs()
+    tol = GRAD_ATOL_OF_MAX * want.abs().max() + 2 ** -7 * want.abs()
+    assert torch.isfinite(got.float()).all(), name
+    assert bool((diff <= tol).all()), (
+        f"{name}: max abs err {float(diff.max())}, "
+        f"max |plain| {float(want.abs().max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [100, 128, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads", [(32, 8), (16, 8)])
+def test_cuda_training_kernels_match_plain_versions(t, causal, heads):
+    """flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv against
+    flash_attention_lse_ref / flash_attention_bwd_ref on the card (bf16,
+    d=128, the plain versions on the kernels' 64 x 64 tiles). T=100 is
+    the ragged edge the kernels mask themselves (the plain versions take
+    it as one block)."""
+    _need_card()
+    h, kv = heads
+    b = 2
+    gen = torch.Generator(device="cuda").manual_seed(t + 7 * causal + h)
+    q = _randn(gen, b, t, h, 128)
+    k, v = (_randn(gen, b, t, kv, 128) for _ in range(2))
+    do = _randn(gen, b, t, h, 128)
+    counts = tfa.launch_counts()
+    out, lse = tfa.flash_attention_lse_cuda(q, k, v, causal)
+    dq, dk, dv = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    after = tfa.launch_counts()
+    assert {n: after[n] - counts[n] for n in tfa.KERNELS} == {
+        "flash_fwd": 0, "flash_fwd_lse": 1, "flash_bwd_dq": 1,
+        "flash_bwd_dkv": 1}
+    blk = _plain_block(t)
+    want_out, want_lse = tfa.flash_attention_lse_ref(q, k, v, causal, blk,
+                                                     blk)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL, rtol=0)
+    # the backward from the same residuals on both sides
+    want = tfa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, blk,
+                                       blk)
+    for g, w, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        _assert_grad_close(g, w, name)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launch_counts():
+    """One make_train_step step of a small Llama on the card, full remat:
+    per layer the lse forward runs twice (the first forward and the
+    recompute both run with grad on, as the reference's fwd rule runs in
+    both) and each backward sweep once; the primal forward never."""
+    _need_card()
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.train import trainer
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig(vocab=512, d_model=256, n_layers=2, n_heads=2,
+                          n_kv_heads=1, d_ff=512),
+        use_flash=True, remat=True)
+    params = llama.init_params(cfg, seed=0, dtype=torch.float32)
+    tx = trainer.adamw(1e-3)
+    state = trainer.TrainState.create(params, tx)
+    batch = {"tokens": torch.from_numpy(llama.synthetic_tokens(
+        np.random.RandomState(0), 2, 256, cfg.vocab)["tokens"]).cuda()}
+    step = trainer.make_train_step(llama.make_loss_fn(cfg), tx)
+    tfa.reset_launches()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"])
+    assert state.step == 1
+    L = cfg.n_layers
+    assert tfa.launch_counts() == {"flash_fwd": 0, "flash_fwd_lse": 2 * L,
+                                   "flash_bwd_dq": L, "flash_bwd_dkv": L}
