@@ -11,27 +11,36 @@
 2. Kernel phase: the flash-attention forward kernel against its plain
    PyTorch version (``flash_attention_ref``) on the card, bf16, B=1,
    H=32, KV=8, d=128 (Llama-3-8B's attention), T in {8, 128, 1024,
-   1536, 2048}, causal and not. Tolerance: |kernel - plain| <=
-   2e-2 + 2^-7 * |plain| elementwise — both round the output to bf16
-   (one ulp is 2^-8 relative) and sum in different orders; the plain
-   version runs on the kernel's 64 x 64 tiles so P is rounded against
-   the same running maxima. Times (CUDA events, after warm-up, inputs
-   left warm in L2 as a prefill leaves them) for the kernel, the plain
-   version and ``scaled_dot_product_attention`` as a yardstick only.
+   1536, 2048}, causal and not; and d=64 at T=1024, causal and not,
+   where the lse variant is held to its plain version too, so every
+   instantiation of the forward template is checked. Tolerance:
+   |kernel - plain| <= 2e-2 + 2^-7 * |plain| elementwise — both round
+   the output to bf16 (one ulp is 2^-8 relative) and sum in different
+   orders; the plain version runs on the kernel's 128 x 128 tiles (one
+   block below T=128) so P is rounded against the same running maxima.
+   Times for the kernel and ``scaled_dot_product_attention`` (a
+   yardstick only): device time a call, on CUDA events around calls the
+   host has queued behind a sleep kernel (after warm-up, inputs left
+   warm in L2 as a prefill leaves them), so the host's launch overhead
+   is not in it; ``kernel_call_ms`` is the kernel's time a call with the
+   host in the loop. The plain version, hundreds of small launches a
+   call, is host-bound: its time is a call's on CUDA events with the
+   host in the loop.
 3. Training-kernel phase: the lse forward and the dQ and dK/dV backward
    kernels against ``flash_attention_lse_ref`` / ``flash_attention_bwd_ref``
    on the card, bf16, d=128: B=4 T=2048 H=16 KV=8 causal (the flagship's
    attention, the main shape), T in {100, 128, 1024} causal, T=1024
    non-causal (H=16, KV=8), and H=32 KV=8 at T=1024. Tolerances: the
    forward output as in 2; lse |kernel - plain| <= 1e-4 (f32 on both
-   sides, same tiles, only the f32 summation order differs); dq/dk/dv
-   <= 1e-2 * max|plain| + 2^-7 * |plain| (both round p and ds to bf16
-   before the same products, sum in f32 in different orders, and round
-   the result to bf16; the absolute term covers entries whose sums
-   cancel). The backward is compared from the kernel's own residuals.
-   Times for each kernel, the plain versions, and SDPA
-   (``enable_gqa=True``) forward and ``backward`` under autograd as the
-   library yardstick (never called by the port).
+   sides, the forward's 128 x 128 tiles, only the f32 summation order
+   differs); dq/dk/dv <= 1e-2 * max|plain| + 2^-7 * |plain| (both
+   round p and ds to bf16 before the same products, sum in f32 in
+   different orders, and round the result to bf16; the absolute term
+   covers entries whose sums cancel). The backward is compared from
+   the kernel's own residuals. Times (as in 2) for each kernel, the
+   plain versions, and SDPA (``enable_gqa=True``) forward and
+   ``backward`` under autograd as the library yardstick (never called
+   by the port).
 4. Slice phase: Llama-3-8B at full width and depth, bf16,
    ``use_flash=True``, random weights from a seeded generator on the
    card, served through ``ContinuousBatchingEngine`` (8 slots x 2048
@@ -55,7 +64,9 @@
    path's: loss within 1e-4 relative, every leaf's gradient cosine
    >= 0.999.
 
-Prints one JSON line per phase, then ``{"kernels": [...]}``, then the
+Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
+kernel's device ms, its bound, TF/s and bound share at its main-path
+shape, and its launches on the main path), then the
 card's name and power limit, then ``{"ok": true, "device": ...}`` as
 the last line. Any failure raises (non-zero exit); without CUDA it
 exits 1 before printing any result. Needs one card.
@@ -74,7 +85,11 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TEACHER_EPS = 0.1  # chosen logit within EPS x row std of the row max
-KERNEL_SHAPES = [(t, c) for t in (8, 128, 1024, 1536, 2048) for c in (True, False)]
+# primal forward: (T, causal, head dim); Llama-3-8B's attention at d=128,
+# and d=64 so that every instantiation of the template is checked
+KERNEL_SHAPES = ([(t, c, 128) for t in (8, 128, 1024, 1536, 2048)
+                  for c in (True, False)]
+                 + [(1024, True, 64), (1024, False, 64)])
 # training kernels: (B, T, H, KV, causal); the first is the main shape
 TRAIN_MAIN = (4, 2048, 16, 8, True)
 TRAIN_SHAPES = [TRAIN_MAIN, (4, 100, 16, 8, True), (4, 128, 16, 8, True),
@@ -113,6 +128,12 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _plain_block(t):
+    """The forward kernel's 128 x 128 tiles where T divides them, else
+    one block (the reference's own blocking below T=128)."""
+    return 128 if t % 128 == 0 else t
+
+
 def _bound(b, t, h, kv, d, causal, flops_per_pair=4, q_like=2, kv_like=2,
            rows_f32=0):
     """Least time on the card: the larger of the FLOPs over the bf16 peak
@@ -120,14 +141,28 @@ def _bound(b, t, h, kv, d, causal, flops_per_pair=4, q_like=2, kv_like=2,
     live (query, key) pair per query head (4 for the forward's two
     products, 2 more per further product); ``q_like`` bf16 [B,T,H,d]
     and ``kv_like`` bf16 [B,T,KV,d] tensors each read or written once,
-    plus ``rows_f32`` f32 [B,H,T] rows (lse, delta)."""
+    plus ``rows_f32`` f32 [B,H,T] rows (lse, delta). Returns (ms, what
+    bounds it, FLOPs)."""
     pairs = t * (t + 1) // 2 if causal else t * t
     flops = float(flops_per_pair) * d * h * b * pairs
     nbytes = (2.0 * (q_like * b * t * h * d + kv_like * b * t * kv * d)
               + 4.0 * rows_f32 * b * h * t)
     f_ms = flops / PEAK_BF16_FLOPS * 1e3
     b_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes")
+    return (max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes"),
+            flops)
+
+
+def _check_out(got, want, what):
+    """Max abs error; raises past 2e-2 + 2^-7 * |plain| elementwise."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    tol_ok = bool((diff <= 2e-2 + 2 ** -7 * want.float().abs()).all())
+    if not (torch.isfinite(got.float()).all() and tol_ok):
+        raise AssertionError(f"{what}: max abs err {err}")
+    return err
 
 
 def kernel_phase(card):
@@ -135,42 +170,55 @@ def kernel_phase(card):
     import torch.nn.functional as F
 
     from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.ops.bench_flash import device_ms
 
     rows = {}
-    for t, causal in KERNEL_SHAPES:
-        gen = torch.Generator(device="cuda").manual_seed(t + causal)
+    for t, causal, d in KERNEL_SHAPES:
+        where = f"T={t} causal={causal} d={d}"
+        gen = torch.Generator(device="cuda").manual_seed(t + causal + d)
         q, k, v = (
-            torch.randn(1, t, n, 128, generator=gen, device="cuda",
+            torch.randn(1, t, n, d, generator=gen, device="cuda",
                         dtype=torch.bfloat16)
             for n in (32, 8, 8)
         )
         got = fa.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        want = fa.flash_attention_ref(q, k, v, causal, 64, 64)
-        diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        tol_ok = bool((diff <= 2e-2 + 2 ** -7 * want.float().abs()).all())
-        if not (torch.isfinite(got.float()).all() and tol_ok):
-            raise AssertionError(f"flash kernel disagrees at T={t} "
-                                 f"causal={causal}: max abs err {err}")
+        blk = _plain_block(t)
+        want_out, want_lse = fa.flash_attention_lse_ref(q, k, v, causal, blk,
+                                                        blk)
+        err = _check_out(got, want_out, f"flash_fwd at {where}")
+        row = {"phase": "kernel", "kernel": "flash_fwd", "T": t,
+               "causal": causal, "d": d, "max_abs_err": err}
+        if d == 64:  # the lse instantiations the training phase skips
+            out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+            torch.cuda.synchronize()
+            row["lse_out_max_abs_err"] = _check_out(
+                out, want_out, f"flash_fwd_lse at {where}")
+            lse_err = float((lse - want_lse).abs().max())
+            if not (torch.isfinite(lse).all() and lse_err <= LSE_ATOL):
+                raise AssertionError(f"flash_fwd_lse lse disagrees at "
+                                     f"{where}: max abs err {lse_err}")
+            row["lse_max_abs_err"] = lse_err
+        del want_out, want_lse
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, is_causal=causal, enable_gqa=True)
-        kernel_ms = _time_ms(lambda: fa.flash_attention(q, k, v, causal), 20)
-        ref_ms = _time_ms(
-            lambda: fa.flash_attention_ref(q, k, v, causal, 64, 64), 3, 1)
-        library_ms = _time_ms(lib, 20)
-        bound_ms, bound_by = _bound(1, t, 32, 8, 128, causal)
-        row = {
-            "phase": "kernel", "kernel": "flash_fwd", "T": t,
-            "causal": causal, "max_abs_err": err,
+        kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal),
+                               20)
+        bound_ms, bound_by, flops = _bound(1, t, 32, 8, d, causal)
+        row.update({
             "tol": "2e-2 + 2^-7*|plain|", "kernel_ms": kernel_ms,
-            "ref_ms": ref_ms, "library_ms": library_ms,
+            "kernel_call_ms": _time_ms(
+                lambda: fa.flash_attention(q, k, v, causal), 20),
+            "ref_ms": _time_ms(lambda: fa.flash_attention_ref(
+                q, k, v, causal, blk, blk), 2, 1),
+            "library_ms": device_ms(lib, 20),
             "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+            "tflops": flops / kernel_ms / 1e9,
             "card": card,
-        }
+        })
         print(json.dumps(row), flush=True)
-        rows[(t, causal)] = row
+        rows[(t, causal, d)] = row
     return rows
 
 
@@ -195,6 +243,7 @@ def train_kernel_phase(card):
     import torch.nn.functional as F
 
     from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.ops.bench_flash import device_ms
 
     rows = {}
     for shape in TRAIN_SHAPES:
@@ -208,13 +257,10 @@ def train_kernel_phase(card):
         out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
         dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
-        blk = 64 if t % 64 == 0 else t  # one block below T=128 (T=100)
+        blk = _plain_block(t)
         want_out, want_lse = fa.flash_attention_lse_ref(q, k, v, causal, blk,
                                                         blk)
-        diff = (out.float() - want_out.float()).abs()
-        if not bool((diff <= 2e-2 + 2 ** -7 * want_out.float().abs()).all()):
-            raise AssertionError(f"flash_fwd_lse output disagrees at {where}:"
-                                 f" max abs err {float(diff.max())}")
+        _check_out(out, want_out, f"flash_fwd_lse output at {where}")
         lse_err = float((lse - want_lse).abs().max())
         if not (torch.isfinite(lse).all() and lse_err <= LSE_ATOL):
             raise AssertionError(f"flash_fwd_lse lse disagrees at {where}: "
@@ -241,17 +287,17 @@ def train_kernel_phase(card):
                 qt, kt, vt, is_causal=causal, enable_gqa=True)
 
         lib_out = lib_fwd()
-        lib_fwd_ms = _time_ms(lib_fwd, 10)
-        lib_bwd_ms = _time_ms(lambda: torch.autograd.grad(
+        lib_fwd_ms = device_ms(lib_fwd, 10)
+        lib_bwd_ms = device_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dot, retain_graph=True), 10)
         del lib_out
         delta = fa._delta(out, do).contiguous()
-        fwd_ms = _time_ms(lambda: fa.flash_attention_lse_cuda(q, k, v, causal),
-                          10)
-        dq_ms = _time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                      causal), 10)
-        dkv_ms = _time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse,
-                                                        delta, causal), 10)
+        fwd_ms = device_ms(
+            lambda: fa.flash_attention_lse_cuda(q, k, v, causal), 10)
+        dq_ms = device_ms(lambda: fa.flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, causal), 10)
+        dkv_ms = device_ms(lambda: fa.flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, causal), 10)
         plain_fwd_ms = _time_ms(lambda: fa.flash_attention_lse_ref(
             q, k, v, causal, blk, blk), 1, 1)
         plain_bwd_ms = _time_ms(plain_bwd, 1, 1)
@@ -276,6 +322,7 @@ def train_kernel_phase(card):
             "library_bwd_ms": lib_bwd_ms,
             "bound_ms": {n: v[0] for n, v in bounds.items()},
             "bound_by": {n: v[1] for n, v in bounds.items()},
+            "flops": {n: v[2] for n, v in bounds.items()},
             "card": card,
         }
         rows[shape] = row
@@ -631,42 +678,42 @@ def main() -> int:
     train_counts = train_phase(card, profile)
 
     # the serving path's largest prefill: the 1000-token prompt's bucket
-    main = rows[(1024, True)]
+    main = rows[(1024, True, 128)]
     tmain = train_rows[TRAIN_MAIN]
     tshape = "B4 T2048 H16 KV8 d128 causal bf16"
     src = "edl_tpu_torch/ops/csrc/"
     ref = "edl_tpu/ops/flash_attention.py:"
 
-    def train_entry(name, source, replaces, err, ms, plain, library):
+    def entry(name, source, replaces, launched, err, ms, plain, bound,
+              library, shape):
         return {
             "name": name, "route": "cuda", "source": src + source,
-            "replaces": ref + replaces, "launches": train_counts[name],
-            "max_abs_err": max(r[e] for r in train_rows.values()
-                               for e in err),
-            "ms": tmain[ms], "plain_ms": tmain[plain],
-            "bound_ms": tmain["bound_ms"][name],
-            "bound_by": tmain["bound_by"][name],
-            "library_ms": tmain[library], "shape": tshape,
+            "replaces": ref + replaces, "launches": launched,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library, "tflops": bound[2] / ms / 1e9,
+            "bound_share": bound[0] / ms, "shape": shape,
         }
 
-    summary = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": src + "flash_fwd.cu",
-        "replaces": ref + "100",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
-        "ms": main["kernel_ms"],
-        "plain_ms": main["ref_ms"],
-        "bound_ms": main["bound_us"] / 1e3,
-        "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"],
-        "shape": "B1 T1024 H32 KV8 d128 causal bf16",
-    },
+    def train_entry(name, source, replaces, errs, ms, plain, library):
+        err = max(r[e] for r in list(train_rows.values()) + list(rows.values())
+                  for e in errs if e in r)
+        return entry(name, source, replaces, train_counts[name], err,
+                     tmain[ms], tmain[plain],
+                     (tmain["bound_ms"][name], tmain["bound_by"][name],
+                      tmain["flops"][name]),
+                     tmain[library], tshape)
+
+    summary = {"kernels": [
+        entry("flash_fwd", "flash_fwd.cu", "100", launches,
+              max(r["max_abs_err"] for r in rows.values()),
+              main["kernel_ms"], main["ref_ms"],
+              _bound(1, 1024, 32, 8, 128, True), main["library_ms"],
+              "B1 T1024 H32 KV8 d128 causal bf16"),
         # with_lse=True: the fwd rule _flash_fwd (:363) of the same kernel
         train_entry("flash_fwd_lse", "flash_fwd.cu", "100",
-                    ["lse_max_abs_err"], "flash_fwd_lse_ms",
-                    "plain_fwd_lse_ms", "library_fwd_ms"),
+                    ["lse_max_abs_err"],
+                    "flash_fwd_lse_ms", "plain_fwd_lse_ms", "library_fwd_ms"),
         # the plain backward and SDPA's backward each compute dq, dk and
         # dv in one call: their times stand beside both sweeps
         train_entry("flash_bwd_dq", "flash_bwd.cu", "226",

@@ -34,6 +34,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS: List[str] = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # the static CUDA runtime, through which flash_fwd.cu reaches the
+    # driver's cuTensorMapEncodeTiled (cudaGetDriverEntryPointByVersion):
+    # no -lcuda at build time
+    "-cudart", "static",
 ]
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
-// Register-level building blocks shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu): bf16 packing, the mma.sync m16n8k16
-// product, and the 64-row tile copy into shared memory.
+// Register-level building blocks of the flash-attention backward kernels
+// (flash_bwd.cu): bf16 packing, the mma.sync m16n8k16 product, and the
+// 64-row tile copy into shared memory. The forward (flash_fwd.cu) is
+// built on sm90.cuh's TMA and wgmma instead.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t):
 //   A 16x16 row-major: a0 (row g, cols 2t..2t+1), a1 (row g+8, same),

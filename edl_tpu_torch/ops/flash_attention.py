@@ -291,7 +291,8 @@ def _check_cuda_operands(q, k, v, *more) -> None:
         if x.dim() != 4 or x.stride(-1) != 1:
             raise ValueError(f"{name}: need a 4-D tensor with a "
                              f"contiguous last dimension")
-        # 16-byte vector loads: every row start must be 16-byte aligned
+        # TMA boxes (forward) and 16-byte vector loads (backward): every
+        # row start must be 16-byte aligned
         if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
             raise ValueError(f"{name}: rows must be 16-byte aligned "
                              f"(strides {x.stride()})")
@@ -345,8 +346,9 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """Launch ``csrc/flash_fwd.cu`` ``flash_fwd_bf16`` on the current
     stream (no sync, no allocation inside the kernel); raises on operands
-    it does not take or on a refused launch. The kernel tiles 64 x 64
-    and masks a ragged T edge itself."""
+    it does not take or on a refused launch. The kernel tiles 128 x 128
+    (TMA-fed wgmma, one persistent CTA an SM) and masks a ragged T edge
+    itself."""
     global launches
     out, _ = _fwd_cuda(q, k, v, causal, with_lse=False)
     launches += 1

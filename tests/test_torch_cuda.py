@@ -21,7 +21,8 @@ from edl_tpu_torch.ops import flash_attention as tfa
 # zero, whose sums cancel.
 GRAD_ATOL_OF_MAX = 1e-2
 # lse is f32 on both sides, from the same base-2 online softmax on the
-# same 64 x 64 tiles: only the f32 summation order of s and l differs.
+# forward kernel's 128 x 128 tiles: only the f32 summation order of s and
+# l (and the kernel's one fused multiply-add in the exponent) differs.
 LSE_ATOL = 1e-4
 
 
@@ -31,9 +32,11 @@ def _need_card():
 
 
 def _plain_block(t):
-    """The kernels' 64-row tiles where T divides them; else one block,
-    the reference's own blocking below T=128 (T=100)."""
-    return 64 if t % 64 == 0 else t
+    """The forward kernel's 128-row tiles where T divides them; else one
+    block, the reference's own blocking below T=128 (T=8, T=100). P is
+    rounded to bf16 against the running max of each key tile, so the
+    plain version runs on the kernel's key tiles."""
+    return 128 if t % 128 == 0 else t
 
 
 def _randn(gen, *shape):
@@ -42,20 +45,56 @@ def _randn(gen, *shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [8, 128, 1024, 1536])
+@pytest.mark.parametrize("t", [8, 100, 128, 1024, 1536])
 @pytest.mark.parametrize("causal", [True, False])
-def test_cuda_kernel_matches_plain_version(t, causal):
+@pytest.mark.parametrize("d", [128, 64])
+def test_cuda_kernel_matches_plain_version(t, causal, d):
     """The Hopper kernel against flash_attention_ref on the card (bf16,
-    H=32, KV=8, d=128). Tolerance: 2e-2 absolute plus 2^-7 relative —
-    both sides round the output to bf16 and sum in different orders."""
+    H=32, KV=8, both head dims; T=100 is the ragged edge the kernel masks
+    itself over TMA's zero fill). Tolerance: 2e-2 absolute plus 2^-7
+    relative — both sides round the output to bf16 and sum in different
+    orders."""
     _need_card()
-    gen = torch.Generator(device="cuda").manual_seed(t)
-    q, k, v = (_randn(gen, 1, t, n, 128) for n in (32, 8, 8))
+    gen = torch.Generator(device="cuda").manual_seed(t + d)
+    q, k, v = (_randn(gen, 1, t, n, d) for n in (32, 8, 8))
     before = tfa.launches
     got = tfa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert tfa.launches == before + 1
-    want = tfa.flash_attention_ref(q, k, v, causal, 64, 64)
+    blk = _plain_block(t)
+    want = tfa.flash_attention_ref(q, k, v, causal, blk, blk)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view",
+                         ["fused_qkv", "broadcast_kv", "batch_of_one"])
+def test_cuda_kernel_takes_strided_views(view):
+    """The wrapper takes any view whose rows are 16-byte aligned; the
+    kernel's tensor maps carry the caller's strides: q/k/v cut from one
+    fused [B, T, H + 2 KV, d] projection, K/V broadcast over the KV heads
+    (stride 0), and a batch of one with an unusual batch stride. Held to
+    the plain version on contiguous copies, tolerance as above."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, t, h, kv, d = 2, 384, 8, 2, 128
+    if view == "fused_qkv":
+        qkv = _randn(gen, b, t, h + 2 * kv, d)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    elif view == "broadcast_kv":
+        q = _randn(gen, b, t, h, d)
+        k, v = (_randn(gen, b, t, 1, d).expand(b, t, kv, d)
+                for _ in range(2))
+    else:
+        q, k, v = (_randn(gen, 1, t, n, d) for n in (h, kv, kv))
+        q, k, v = (x.as_strided(x.shape, (8,) + x.stride()[1:])
+                   for x in (q, k, v))
+    got = tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    blk = _plain_block(t)
+    want = tfa.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), True, blk, blk)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2 ** -7)
 
@@ -77,9 +116,10 @@ def _assert_grad_close(got, want, name):
 def test_cuda_training_kernels_match_plain_versions(t, causal, heads):
     """flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv against
     flash_attention_lse_ref / flash_attention_bwd_ref on the card (bf16,
-    d=128, the plain versions on the kernels' 64 x 64 tiles). T=100 is
-    the ragged edge the kernels mask themselves (the plain versions take
-    it as one block)."""
+    d=128, the plain versions on the forward kernel's 128 x 128 tiles;
+    the backward's arithmetic is per element, so its blocking changes
+    only the f32 summation order). T=100 is the ragged edge the kernels
+    mask themselves (the plain versions take it as one block)."""
     _need_card()
     h, kv = heads
     b = 2
@@ -107,6 +147,29 @@ def test_cuda_training_kernels_match_plain_versions(t, causal, heads):
     for g, w, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
         _assert_grad_close(g, w, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [100, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_lse_forward_head_dim_64(t, causal):
+    """The lse forward at d=64 (H=16, KV=8) against
+    flash_attention_lse_ref on the kernel's tiles: the instantiations the
+    d=128 training test does not reach."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(t + causal)
+    q = _randn(gen, 2, t, 16, 64)
+    k, v = (_randn(gen, 2, t, 8, 64) for _ in range(2))
+    before = tfa.lse_launches
+    out, lse = tfa.flash_attention_lse_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert tfa.lse_launches == before + 1
+    blk = _plain_block(t)
+    want_out, want_lse = tfa.flash_attention_lse_ref(q, k, v, causal, blk,
+                                                     blk)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(lse, want_lse, atol=LSE_ATOL, rtol=0)
 
 
 @pytest.mark.cuda

@@ -87,18 +87,23 @@ def test_cpu_path_is_the_plain_version_and_counts_no_launch():
     )
 
 
-def test_ref_bf16_rounds_p_like_the_reference():
+@pytest.mark.parametrize("block", [64, 128])
+def test_ref_bf16_rounds_p_like_the_reference(block):
     """bf16 inputs: P is rounded to V's dtype before P·V on both sides;
-    outputs agree to one bf16 rounding of the output (2^-8 relative)."""
-    q, k, v = _qkv(4, 1, 128, 4, 2, 16)
+    outputs agree to one bf16 rounding of the output (2^-8 relative).
+    d=128, GQA H4/KV2, T=256, at the backward kernels' 64 x 64 tiles and
+    the forward kernel's 128 x 128 ones: the plain version the card holds
+    the Hopper kernel to, at its own tile, is itself held to the Pallas
+    kernel here."""
+    q, k, v = _qkv(4, 1, 256, 4, 2, 128)
     want = jfa.flash_attention(
         jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
-        jnp.asarray(v, jnp.bfloat16), block_q=64, block_k=64,
+        jnp.asarray(v, jnp.bfloat16), block_q=block, block_k=block,
         interpret=True,
     )
     got = tfa.flash_attention(
         torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
-        torch.from_numpy(v).bfloat16(), block_q=64, block_k=64,
+        torch.from_numpy(v).bfloat16(), block_q=block, block_k=block,
     )
     want = np.asarray(want.astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), want,
