@@ -30,7 +30,10 @@
    kernels against ``flash_attention_lse_ref`` / ``flash_attention_bwd_ref``
    on the card, bf16, d=128: B=4 T=2048 H=16 KV=8 causal (the flagship's
    attention, the main shape), T in {100, 128, 1024} causal, T=1024
-   non-causal (H=16, KV=8), and H=32 KV=8 at T=1024. Tolerances: the
+   non-causal (H=16, KV=8), and H=32 KV=8 at T=1024; and d=64 at B=2
+   T=1024 H=16 KV=8 causal, so every instantiation of the three
+   training kernels is checked (the non-causal d=64 backward by
+   ``tests/test_torch_cuda.py``). Tolerances: the
    forward output as in 2; lse |kernel - plain| <= 1e-4 (f32 on both
    sides, the forward's 128 x 128 tiles, only the f32 summation order
    differs); dq/dk/dv <= 1e-2 * max|plain| + 2^-7 * |plain| (both
@@ -90,11 +93,13 @@ TEACHER_EPS = 0.1  # chosen logit within EPS x row std of the row max
 KERNEL_SHAPES = ([(t, c, 128) for t in (8, 128, 1024, 1536, 2048)
                   for c in (True, False)]
                  + [(1024, True, 64), (1024, False, 64)])
-# training kernels: (B, T, H, KV, causal); the first is the main shape
-TRAIN_MAIN = (4, 2048, 16, 8, True)
-TRAIN_SHAPES = [TRAIN_MAIN, (4, 100, 16, 8, True), (4, 128, 16, 8, True),
-                (4, 1024, 16, 8, True), (4, 1024, 16, 8, False),
-                (1, 1024, 32, 8, True)]
+# training kernels: (B, T, H, KV, causal, head dim); the first is the
+# main shape, the last holds the d=64 instantiations of all three
+TRAIN_MAIN = (4, 2048, 16, 8, True, 128)
+TRAIN_SHAPES = [TRAIN_MAIN, (4, 100, 16, 8, True, 128),
+                (4, 128, 16, 8, True, 128), (4, 1024, 16, 8, True, 128),
+                (4, 1024, 16, 8, False, 128), (1, 1024, 32, 8, True, 128),
+                (2, 1024, 16, 8, True, 64)]
 LSE_ATOL = 1e-4
 GRAD_ATOL_OF_MAX = 1e-2
 TRAIN_STEPS = 5
@@ -247,12 +252,12 @@ def train_kernel_phase(card):
 
     rows = {}
     for shape in TRAIN_SHAPES:
-        b, t, h, kv, causal = shape
-        where = f"B={b} T={t} H={h} KV={kv} causal={causal}"
+        b, t, h, kv, causal, d = shape
+        where = f"B={b} T={t} H={h} KV={kv} causal={causal} d={d}"
         gen = torch.Generator(device="cuda").manual_seed(b * t + h + causal)
-        q, do = (torch.randn(b, t, h, 128, generator=gen, device="cuda",
+        q, do = (torch.randn(b, t, h, d, generator=gen, device="cuda",
                              dtype=torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn(b, t, kv, 128, generator=gen, device="cuda",
+        k, v = (torch.randn(b, t, kv, d, generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(2))
         out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
         dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
@@ -302,16 +307,16 @@ def train_kernel_phase(card):
             q, k, v, causal, blk, blk), 1, 1)
         plain_bwd_ms = _time_ms(plain_bwd, 1, 1)
         bounds = {
-            "flash_fwd_lse": _bound(b, t, h, kv, 128, causal, 4, 2, 2, 1),
-            "flash_bwd_dq": _bound(b, t, h, kv, 128, causal, 6, 3, 2, 2),
-            "flash_bwd_dkv": _bound(b, t, h, kv, 128, causal, 8, 2, 4, 2),
+            "flash_fwd_lse": _bound(b, t, h, kv, d, causal, 4, 2, 2, 1),
+            "flash_bwd_dq": _bound(b, t, h, kv, d, causal, 6, 3, 2, 2),
+            "flash_bwd_dkv": _bound(b, t, h, kv, d, causal, 8, 2, 4, 2),
             # the whole backward: FA2's five products, q k v o dO lse
             # delta read once, dq dk dv written once
-            "backward": _bound(b, t, h, kv, 128, causal, 10, 4, 4, 2),
+            "backward": _bound(b, t, h, kv, d, causal, 10, 4, 4, 2),
         }
         row = {
             "phase": "train_kernels", "B": b, "T": t, "H": h, "KV": kv,
-            "causal": causal, "lse_max_abs_err": lse_err,
+            "causal": causal, "d": d, "lse_max_abs_err": lse_err,
             "dq_max_abs_err": errs["dq"], "dk_max_abs_err": errs["dk"],
             "dv_max_abs_err": errs["dv"],
             "tol": {"lse": LSE_ATOL,
@@ -665,7 +670,8 @@ def main() -> int:
         "phase": "build", "kernels": list(fa.KERNELS),
         "sources": [f"{n}.cu" for n in sources],
         "build_s": time.perf_counter() - t0,
-        # <head dim, causal[, with lse]>: registers a thread, spill bytes
+        # <head dim, causal[, with lse]>: registers a thread, spill bytes,
+        # whether ptxas serialized the kernel's wgmma
         "ptxas": {k: v for n in sources
                   for k, v in _build.ptxas_info(n).items()},
     }), flush=True)

@@ -9,9 +9,9 @@ that carries the hash of the source, the shared ``csrc/*.cuh`` headers
 and the flags, so an edited source or header rebuilds and an unchanged
 one loads the cached library.
 A failed build raises with nvcc's own error output; a good one keeps
-ptxas's report (registers and spills per kernel, ``-Xptxas -v``) beside
-the library, read by :func:`ptxas_info`. Only the sources in this
-package are ever compiled.
+ptxas's report (registers, spills and wgmma serialization warnings per
+kernel, ``-Xptxas -v``) beside the library, read by :func:`ptxas_info`.
+Only the sources in this package are ever compiled.
 """
 
 from __future__ import annotations
@@ -98,32 +98,54 @@ def build(name: str) -> str:
     return out
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_bwd_dkv<128,1>`` for the mangled name of
+    ``flash_bwd_dkv_kernel<128, true>``; other names as they are."""
+    k = re.search(r"(\w+)_kernelI((?:Li\d+E|Lb[01]E)+)", mangled)
+    if not k:
+        return mangled
+    # the mangled name is <namespace hash><length><name>: the kernel's
+    # name follows the last digit (it has none itself)
+    return (re.sub(r"^.*\d", "", k.group(1)) + "<"
+            + ",".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">")
+
+
 def ptxas_info(name: str) -> Dict[str, Dict[str, int]]:
-    """Registers a thread and spill bytes (stores + loads) of every
+    """Registers a thread, spill bytes (stores + loads) and whether ptxas
+    serialized its wgmma (warnings C7510-C7520, "Potential Performance
+    Loss: wgmma.mma_async instructions are serialized ...") for every
     kernel of the built ``csrc/<name>.cu``, from ptxas's report; kernels
     are named ``<function><template args>``, e.g. ``flash_bwd_dkv<128,1>``."""
     with open(library_path(name)[:-3] + ".ptxas.txt") as f:
         lines = f.read().splitlines()
     info: Dict[str, Dict[str, int]] = {}
+
+    def entry(kernel):
+        return info.setdefault(kernel, {"registers": 0, "spill_bytes": 0,
+                                        "wgmma_serialized": False})
+
     kernel = None
     for line in lines:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(\w+)_kernelI((?:Li\d+E|Lb[01]E)+)", m.group(1))
-            # the mangled name is <namespace hash><length><name>: the
-            # kernel's name follows the last digit (it has none itself)
-            kernel = (re.sub(r"^.*\d", "", k.group(1)) + "<"
-                      + ",".join(re.findall(r"L[ib](\d+)E", k.group(2)))
-                      + ">") if k else m.group(1)
-            info[kernel] = {"registers": 0, "spill_bytes": 0}
+            kernel = _kernel_name(m.group(1))
+            entry(kernel)
+            continue
+        m = re.search(r"\(C75(\d\d)\)", line)
+        if m and 10 <= int(m.group(1)) <= 20:
+            # the warning names its function; else it is the current one
+            named = re.search(r"function '(\S+?)'", line)
+            owner = _kernel_name(named.group(1)) if named else kernel
+            if owner:
+                entry(owner)["wgmma_serialized"] = True
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and kernel:
-            info[kernel]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            entry(kernel)["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
-            info[kernel]["registers"] = int(m.group(1))
+            entry(kernel)["registers"] = int(m.group(1))
     return info
 
 

@@ -1,18 +1,20 @@
-"""Time the flash-attention forward kernels of one or more checkouts on
-one card, for comparing a kernel change with its parent in one call.
+"""Time the flash-attention kernels, forward and backward, of one or more
+checkouts on one card, for comparing a kernel change with its parent in
+one call.
 
     python -m edl_tpu_torch.ops.bench_flash [CHECKOUT ...]
 
 Each CHECKOUT (default: the working directory) is a directory that holds
 an ``edl_tpu_torch`` package; each runs in its own process, which builds
-that package's ``flash_fwd.cu`` and prints one JSON line: for every
-shape, the kernel's device time a call (:func:`device_ms`: 50 calls
-queued behind a sleep kernel, timed with CUDA events, host overhead
-excluded; ``chip_smoke.py`` times its kernels the same way), its
-TF/s (4·d FLOPs a live pair a query head), and
-``scaled_dot_product_attention``'s device time as the yardstick. Give
-the checkouts in turns (parent, change, change, parent) to see the
-spread. Needs a CUDA card.
+that package's kernels and prints one JSON line: for every shape, each
+kernel's device time a call (:func:`device_ms`: 50 calls queued behind
+a sleep kernel, timed with CUDA events, host overhead excluded;
+``chip_smoke.py`` times its kernels the same way) and TF/s (FLOPs a
+live pair a query head: 4·d for the forward, 6·d for dQ, 8·d for
+dK/dV), and ``scaled_dot_product_attention``'s device time as the
+yardstick (for the backward shapes, its ``backward``: dq, dk and dv in
+one call). Give the checkouts in turns (parent, change, change, parent)
+to see the spread. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -23,14 +25,18 @@ import subprocess
 import sys
 import time
 
-# name: (B, T, H, KV, d, causal, with lse); the first two are the main
-# path's shapes (training's lse forward, the serving slice's prefill)
+# name: (B, T, H, KV, d, causal, kind): "lse" the lse forward, "fwd" the
+# primal forward, "bwd" the dQ and dK/dV sweeps. The first three are the
+# main path's shapes (training's lse forward and backward, the serving
+# slice's prefill)
 SHAPES = {
-    "lse_B4_T2048_H16_KV8_causal": (4, 2048, 16, 8, 128, True, True),
-    "fwd_B1_T1024_H32_KV8_causal": (1, 1024, 32, 8, 128, True, False),
-    "fwd_B1_T2048_H32_KV8_causal": (1, 2048, 32, 8, 128, True, False),
-    "lse_B4_T2048_H16_KV8_full": (4, 2048, 16, 8, 128, False, True),
-    "fwd_B1_T1024_H32_KV8_causal_d64": (1, 1024, 32, 8, 64, True, False),
+    "lse_B4_T2048_H16_KV8_causal": (4, 2048, 16, 8, 128, True, "lse"),
+    "bwd_B4_T2048_H16_KV8_causal": (4, 2048, 16, 8, 128, True, "bwd"),
+    "fwd_B1_T1024_H32_KV8_causal": (1, 1024, 32, 8, 128, True, "fwd"),
+    "fwd_B1_T2048_H32_KV8_causal": (1, 2048, 32, 8, 128, True, "fwd"),
+    "lse_B4_T2048_H16_KV8_full": (4, 2048, 16, 8, 128, False, "lse"),
+    "bwd_B4_T2048_H16_KV8_full": (4, 2048, 16, 8, 128, False, "bwd"),
+    "fwd_B1_T1024_H32_KV8_causal_d64": (1, 1024, 32, 8, 64, True, "fwd"),
 }
 
 
@@ -71,20 +77,44 @@ def run_here() -> dict:
     res = {"checkout": os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(fa.__file__)))),
         "card": torch.cuda.get_device_name(0)}
-    for name, (b, t, h, kv, d, causal, lse) in SHAPES.items():
+    for name, (b, t, h, kv, d, causal, kind) in SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(0)
         q = torch.randn(b, t, h, d, generator=gen, device="cuda",
                         dtype=torch.bfloat16)
         k, v = (torch.randn(b, t, kv, d, generator=gen, device="cuda",
                             dtype=torch.bfloat16) for _ in range(2))
-        call = fa.flash_attention_lse_cuda if lse else fa.flash_attention_cuda
-        ms = device_ms(lambda: call(q, k, v, causal))
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True))
         pairs = t * (t + 1) // 2 if causal else t * t
-        res[name] = {"ms": ms, "tflops": 4.0 * d * h * b * pairs / ms / 1e9,
-                     "sdpa_ms": sdpa}
+        flops = d * h * b * pairs  # a FLOP a live pair, d wide
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+        if kind == "bwd":
+            do = torch.randn(b, t, h, d, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+            out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+            delta = fa._delta(out, do).contiguous()
+            dq_ms = device_ms(lambda: fa.flash_bwd_dq_cuda(
+                q, k, v, do, lse, delta, causal))
+            dkv_ms = device_ms(lambda: fa.flash_bwd_dkv_cuda(
+                q, k, v, do, lse, delta, causal))
+            lib_out = sdpa()
+            dot = do.transpose(1, 2)
+            res[name] = {
+                "dq_ms": dq_ms, "dq_tflops": 6.0 * flops / dq_ms / 1e9,
+                "dkv_ms": dkv_ms, "dkv_tflops": 8.0 * flops / dkv_ms / 1e9,
+                "sdpa_bwd_ms": device_ms(lambda: torch.autograd.grad(
+                    lib_out, (qt, kt, vt), dot, retain_graph=True))}
+            continue
+        call = (fa.flash_attention_lse_cuda if kind == "lse"
+                else fa.flash_attention_cuda)
+        with torch.no_grad():
+            ms = device_ms(lambda: call(q, k, v, causal))
+            res[name] = {"ms": ms, "tflops": 4.0 * flops / ms / 1e9,
+                         "sdpa_ms": device_ms(sdpa)}
     return res
 
 

@@ -70,16 +70,14 @@
 // allocates nothing and does not synchronise; it launches on the stream
 // it is given.
 
-#include <cuda_bf16.h>
-#include <cudaTypedefs.h>
-
 #include <atomic>
 
-#include "sm90.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
 using namespace edl::sm90;
+using namespace edl::flash;
 
 constexpr int kBQ = 128;      // query rows a CTA
 constexpr int kBK = 128;      // keys a K/V tile
@@ -87,7 +85,6 @@ constexpr int kRowsWG = 64;   // query rows a consumer warpgroup
 constexpr int kStages = 2;    // K/V ring depth
 constexpr int kThreads = 384; // producer + 2 consumer warpgroups
 constexpr int kConsumerWarps = 8;
-constexpr int kBoxCols = 64;  // bf16 columns a TMA box: one 128-byte row
 constexpr int kBoxBytes = 128 * 128;  // a 128-row box
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -114,19 +111,12 @@ struct Params {
   float scale;  // sm_scale * log2(e)
 };
 
-// One work item: a 128-row query tile of one (b, h). Items are numbered
-// heaviest first (all heads' last causal tiles, then the ones before),
-// and CTA c takes items c, 2G-1-c, 2G+c, 4G-1-c, ... of G CTAs -- a
-// back-and-forth deal that pairs heavy items with light ones.
+// One work item: a 128-row query tile of one (b, h), numbered heaviest
+// first (all heads' last causal tiles, then the ones before) and dealt
+// by item_index (flash_common.cuh).
 struct Item {
   int b, h, q0, n_tiles;
 };
-
-// the r-th item of this CTA (>= n_items: none left)
-__device__ __forceinline__ int item_index(int r) {
-  const int g = gridDim.x;
-  return r * g + ((r & 1) ? g - 1 - int(blockIdx.x) : int(blockIdx.x));
-}
 
 template <bool kCausal>
 __device__ __forceinline__ Item item_at(int index, const Params& p) {
@@ -140,32 +130,6 @@ __device__ __forceinline__ Item item_at(int index, const Params& p) {
   w.n_tiles = (p.T + kBK - 1) / kBK;
   if (kCausal) w.n_tiles = min(w.n_tiles, qt + 1);  // keys <= q0 + 127
   return w;
-}
-
-// 2^x, one MUFU op; results below 2^-126 flush to 0 (a p that small
-// moves no sum: every row's running max contributes 1)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x -> low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// a 128-row x D tile at (row, head, batch): D / 64 boxes of 16 KB
-template <int D>
-__device__ __forceinline__ void load_tile(unsigned char* dst,
-                                          const CUtensorMap* map,
-                                          uint64_t* bar, int head, int row,
-                                          int batch) {
-#pragma unroll
-  for (int c = 0; c < D / kBoxCols; ++c) {
-    tma_load_4d(dst + c * kBoxBytes, map, bar, c * kBoxCols, head, row,
-                batch);
-  }
 }
 
 // S = Q . K^T for 64 query rows x 128 keys (f32), issued, not waited on
@@ -306,18 +270,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int kvh = w.h / p.groups;
         mbar_wait(q_empty, (r & 1) ^ 1);  // 1st item: free
         mbar_expect_tx(q_full, S::kTile);
-        load_tile<D>(smem + S::kQ, &tm_q, q_full, w.h, w.q0, w.b);
+        load_tile<D, kBK>(smem + S::kQ, &tm_q, q_full, w.h, w.q0, w.b);
         for (int j = 0; j < w.n_tiles; ++j, ++it) {
           const int s = it & 1;
           const uint32_t free_parity = ((it >> 1) & 1) ^ 1;  // 1st use: free
           mbar_wait(k_empty + s, free_parity);
           mbar_expect_tx(k_full + s, S::kTile);
-          load_tile<D>(smem + S::kK + s * S::kTile, &tm_k, k_full + s, kvh,
-                       j * kBK, w.b);
+          load_tile<D, kBK>(smem + S::kK + s * S::kTile, &tm_k, k_full + s,
+                            kvh, j * kBK, w.b);
           mbar_wait(v_empty + s, free_parity);
           mbar_expect_tx(v_full + s, S::kTile);
-          load_tile<D>(smem + S::kV + s * S::kTile, &tm_v, v_full + s, kvh,
-                       j * kBK, w.b);
+          load_tile<D, kBK>(smem + S::kV + s * S::kTile, &tm_v, v_full + s,
+                            kvh, j * kBK, w.b);
         }
       }
     }
@@ -483,42 +447,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // -- host side ----------------------------------------------------------------
 
-PFN_cuTensorMapEncodeTiled encode_fn() {
-  static const PFN_cuTensorMapEncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                         cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      f = nullptr;
-    }
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// [B, T, heads, D] bf16 with element strides (sb, st, sh), the last
-// dimension contiguous: rank 4 (d, heads, T, B), boxes of 64 x 1 x rows x
-// 1 in the 128-byte swizzle; loads fill rows past T with zeros, stores
-// drop them.
-bool make_map(CUtensorMap* map, const void* base, int D, int heads, int T,
-              int B, long long sb, long long st, long long sh, int rows) {
-  const PFN_cuTensorMapEncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads), cuuint64_t(T),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(st) * 2,
-                                 cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, cuuint32_t(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 struct Call {
   const void *q, *k, *v, *o;
   int B, T, H, KV;
@@ -526,31 +454,15 @@ struct Call {
   Params p;
 };
 
-constexpr int kMaxDevices = 64;
-std::atomic<int> sm_counts[kMaxDevices];  // 0: not asked yet
-
 template <int D, bool kCausal, bool kWithLse>
 cudaError_t launch(const Call& c, cudaStream_t stream) {
   using S = Smem<D>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int sms = sm_counts[dev].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    sm_counts[dev].store(sms, std::memory_order_relaxed);
-  }
-  // the shared-memory opt-in, once per device for this instantiation
   static std::atomic<bool> ready[kMaxDevices];
-  if (!ready[dev].load(std::memory_order_acquire)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D, kCausal, kWithLse>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               S::kBytes);
-    if (err != cudaSuccess) return err;
-    ready[dev].store(true, std::memory_order_release);
-  }
+  int sms = 0;
+  cudaError_t err = launch_setup(
+      reinterpret_cast<const void*>(flash_fwd_kernel<D, kCausal, kWithLse>),
+      S::kBytes, ready, &sms);
+  if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mo;
   if (!make_map(&mq, c.q, D, c.H, c.T, c.B, c.s[0], c.s[1], c.s[2], kBQ) ||
       !make_map(&mk, c.k, D, c.KV, c.T, c.B, c.s[3], c.s[4], c.s[5], kBK) ||

@@ -291,8 +291,8 @@ def _check_cuda_operands(q, k, v, *more) -> None:
         if x.dim() != 4 or x.stride(-1) != 1:
             raise ValueError(f"{name}: need a 4-D tensor with a "
                              f"contiguous last dimension")
-        # TMA boxes (forward) and 16-byte vector loads (backward): every
-        # row start must be 16-byte aligned
+        # the kernels' TMA tensor maps: every row start must be 16-byte
+        # aligned
         if x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]):
             raise ValueError(f"{name}: rows must be 16-byte aligned "
                              f"(strides {x.stride()})")

@@ -150,6 +150,62 @@ def test_cuda_training_kernels_match_plain_versions(t, causal, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(8, 8), (16, 8), (32, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [8, 100, 128, 1024, 1536, 2048])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_backward_kernels_match_plain_version(d, t, causal, heads):
+    """flash_bwd_dq and flash_bwd_dkv against flash_attention_bwd_ref on
+    the card at every instantiation (both head dims, causal and not),
+    GQA groups of 1, 2 and 4, ragged T (8, 100) and the T that
+    _fit_block steps down for (1536); both sides from the lse forward
+    kernel's own residuals. Tolerance as in the training test."""
+    _need_card()
+    h, kv = heads
+    b = 2 if t <= 128 else 1
+    gen = torch.Generator(device="cuda").manual_seed(
+        7 * t + d + h + causal)
+    q, do = (_randn(gen, b, t, h, d) for _ in range(2))
+    k, v = (_randn(gen, b, t, kv, d) for _ in range(2))
+    out, lse = tfa.flash_attention_lse_cuda(q, k, v, causal)
+    counts = tfa.launch_counts()
+    dq, dk, dv = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    after = tfa.launch_counts()
+    assert (after["flash_bwd_dq"] - counts["flash_bwd_dq"],
+            after["flash_bwd_dkv"] - counts["flash_bwd_dkv"]) == (1, 1)
+    blk = _plain_block(t)
+    want = tfa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal, blk,
+                                       blk)
+    for g, w, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        _assert_grad_close(g, w, name)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_takes_strided_views():
+    """The backward's tensor maps carry the caller's strides: q/k/v cut
+    from one fused [B, T, H + 2 KV, d] projection and dO cut from a wider
+    tensor, held to the plain version on contiguous copies (tolerance as
+    in the training test)."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, t, h, kv, d = 2, 384, 8, 2, 128
+    qkv = _randn(gen, b, t, h + 2 * kv, d)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    do = _randn(gen, b, t, 2 * h, d)[:, :, h:]
+    out, lse = tfa.flash_attention_lse_cuda(q, k, v, True)
+    got = tfa.flash_attention_bwd_cuda(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    blk = _plain_block(t)
+    want = tfa.flash_attention_bwd_ref(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), out, lse,
+                                       do.contiguous(), True, blk, blk)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        _assert_grad_close(g, w, name)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t", [100, 1024])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_lse_forward_head_dim_64(t, causal):
