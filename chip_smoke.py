@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py             # what the card check runs
     python3 chip_smoke.py --profile   # also: torch.profiler over one
-                                      # train step, CUDA events per phase
+                                      # decode block and one admission
+                                      # per KV layout, and over one
+                                      # train step (CUDA events per
+                                      # phase)
 
 1. Builds every kernel of the serving and training paths from the
    sources in this checkout (``edl_tpu_torch/ops/csrc/*.cu``, one nvcc
@@ -53,7 +56,24 @@
    == prefills x 32 layers, and teacher-forced agreement — a dense
    forward over prompt + generated puts every chosen token within
    0.1 x (row std) of its row's maximum logit.
-5. Train phase: the flagship training config (bench.py:69
+5. Serving-modes phase: the slice's model and weights through the
+   PAGED engine (8 slots x 2048, horizon 8, block 16), once with float
+   KV, then under ``kv_quant`` int8, then int4: (a) the prefix cache
+   with chunked prefill (256) on the default pool — a cold 552-token
+   request (512-token prefix + 40) runs first, then five warm ones with
+   the same prefix and other tails beside a 1500-token prompt that
+   shares nothing; (b) a pool of 129 blocks that 8 prompts of 250
+   tokens fill at admission, so decode growth preempts; (c) ``spec_k``
+   4 on prompts of a repeating 64-token pattern. Checks: every request
+   done, zero recoveries, no flash launch in the phase, prefix hits ==
+   5 x 32 blocks, the long prompt's ceil(1500/256) = 6 prefill
+   dispatches, >= 1 preemption in (b), drafts in (c), int8 / int4 pool
+   bytes <= 0.51 / 0.26 of float's, and the teacher-forced margin <= 0.1
+   row std (float) or 0.25 (int8); int4 only finite logits. The margin
+   is taken over the cold, a warm and the long (chunked) request of (a),
+   every request preempted in (b) (restarted into reclaimed blocks) and
+   two others, and three of (c).
+6. Train phase: the flagship training config (bench.py:69
    ``flagship_train_config``: d2048/L16/H16/KV8/ff6144/v32768, bf16
    activations, f32 masters, ``use_flash``, full remat) at full width and
    depth, one ``synthetic_tokens`` batch [4, 2048+1] (seed 0),
@@ -108,6 +128,24 @@ TRAIN_STEPS = 5
 # scores are the coarser of the two)
 LOSS_RTOL = 1e-4
 GRAD_MIN_COS = 0.999
+# serving-modes phase: the slice's engine (8 slots, horizon 8) paged
+SM_MAX_LEN = 2048
+SM_BLOCK = 16
+SM_CHUNK = 256  # prefill chunk of part (a)
+SM_PREFIX = 512  # shared prefix of part (a)
+SM_TAIL = 40
+SM_LONG = 1500  # the long prompt of part (a): ceil(1500/256) dispatches
+SM_NEW = 16  # new tokens a request (32 in part (c))
+# part (b): 8 prompts of 250 tokens take 16 blocks each, the whole
+# usable pool of 128 (one full-length sequence, the least the engine
+# allows), so the first decode growth past a block boundary preempts
+SM_PRESSURE_PROMPT = 250
+SM_PRESSURE_POOL = 129
+SM_REPEATS = 4  # part (c): a 64-token pattern repeated
+# teacher-forced worst margin (row std) against the dense float forward;
+# int4 is gated on completion and finite logits only, as in the
+# reference
+SM_TEACHER_EPS = {"off": TEACHER_EPS, "int8": 0.25, "int4": None}
 
 
 def _smi() -> str:
@@ -336,6 +374,8 @@ def train_kernel_phase(card):
 
 
 def slice_phase(card):
+    """Returns the flash launches of the run and the model's (params,
+    cfg), which the serving-modes phase reuses."""
     import dataclasses
 
     import torch
@@ -434,7 +474,232 @@ def slice_phase(card):
         "card": card,
     }
     print(json.dumps(row), flush=True)
-    return launches
+    return launches, params, cfg
+
+
+def _teacher_margin(params, cfg, prompt, tokens, device):
+    """Worst (row max - chosen logit) / row std over the generated
+    tokens, on the dense (non-flash) forward over prompt + generated;
+    raises on non-finite logits."""
+    import dataclasses
+
+    import torch
+
+    from edl_tpu_torch.models import llama
+
+    dense = dataclasses.replace(cfg, use_flash=False)
+    seq = prompt + tokens
+    toks = torch.tensor([seq[:-1]], device=device)
+    logits = llama.forward(params, toks, dense)[0, len(prompt) - 1:]
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    chosen = logits.gather(
+        1, torch.tensor(tokens, device=device)[:, None])[:, 0]
+    margin = (logits.max(dim=1).values - chosen) / logits.std(dim=1)
+    return float(margin.max())
+
+
+def _block_mean(metrics):
+    """Mean dispatch-to-drain seconds of a run's decode / verify blocks."""
+    st = metrics.block_hist.stats()
+    return st["sum"] / max(st["count"], 1)
+
+
+def _serve_modes_part(params, cfg, kv_quant, device, reqs, waves=None,
+                      **kw):
+    """One engine run of the serving-modes phase: ``reqs`` [(rid,
+    prompt, max_new)] submitted in ``waves`` (lists of rids, each run to
+    completion before the next), on the paged engine with ``kw``.
+    Returns (engine, results, wall seconds, the rids preempted, in
+    order)."""
+    import torch
+
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.serving import engine as teng
+    from edl_tpu_torch.serving.metrics import ServingMetrics
+
+    preempted = []
+
+    class Engine(teng.ContinuousBatchingEngine):
+        # the reference reports preemptions only as a flight event
+        def _pg_preempt(self, exclude):
+            live = {sl.rid for sl in self._slots if sl is not None}
+            done = super()._pg_preempt(exclude)
+            preempted.extend(sorted(live - {sl.rid for sl in self._slots
+                                            if sl is not None}))
+            return done
+
+    eng = Engine(params, cfg, max_slots=8, max_len=SM_MAX_LEN, horizon=8,
+                 block_size=SM_BLOCK, kv_quant=kv_quant,
+                 metrics=ServingMetrics(registry=MetricsRegistry()),
+                 device=device, **kw)
+    prompts = {rid: (p, n) for rid, p, n in reqs}
+    res = {}
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wave in waves or [list(prompts)]:
+        for rid in wave:
+            eng.submit(rid, prompts[rid][0], prompts[rid][1])
+        res.update(eng.run())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if eng.recoveries:
+        raise AssertionError(f"{kv_quant}: engine recovered "
+                             f"{eng.recoveries} times")
+    for rid, (_, n) in prompts.items():
+        r = res[rid]
+        if r.outcome != "done" or len(r.tokens) != n:
+            raise AssertionError(f"{kv_quant} {rid}: outcome {r.outcome}, "
+                                 f"{len(r.tokens)} tokens")
+        if not all(0 <= x < cfg.vocab for x in r.tokens):
+            raise AssertionError(f"{kv_quant} {rid}: token outside the vocab")
+    return eng, res, wall, preempted
+
+
+def serving_modes_phase(card, params, cfg, device="cuda"):
+    """The paged engine at the slice's width (Llama-3-8B, 8 slots x
+    SM_MAX_LEN, horizon 8, block SM_BLOCK) under each kv_quant: (a) the
+    prefix cache with chunked prefill, (b) preemption in a tight pool,
+    (c) speculative decoding. No flash kernel runs on this path."""
+    from edl_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(1)
+    vocab = cfg.vocab
+    # (a) a cold request with a shared prefix runs first (a prompt's
+    # blocks enter the prefix cache after its last prefill dispatch),
+    # then warm ones with other tails beside a long prompt that shares
+    # nothing with the prefix and prefills in chunks
+    prefix = rng.randint(0, vocab // 2, SM_PREFIX).tolist()
+    tails = rng.randint(0, vocab // 2, (6, SM_TAIL))
+    tails[:, 0] = np.arange(6)  # every tail's first block differs
+    long_p = rng.randint(vocab // 2, vocab, SM_LONG).tolist()
+    a_reqs = ([("cold", prefix + tails[0].tolist(), SM_NEW)]
+              + [(f"warm{j}", prefix + tails[j].tolist(), SM_NEW)
+                 for j in range(1, 6)]
+              + [("long", long_p, SM_NEW)])
+    a_waves = [["cold"], [f"warm{j}" for j in range(1, 6)] + ["long"]]
+    # (b) prompts that fill the pool at admission, so decode growth
+    # preempts
+    b_reqs = [(f"p{j}", rng.randint(0, vocab, SM_PRESSURE_PROMPT).tolist(),
+               SM_NEW) for j in range(8)]
+    # (c) prompts of a repeating 64-token pattern, for the n-gram drafter
+    c_reqs = [(f"s{j}", rng.randint(0, vocab, 64).tolist() * SM_REPEATS,
+               2 * SM_NEW) for j in range(8)]
+    hit_blocks = SM_PREFIX // SM_BLOCK
+    long_dispatches = -(-SM_LONG // SM_CHUNK)
+    rows, pool_bytes = [], {}
+    fa.reset_launches()
+    for kv_quant in ("off", "int8", "int4"):
+        row = {"phase": "serving_modes", "kv_quant": kv_quant,
+               "model": "llama3_8b", "layers": cfg.n_layers,
+               "max_len": SM_MAX_LEN, "block_size": SM_BLOCK}
+        # (a)
+        eng, res, wall, pre = _serve_modes_part(
+            params, cfg, kv_quant, device, a_reqs, a_waves,
+            prefix_cache=True, prefill_chunk=SM_CHUNK)
+        m = eng.metrics
+        ttft = {rid: m.request_stats(rid)["ttft_s"] for rid in res}
+        prefill_s = {rid: m.phase_breakdown(rid)["prefill_s"] for rid in res}
+        hits = eng._prefix.hits
+        # the cold prompt's own hits are 0: its blocks were not cached
+        if hits != 5 * hit_blocks:
+            raise AssertionError(f"{kv_quant}: prefix hits {hits} != 5 x "
+                                 f"{hit_blocks}")
+        # cold: its chunks + final; warm: one each; long: its chunks
+        cold_dispatches = -(-(SM_PREFIX + SM_TAIL) // SM_CHUNK)
+        pf = m.dispatches["prefill"]
+        if pf != cold_dispatches + 5 + long_dispatches:
+            raise AssertionError(
+                f"{kv_quant}: {pf} prefill dispatches, want {cold_dispatches}"
+                f" + 5 + {long_dispatches} (the long prompt's chunks)")
+        pool_bytes[kv_quant] = eng.kv_nbytes
+        worst_a = max(_teacher_margin(params, cfg, p, res[rid].tokens,
+                                      device)
+                      for rid, p, _ in a_reqs if rid in ("cold", "warm1",
+                                                         "long"))
+        row["prefix_chunk"] = {
+            "requests": len(a_reqs), "tokens_per_s": sum(
+                len(r.tokens) for r in res.values()) / wall,
+            "wall_s": wall, "prefix_hit_blocks": hits,
+            "prefill_dispatches": pf,
+            "long_prefill_dispatches": long_dispatches,
+            "ttft_cold_s": ttft["cold"],
+            "ttft_warm_s": [ttft[f"warm{j}"] for j in range(1, 6)],
+            "prefill_cold_s": prefill_s["cold"],
+            "prefill_warm_s": [prefill_s[f"warm{j}"] for j in range(1, 6)],
+            "ttft_long_s": ttft["long"], "preemptions": len(pre),
+            "block_mean_s": _block_mean(m), "pool_mb": eng.kv_nbytes / 2**20,
+        }
+        del eng
+        # (b)
+        eng, res, wall, pre = _serve_modes_part(
+            params, cfg, kv_quant, device, b_reqs,
+            pool_blocks=SM_PRESSURE_POOL)
+        if not pre:
+            raise AssertionError(f"{kv_quant}: no preemption in a pool of "
+                                 f"{SM_PRESSURE_POOL} blocks")
+        # the preempted requests restarted by recomputation into blocks
+        # that others held: their tokens are the ones to hold
+        sample = sorted(set(pre)) + [r for r, _, _ in b_reqs[:2]
+                                     if r not in pre]
+        worst_b = max(_teacher_margin(params, cfg, p, res[rid].tokens,
+                                      device)
+                      for rid, p, _ in b_reqs if rid in sample)
+        row["preempt"] = {
+            "requests": len(b_reqs), "pool_blocks": SM_PRESSURE_POOL,
+            "tokens_per_s": sum(len(r.tokens) for r in res.values()) / wall,
+            "wall_s": wall, "preemptions": len(pre), "preempted": pre,
+            "margin_sample": sample,
+            "prefill_dispatches": eng.metrics.dispatches["prefill"],
+            "block_mean_s": _block_mean(eng.metrics),
+            "pool_mb": eng.kv_nbytes / 2**20,
+        }
+        del eng
+        # (c)
+        eng, res, wall, pre = _serve_modes_part(
+            params, cfg, kv_quant, device, c_reqs, spec_k=4)
+        snap = eng.metrics.snapshot()
+        if snap["spec_drafted"] <= 0:
+            raise AssertionError(f"{kv_quant}: speculation drafted nothing")
+        worst_c = max(_teacher_margin(params, cfg, p, res[rid].tokens,
+                                      device) for rid, p, _ in c_reqs[:3])
+        row["spec"] = {
+            "requests": len(c_reqs), "spec_k": 4,
+            "tokens_per_s": sum(len(r.tokens) for r in res.values()) / wall,
+            "wall_s": wall, "drafted": snap["spec_drafted"],
+            "accepted": snap["spec_accepted"],
+            "acceptance": snap["spec_acceptance_rate"],
+            "verify_dispatches": snap["dispatches_verify"],
+            "decode_dispatches": snap["dispatches_decode"],
+            "block_mean_s": _block_mean(eng.metrics), "preemptions": len(pre),
+        }
+        del eng
+        worst = max(worst_a, worst_b, worst_c)
+        gate = SM_TEACHER_EPS[kv_quant]
+        if gate is not None and worst > gate:
+            raise AssertionError(f"{kv_quant}: teacher-forced margin "
+                                 f"{worst:.4f} row std > {gate}")
+        row.update({"teacher_forced_worst_margin_std": worst,
+                    "teacher_forced_eps_std": gate, "card": card})
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    counts = fa.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the paged engine launched kernels: {counts}")
+    for kv_quant, most in (("int8", 0.51), ("int4", 0.26)):
+        ratio = pool_bytes[kv_quant] / pool_bytes["off"]
+        if ratio > most:
+            raise AssertionError(f"{kv_quant} pool {ratio:.4f} of float's "
+                                 f"> {most}")
+    print(json.dumps({
+        "phase": "serving_modes_summary", "flash_launches": counts,
+        "pool_mb": {k: v / 2**20 for k, v in pool_bytes.items()},
+        "pool_ratio": {k: pool_bytes[k] / pool_bytes["off"]
+                       for k in ("int8", "int4")},
+        "card": card}), flush=True)
+    return rows
 
 
 def _flagship_train_config():
@@ -575,20 +840,25 @@ def _kernel_family(name):
     return "elementwise/other"
 
 
-def _profile_step(card, step, state, batch, llama, cfg, step_s):
-    """Where one train step's device time goes: torch.profiler's device
-    kernels summed by name and by family, against the unprofiled step
-    time; and CUDA events around the forward, the backward (with the
-    remat recompute) and the optimizer."""
+def _profiled(fn):
+    """A torch.profiler session (host and device) around ``fn()`` and a
+    device sync."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def _device_kernels(prof):
+    """({kernel name: device ms}, kernel launches) of a profiler
+    session."""
+    from torch.autograd import DeviceType
+
     kernels, calls = {}, 0
     for ev in prof.key_averages():
         if (ev.device_type != DeviceType.CUDA
@@ -602,6 +872,100 @@ def _profile_step(card, step, state, batch, llama, cfg, step_s):
         if ms > 0:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + ms
             calls += ev.count
+    return kernels, calls
+
+
+def _top(kernels, n, width):
+    return [(k[:width], ms) for k, ms in
+            sorted(kernels.items(), key=lambda kv: -kv[1])[:n]]
+
+
+# the serving profile's KV layouts: the slice's contiguous cache and the
+# serving-modes phase's paged pool under each kv_quant
+SERVE_LAYOUTS = {
+    "contiguous": {},
+    "paged_off": {"block_size": SM_BLOCK},
+    "paged_int8": {"block_size": SM_BLOCK, "kv_quant": "int8"},
+    "paged_int4": {"block_size": SM_BLOCK, "kv_quant": "int4"},
+}
+PROFILE_PREFILL = 256  # tokens of the profiled admission
+
+
+def _profile_serving(card, params, cfg):
+    """Where a decode block and an admission of the slice's engine (8
+    slots x 2048, horizon 8) spend their time, per KV layout: six
+    250-token prompts are admitted and decoded for two blocks; then one
+    decode block (dispatch + drain) and the admission of one
+    PROFILE_PREFILL-token prompt into a free slot (one prefill dispatch,
+    the contiguous cache's on the flash kernel) each run once on the
+    host clock through a device sync and once under torch.profiler. One
+    line per layout: host seconds, device kernel ms and launches of
+    each, and the top kernels."""
+    import torch
+
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.serving.metrics import ServingMetrics
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, _device_kernels(_profiled(fn))
+
+    for name, kw in SERVE_LAYOUTS.items():
+        eng = ContinuousBatchingEngine(
+            params, cfg, max_slots=8, max_len=SM_MAX_LEN, horizon=8,
+            metrics=ServingMetrics(registry=MetricsRegistry()),
+            device="cuda", **kw)
+        rng = np.random.RandomState(0)
+        for j in range(6):  # two slots stay free for the admissions
+            eng.submit(f"r{j}", rng.randint(0, cfg.vocab, 250).tolist(), 256)
+        for _ in range(3):  # admit the six, then two decode blocks
+            eng.step()
+        eng._drain_all()
+
+        def block():
+            eng._dispatch_block()
+            eng._drain_all()
+
+        admitted = []
+
+        def admit():
+            admitted.append(f"a{len(admitted)}")
+            eng.submit(admitted[-1],
+                       rng.randint(0, cfg.vocab, PROFILE_PREFILL).tolist(), 2)
+            eng._admit()
+
+        block_s, (b_k, b_calls) = timed(block)
+        prefill_s, (p_k, p_calls) = timed(admit)
+        b_ms = sum(b_k.values())
+        print(json.dumps({
+            "phase": "serving_profile", "layout": name,
+            "layers": cfg.n_layers, "horizon": 8, "slots": 8,
+            "block_host_s": block_s, "block_device_ms": b_ms,
+            "block_kernel_launches": b_calls,
+            "block_device_busy_share": b_ms / (block_s * 1e3),
+            "block_top_kernels_ms": _top(b_k, 6, 60),
+            "prefill_tokens": PROFILE_PREFILL, "prefill_host_s": prefill_s,
+            "prefill_device_ms": sum(p_k.values()),
+            "prefill_kernel_launches": p_calls,
+            "prefill_top_kernels_ms": _top(p_k, 6, 60),
+            "kv_mb": eng.kv_nbytes / 2**20, "card": card,
+        }), flush=True)
+        del eng
+        torch.cuda.empty_cache()
+
+
+def _profile_step(card, step, state, batch, llama, cfg, step_s):
+    """Where one train step's device time goes: torch.profiler's device
+    kernels summed by name and by family, against the unprofiled step
+    time; and CUDA events around the forward, the backward (with the
+    remat recompute) and the optimizer."""
+    import torch
+
+    kernels, calls = _device_kernels(_profiled(lambda: step(state, batch)))
     fams = {}
     for name, ms in kernels.items():
         fam = _kernel_family(name)
@@ -620,7 +984,6 @@ def _profile_step(card, step, state, batch, llama, cfg, step_s):
     opt.step()
     ev[3].record()
     ev[3].synchronize()
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "train_profile.json"), "w") as f:
         json.dump({"kernels_ms": kernels, "card": card}, f, indent=1)
@@ -629,7 +992,7 @@ def _profile_step(card, step, state, batch, llama, cfg, step_s):
         "device_kernel_ms": device_ms, "step_ms": step_s * 1e3,
         "device_busy_share": device_ms / (step_s * 1e3),
         "by_family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
-        "top_kernels_ms": [(n[:90], ms) for n, ms in top],
+        "top_kernels_ms": _top(kernels, 12, 90),
         "events_ms": {"forward": ev[0].elapsed_time(ev[1]),
                       "backward_with_recompute": ev[1].elapsed_time(ev[2]),
                       "optimizer": ev[2].elapsed_time(ev[3])},
@@ -679,7 +1042,12 @@ def main() -> int:
     rows = kernel_phase(card)
     train_rows = train_kernel_phase(card)
     torch.cuda.empty_cache()
-    launches = slice_phase(card)
+    launches, params, cfg = slice_phase(card)
+    torch.cuda.empty_cache()
+    serving_modes_phase(card, params, cfg)
+    if profile:
+        _profile_serving(card, params, cfg)
+    del params
     torch.cuda.empty_cache()
     train_counts = train_phase(card, profile)
 

@@ -1,5 +1,6 @@
 """``python -m edl_tpu_torch serve`` — the port of ``edl serve``
-(``edl_tpu/cli/main.py``), contiguous KV path.
+(``edl_tpu/cli/main.py``): the contiguous and paged KV caches, the
+prefix cache, chunked prefill, quantized KV and speculative decoding.
 
 Reads the same JSONL request feed and the same export directory as the
 reference verb and prints the same per-request JSON records on stdout
@@ -18,9 +19,6 @@ from typing import List, Optional
 
 # flags of the reference verb whose serving paths are not ported yet
 _NOT_PORTED_FLAGS = {
-    "block_size": ("--block-size", 0),
-    "kv_quant": ("--kv-quant", "off"),
-    "spec_k": ("--spec-k", 0),
     "int8": ("--int8", False),
     "mesh": ("--mesh", ""),
 }
@@ -104,7 +102,7 @@ def run_serve(args) -> int:
     """Continuous-batching serving from a published export."""
     for attr, (flag, off) in _NOT_PORTED_FLAGS.items():
         if getattr(args, attr) != off:
-            print(f"{flag} is not ported yet (ROADMAP Queue A item 3)",
+            print(f"{flag} is not ported yet (ROADMAP Queue A)",
                   file=sys.stderr)
             return 1
     if args.temperature < 0:
@@ -123,6 +121,33 @@ def run_serve(args) -> int:
         return 1
     if args.max_recoveries < 0:
         print(f"--max-recoveries must be >= 0, got {args.max_recoveries}",
+              file=sys.stderr)
+        return 1
+    if args.block_size < 0:
+        print(f"--block-size must be >= 0, got {args.block_size}",
+              file=sys.stderr)
+        return 1
+    if args.block_size and args.max_len % args.block_size != 0:
+        print(f"--max-len {args.max_len} must be a multiple of "
+              f"--block-size {args.block_size}", file=sys.stderr)
+        return 1
+    if (args.prefix_cache or args.prefill_chunk) and not args.block_size:
+        print("--prefix-cache/--prefill-chunk require --block-size > 0",
+              file=sys.stderr)
+        return 1
+    if args.kv_quant != "off" and not args.block_size:
+        print("--kv-quant requires the paged KV cache (--block-size > 0)",
+              file=sys.stderr)
+        return 1
+    if args.spec_k < 0:
+        print(f"--spec-k must be >= 0, got {args.spec_k}", file=sys.stderr)
+        return 1
+    if args.spec_k > 0 and args.temperature > 0:
+        print("--spec-k > 0 requires greedy decoding (temperature 0), "
+              f"got --temperature {args.temperature}", file=sys.stderr)
+        return 1
+    if args.spec_ngram < 1:
+        print(f"--spec-ngram must be >= 1, got {args.spec_ngram}",
               file=sys.stderr)
         return 1
     try:
@@ -173,6 +198,14 @@ def run_serve(args) -> int:
         temperature=args.temperature,
         seed=args.seed,
         max_recoveries=args.max_recoveries,
+        block_size=args.block_size,
+        pool_blocks=args.pool_blocks or None,
+        prefix_cache=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk,
+        kv_quant=args.kv_quant,
+        spec_k=args.spec_k,
+        spec_ngram=args.spec_ngram,
+        spec_min_accept=args.spec_min_accept,
         device=device,
     )
     rejected = {}
@@ -240,11 +273,47 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--temperature", type=float, default=0.0)
     sv.add_argument("--seed", type=int, default=0)
     sv.add_argument("--metrics-every", type=int, default=0)
+    sv.add_argument(
+        "--block-size", type=int, default=0,
+        help="paged KV cache: tokens per KV block (0 = contiguous "
+        "per-slot cache; must divide --max-len)",
+    )
+    sv.add_argument(
+        "--pool-blocks", type=int, default=0,
+        help="paged KV cache: physical blocks in the pool incl. the "
+        "scratch block (0 = max-slots * max-len/block-size + 1)",
+    )
+    sv.add_argument(
+        "--prefix-cache", action="store_true",
+        help="paged KV cache: share full prompt-prefix blocks between "
+        "requests (refcounted; copy-on-write at divergence)",
+    )
+    sv.add_argument(
+        "--prefill-chunk", type=int, default=0,
+        help="paged KV cache: prefill long prompts in chunks of at most "
+        "this many tokens between decode blocks (0 = one dispatch)",
+    )
+    sv.add_argument(
+        "--kv-quant", choices=("off", "int8", "int4"), default="off",
+        help="paged KV cache: store K/V as int8 (or packed int4) with "
+        "per-block-per-head f32 scales; requires --block-size > 0",
+    )
+    sv.add_argument(
+        "--spec-k", type=int, default=0,
+        help="speculative decoding: n-gram draft tokens verified per "
+        "decode dispatch (0 = off); requires --temperature 0",
+    )
+    sv.add_argument(
+        "--spec-ngram", type=int, default=3,
+        help="longest suffix n-gram the prompt-lookup drafter matches",
+    )
+    sv.add_argument(
+        "--spec-min-accept", type=float, default=0.0,
+        help="per-request acceptance floor below which a request stops "
+        "drafting after warm-up (0 = always draft)",
+    )
     # the reference verb's flags for serving paths not ported yet:
     # accepted so a reference command line fails with a clear message
-    sv.add_argument("--block-size", type=int, default=0)
-    sv.add_argument("--kv-quant", default="off")
-    sv.add_argument("--spec-k", type=int, default=0)
     sv.add_argument("--int8", action="store_true")
     sv.add_argument("--mesh", default="")
     sv.set_defaults(fn=run_serve)

@@ -1,7 +1,9 @@
 """Llama-3-family decoder — the port of ``edl_tpu/models/llama.py``:
-the serving half (dense weights, contiguous KV cache) and the training
-half (differentiable ``forward`` with per-layer remat, ``make_loss_fn``,
-``synthetic_tokens``, ``train_flops_per_token``).
+the serving half (dense weights; the contiguous KV cache, the paged
+block pool with int8 / int4 quantized entries, and the speculative
+verify steps) and the training half (differentiable ``forward`` with
+per-layer remat, ``make_loss_fn``, ``synthetic_tokens``,
+``train_flops_per_token``).
 
 Params are a dict-of-tensors tree with the reference's keys and its
 scan-stacked layout (every per-layer weight carries a leading
@@ -16,8 +18,8 @@ The numerics follow the reference op for op: RMSNorm variance in f32,
 RoPE angles in f32 with cos/sin cast to the activation dtype, decode
 scores divided into f32 (the reference divides by a NumPy scalar,
 which promotes) and masked with that dtype's minimum, softmax in f32.
-The decode path updates the KV cache IN PLACE (unique-index writes)
-where the reference donates the buffers to XLA.
+The decode, prefill and verify paths update the KV cache or pool IN
+PLACE where the reference donates the buffers to XLA.
 """
 
 from __future__ import annotations
@@ -232,7 +234,7 @@ def _matw(a: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, dict):
         raise NotImplementedError(
             "int8 weight records are not ported yet (ROADMAP Queue A "
-            "item 3: serving modes and --int8)"
+            "item 8: ops/int8_matmul and serve --int8)"
         )
     return a @ w.to(a.dtype)
 
@@ -407,9 +409,22 @@ def decode_horizon_slots(
     re-running an idempotent step. Every mask is a ``torch.where`` on
     the device — the loop never syncs the host. Returns
     ``(toks [B, horizon], tok, pos, active, rem, kc, vc)``."""
+    def step(tok, pos):
+        return decode_step_slots(params, tok, pos, kc, vc, cfg)[0]
+
+    return _horizon(step, tok, pos, active, rem, eosv, horizon, generator,
+                    temperature, sampling) + (kc, vc)
+
+
+def _horizon(step, tok, pos, active, rem, eosv, horizon, generator,
+             temperature, sampling):
+    """The horizon loop of the contiguous and paged decodes: ``step(tok,
+    pos)`` gives one step's logits [B, V] (writing the caches in place);
+    a row that emits its ``eosv`` token or exhausts ``rem`` freezes.
+    Returns ``(toks [B, horizon], tok, pos, active, rem)``."""
     outs = []
     for _ in range(horizon):
-        logits, kc, vc = decode_step_slots(params, tok, pos, kc, vc, cfg)
+        logits = step(tok, pos)
         if sampling:
             nxt = _categorical(logits / temperature, generator)
         else:
@@ -421,7 +436,505 @@ def decode_horizon_slots(
         hit = active & (eosv >= 0) & (nxt == eosv)
         active = active & ~hit & (rem > 0)
         tok = nxt
-    return torch.stack(outs, dim=1), tok, pos, active, rem, kc, vc
+    return torch.stack(outs, dim=1), tok, pos, active, rem
+
+
+# -- inference: paged KV cache (block tables) ---------------------------------
+#
+# K/V live in a POOL of fixed-size blocks [L, n_blocks, block_size, KV, hd]
+# and each slot carries a BLOCK TABLE row mapping its logical positions to
+# physical blocks: logical position p of row r lives at
+# (table[r, p // block_size], p % block_size). The serving engine allocates
+# blocks as requests grow, frees them on finish, and maps leading entries of
+# different rows to the SAME physical block (refcounted shared prefixes).
+# Physical block 0 is SCRATCH: inactive/frozen lanes and bucket padding
+# write there, no live table entry maps to it, and the causal mask hides
+# every position past a row's own, so scratch is never read back. Every
+# function below writes the pool IN PLACE (the reference donates it) and
+# returns it for symmetry with the reference's signatures. Attention is the
+# reference's gather through the table plus a masked dense einsum — no
+# flash kernel on this path, as in the reference.
+#
+# Quantized pools (kv_quant "int8" / "int4") store int8 (or two int4 per
+# byte along hd) with per-(block, kv-head) f32 absmax scales ks/vs
+# [L, nb, KV]. The K scale multiplies the f32 scores (constant along the
+# contracted hd), the V scale folds into the probs (indexed like them), so
+# the contraction runs on the raw integers cast to the activation dtype.
+# Writes quantize on the fly (:func:`_kvq_store`): each written block's
+# scale grows to cover the new values' absmax, resets when a write lands at
+# block offset 0 (a block's first write), and resident content is rescaled
+# under the grown scale.
+
+_KVQ_QMAX = {"int8": 127.0, "int4": 7.0}
+
+
+def kvq_packed_head_dim(kv_quant: str, head_dim: int) -> int:
+    """Innermost stored dim of one pool entry: int4 packs two 4-bit
+    values per int8 byte along ``hd`` (requires even head_dim)."""
+    if kv_quant == "int4":
+        if head_dim % 2:
+            raise ValueError(
+                f"kv_quant int4 needs an even head_dim, got {head_dim}"
+            )
+        return head_dim // 2
+    return head_dim
+
+
+def _kvq_pack(q: torch.Tensor, kv_quant: str) -> torch.Tensor:
+    """Rounded/clipped quantized values (f32 in [-qmax, qmax]) -> stored
+    int8. int4 packs index pairs along the last axis: even index = low
+    nibble, odd = high nibble (bit work on int32, never on uint8)."""
+    qi = q.to(torch.int32)
+    if kv_quant == "int8":
+        return qi.to(torch.int8)
+    lo = qi[..., 0::2]
+    hi = qi[..., 1::2]
+    return torch.bitwise_or(torch.bitwise_left_shift(hi, 4),
+                            torch.bitwise_and(lo, 0xF)).to(torch.int8)
+
+
+def _kvq_unpack(p: torch.Tensor, kv_quant: str) -> torch.Tensor:
+    """Stored int8 -> quantized values as f32 in [-qmax, qmax]."""
+    if kv_quant == "int8":
+        return p.float()
+    x = p.to(torch.int32)
+    hi = torch.bitwise_right_shift(x, 4)  # arithmetic: sign-extends
+    lo = torch.bitwise_xor(torch.bitwise_and(x, 0xF), 8) - 8  # sign-extend
+    both = torch.stack([lo, hi], dim=-1)  # [..., hd/2, 2]
+    return both.reshape(*p.shape[:-1], p.shape[-1] * 2).float()
+
+
+def _kvq_store(
+    pool: torch.Tensor,
+    scale: torch.Tensor,
+    i: int,
+    wblk: torch.Tensor,
+    woff: torch.Tensor,
+    new: torch.Tensor,
+    kv_quant: str,
+):
+    """Quantize ``new`` [N, KV, hd] lane writes into layer ``i`` of the
+    packed ``pool`` [L, nb, bs, KV, hdp] at (``wblk``, ``woff``) [N], in
+    place, maintaining the per-(block, kv-head) f32 ``scale`` [L, nb, KV].
+
+    (1) scatter-max the new values' absmax into per-block scale
+    proposals; (2) a write at offset 0 marks its block FRESH — the scale
+    resets instead of inheriting a freed previous tenant's; (3) written
+    blocks' resident content is rescaled under the grown scale (duplicate
+    block indices carry identical payloads; fresh blocks' stale content
+    zeroes); (4) the new values quantize under the final scale and land
+    at their offsets. Only refcount-1 blocks are written (the engine
+    copy-on-writes shared ones first), except SCRATCH, never read."""
+    qmax = _KVQ_QMAX[kv_quant]
+    newf = new.float()
+    amax = newf.abs().amax(dim=-1)  # [N, KV]
+    nb, kvh = scale.shape[1], scale.shape[2]
+    s_old = scale[i]  # [nb, KV]
+    prop = torch.zeros_like(s_old).scatter_reduce(
+        0, wblk[:, None].expand(-1, kvh), amax, "amax", include_self=True)
+    fresh = torch.zeros(nb, dtype=torch.int32, device=pool.device)
+    fresh = fresh.scatter_reduce(0, wblk, (woff == 0).to(torch.int32),
+                                 "amax", include_self=True) > 0
+    touched = torch.zeros(nb, dtype=torch.bool, device=pool.device)
+    touched[wblk] = True
+    kept = torch.where(fresh[:, None], 0.0, s_old)
+    s_new = torch.maximum(kept, prop / qmax)
+    s_new = torch.where(touched[:, None], s_new, s_old)
+    s_safe = torch.where(s_new > 0.0, s_new, 1.0)
+    # resident-content rescale: the identity (ratio 1) when the scale did
+    # not move; a fresh block's stale previous-tenant content zeroes
+    ratio = (kept / s_safe)[wblk]  # [N, KV]
+    cur = _kvq_unpack(pool[i][wblk], kv_quant)  # [N, bs, KV, hd]
+    resc = torch.clamp(torch.round(cur * ratio[:, None, :, None]),
+                       -qmax, qmax)
+    pool[i, wblk] = _kvq_pack(resc, kv_quant)
+    qnew = torch.clamp(torch.round(newf / s_safe[wblk][:, :, None]),
+                       -qmax, qmax)
+    pool[i, wblk, woff] = _kvq_pack(qnew, kv_quant)
+    scale[i] = s_new
+    return pool, scale
+
+
+def _kvq_scale_strip(scale_i: torch.Tensor, table: torch.Tensor, bs: int):
+    """Per-position scale strip for the attention gather: the [.., M, KV]
+    block scales gathered through the table, expanded to
+    [B, KV, 1, 1, S] against the ``bkgts`` score/prob layout (block j's
+    scale covers positions j*bs .. (j+1)*bs - 1)."""
+    sc = scale_i[table].repeat_interleave(bs, dim=-2)  # [.., S, KV]
+    sc = sc.transpose(-1, -2)  # [.., KV, S]
+    if sc.dim() == 2:  # single-slot table (prefill): add the batch axis
+        sc = sc[None]
+    return sc[:, :, None, None, :]
+
+
+def _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant, ks, vs):
+    """Masked dense GQA attention of ``q`` [B, T, H, hd] over layer
+    ``i``'s pool gathered through ``table`` ([B, M], or [M] for one
+    slot): the reference's table gather + einsum, with the quantized
+    pool's factored dequant. Returns [B, T, H*hd]."""
+    b, t = q.shape[:2]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = table.shape[-1] * bs
+    dt = q.dtype
+    quant = kv_quant != "off"
+    kci, vci = kc[i][table], vc[i][table]
+    if quant:
+        kci = _kvq_unpack(kci, kv_quant).to(dt)
+        vci = _kvq_unpack(vci, kv_quant).to(dt)
+    kci = kci.reshape(-1, s, kvh, hd)
+    vci = vci.reshape(-1, s, kvh, hd)
+    qg = q.reshape(b, t, kvh, h // kvh, hd)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, kci)
+    scores = scores.float() / math.sqrt(hd)
+    if quant:
+        scores = scores * _kvq_scale_strip(ks[i], table, bs)
+    scores = torch.where(qmask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1)
+    if quant:
+        probs = probs * _kvq_scale_strip(vs[i], table, bs)
+    o = torch.einsum("bkgts,bskd->btkgd", probs.to(dt), vci)
+    return o.reshape(b, t, h * hd)
+
+
+def _paged_write(kc, vc, ks, vs, i, wblk, woff, knew, vnew, kv_quant):
+    """Lane writes [N, KV, hd] into layer ``i`` at (wblk, woff) [N]."""
+    if kv_quant != "off":
+        _kvq_store(kc, ks, i, wblk, woff, knew, kv_quant)
+        _kvq_store(vc, vs, i, wblk, woff, vnew, kv_quant)
+    else:
+        kc[i, wblk, woff] = knew
+        vc[i, wblk, woff] = vnew
+
+
+def _paged_result(logits, kc, vc, ks, vs, kv_quant):
+    if kv_quant != "off":
+        return logits, kc, vc, ks, vs
+    return logits, kc, vc
+
+
+@torch.no_grad()
+def decode_step_slots_paged(
+    params: Dict,
+    tok: torch.Tensor,
+    pos: torch.Tensor,
+    table: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    cfg: LlamaConfig,
+    block_size: int,
+    kv_quant: str = "off",
+    ks: Optional[torch.Tensor] = None,
+    vs: Optional[torch.Tensor] = None,
+):
+    """One slot-decode step over the paged pool. tok/pos [B]; table
+    [B, M] physical block ids; kc/vc [L, n_blocks, block_size, KV, hd]
+    (int8 with hd packed under ``kv_quant``, plus scales ``ks``/``vs``).
+    Returns (logits [B, V] f32, kc, vc[, ks, vs]).
+
+    Per-row math is :func:`decode_step_slots`'s; only the write target
+    (the row's block at ``pos % block_size``) and the read (the table
+    gather) differ. Rows whose ``pos`` ran past the table write to
+    scratch — a clamped index would alias the last real block."""
+    b = tok.shape[0]
+    bs = block_size
+    m = table.shape[1]
+    s = m * bs
+    dev = tok.device
+    rows = torch.arange(b, device=dev)
+    inb = pos < s
+    blk = torch.where(inb, table[rows, torch.clamp(pos // bs, 0, m - 1)], 0)
+    off = torch.where(inb, pos % bs, 0)
+    qmask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])
+    qmask = qmask[:, None, None, None, :]
+    x = _embed(params, tok[:, None], cfg)
+    rope = _rope_tables(cfg, 1, dev, pos[:, None])
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        a = _rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, knew, vnew = _qkv(cfg, a, lp, rope)
+        _paged_write(kc, vc, ks, vs, i, blk, off, knew[:, 0], vnew[:, 0],
+                     kv_quant)
+        o = _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant,
+                          ks, vs)
+        x = x + _matw(o, lp["wo"])
+        x = _mlp(cfg, x, lp)
+    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = _matw(x[:, 0], params["lm_head"]).float()
+    return _paged_result(logits, kc, vc, ks, vs, kv_quant)
+
+
+@torch.no_grad()
+def decode_horizon_slots_paged(
+    params: Dict,
+    tok: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    rem: torch.Tensor,
+    eosv: torch.Tensor,
+    table: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    cfg: LlamaConfig,
+    block_size: int,
+    horizon: int,
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 1.0,
+    sampling: bool = False,
+    kv_quant: str = "off",
+    ks: Optional[torch.Tensor] = None,
+    vs: Optional[torch.Tensor] = None,
+):
+    """The paged twin of :func:`decode_horizon_slots`: ``horizon``
+    :func:`decode_step_slots_paged` steps with the same on-device freeze
+    semantics. The table is read-only across the horizon (the engine
+    maps every position the horizon can write before it dispatches).
+    Returns ``(toks [B, horizon], tok, pos, active, rem, kc, vc[, ks,
+    vs])``."""
+    def step(tok, pos):
+        return decode_step_slots_paged(
+            params, tok, pos, table, kc, vc, cfg, block_size,
+            kv_quant=kv_quant, ks=ks, vs=vs,
+        )[0]
+
+    out = _horizon(step, tok, pos, active, rem, eosv, horizon, generator,
+                   temperature, sampling) + (kc, vc)
+    if kv_quant != "off":
+        return out + (ks, vs)
+    return out
+
+
+@torch.no_grad()
+def prefill_paged(
+    params: Dict,
+    tokens: torch.Tensor,
+    start: int,
+    last: int,
+    table: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    cfg: LlamaConfig,
+    block_size: int,
+    kv_quant: str = "off",
+    ks: Optional[torch.Tensor] = None,
+    vs: Optional[torch.Tensor] = None,
+):
+    """Prefill one CHUNK of one slot's prompt into the paged pool.
+    ``tokens`` [1, Tb] covers logical positions ``start .. start+Tb-1``
+    with real tokens through local index ``last`` (end padding); earlier
+    positions are already resident (earlier chunks or shared prefix
+    blocks). ``table`` [M] is the slot's block-table row. Returns
+    (logits [1, V] f32 at ``last``, kc, vc[, ks, vs]).
+
+    The writes land before the gather, so chunk token t sees every pool
+    position <= start + t, its own included. Pad tokens write to
+    scratch and their query rows are discarded. Serves admission (start
+    = the prefix-hit length), chunked prefill and the recovery replay."""
+    b, tb = tokens.shape
+    bs = block_size
+    m = table.shape[0]
+    s = m * bs
+    dev = tokens.device
+    tpos = torch.arange(tb, device=dev)
+    positions = start + tpos  # [Tb] absolute positions
+    real = tpos <= last
+    wblk = torch.where(real, table[torch.clamp(positions // bs, 0, m - 1)], 0)
+    woff = torch.where(real, positions % bs, 0)
+    qmask = (torch.arange(s, device=dev)[None, :] <= positions[:, None])
+    qmask = qmask[None, None, None]  # [1,1,1,Tb,S]
+    x = _embed(params, tokens, cfg)
+    rope = _rope_tables(cfg, tb, dev, positions)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        a = _rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, knew, vnew = _qkv(cfg, a, lp, rope)
+        _paged_write(kc, vc, ks, vs, i, wblk, woff, knew[0], vnew[0],
+                     kv_quant)
+        o = _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant,
+                          ks, vs)
+        x = x + _matw(o, lp["wo"])
+        x = _mlp(cfg, x, lp)
+    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = _matw(x[:, last], params["lm_head"]).float()  # [1, V]
+    return _paged_result(logits, kc, vc, ks, vs, kv_quant)
+
+
+# -- inference: speculative decoding (draft-verify) ---------------------------
+#
+# A verify step scores K = D+1 query lanes per slot in one pass: the
+# pending token plus D host-drafted continuation guesses. Lane j writes
+# its K/V at position pos+j BEFORE the gather, so causal lanes see their
+# own prefix; lane j's argmax is the true greedy successor of
+# ``... tok draft[0..j-1]``. The longest draft prefix matching argmax is
+# committed, plus the first non-matching argmax as a bonus token, so a
+# rejected draft degrades to exactly one plain decode step. Rejected
+# lanes leave garbage past the accepted run, overwritten by the next
+# dispatch before its positions unmask. Writes past the cache end are
+# DROPPED (the reference's mode="drop"), never clamped.
+
+
+@torch.no_grad()
+def verify_step_slots(
+    params: Dict,
+    tok: torch.Tensor,
+    draft: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    rem: torch.Tensor,
+    eosv: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    cfg: LlamaConfig,
+):
+    """One speculative draft-verify step over B contiguous KV slots.
+    tok [B] (pending tokens); draft [B, D] (-1 = no draft in that lane:
+    never matches an argmax); pos/active/rem/eosv as in
+    :func:`decode_horizon_slots`; kc/vc [L, B, S, KV, hd], written in
+    place. Returns ``(outs [B, D+1], tok, pos, active, rem, kc, vc)`` —
+    the committed tokens with -1 tails, the horizon drain contract.
+
+    A lane past the cache end has nowhere to go: its write is redirected
+    to its row's lane 0 position with lane 0's own K/V, so the scatter's
+    duplicates carry identical payloads (lane 0 is in range: a row's
+    ``pos`` stays below S, since a request's prompt plus budget fits
+    its slot)."""
+    b, k = draft.shape[0], draft.shape[1] + 1
+    s = kc.shape[2]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rows = torch.arange(b, device=tok.device)[:, None]
+    qpos = _lane_positions(pos, k)
+    inb = qpos < s
+    wpos = torch.where(inb, qpos, pos[:, None])
+    keep = inb[:, :, None, None]
+
+    def attend(i, q, knew, vnew, qmask):
+        kc[i, rows, wpos] = torch.where(keep, knew, knew[:, :1])
+        vc[i, rows, wpos] = torch.where(keep, vnew, vnew[:, :1])
+        qg = q.reshape(b, k, kvh, h // kvh, hd)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg, kc[i])
+        scores = scores.float() / math.sqrt(hd)
+        scores = torch.where(qmask, scores, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return torch.einsum("bkgts,bskd->btkgd", probs, vc[i]).reshape(b, k,
+                                                                       -1)
+
+    out = _verify_argmax(params, cfg, tok, draft, qpos, s, attend)
+    return _spec_accept(tok, draft, out, pos, active, rem, eosv, kc, vc)
+
+
+def _lane_positions(pos, k):
+    """[B, K] cache positions of a verify step's lanes: pos .. pos+K-1."""
+    return pos[:, None] + torch.arange(k, device=pos.device)[None, :]
+
+
+def _verify_argmax(params, cfg, tok, draft, qpos, s, attend):
+    """The layers of a verify step, shared by the contiguous and paged
+    caches: lane 0 embeds the pending token, lane j > 0 draft[j-1] (a -1
+    sentinel embeds as token 0 and is never accepted), at ``qpos``
+    [B, K]. ``attend(i, q, knew, vnew, qmask)`` writes layer ``i``'s lane
+    K/V before it gathers, and returns the attention output [B, K,
+    H*hd]. Returns the per-lane greedy argmax [B, K]."""
+    k = qpos.shape[1]
+    dev = tok.device
+    toks = torch.cat([tok[:, None], torch.clamp(draft, min=0)], dim=1)
+    qmask = (torch.arange(s, device=dev)[None, None, :] <= qpos[:, :, None])
+    qmask = qmask[:, None, None]  # [B,1,1,K,S]
+    x = _embed(params, toks, cfg)
+    rope = _rope_tables(cfg, k, dev, qpos)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        a = _rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, knew, vnew = _qkv(cfg, a, lp, rope)
+        x = x + _matw(attend(i, q, knew, vnew, qmask), lp["wo"])
+        x = _mlp(cfg, x, lp)
+    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    logits = _matw(x, params["lm_head"]).float()  # [B, K, V]
+    return torch.argmax(logits, dim=-1)
+
+
+def _spec_accept(tok, draft, out, pos, active, rem, eosv, kc, vc):
+    """On-device acceptance shared by the contiguous and paged verify
+    steps: commit the longest draft prefix matching greedy argmax plus
+    one bonus token, truncated by the remaining budget and cut after the
+    first emitted EOS. Pure slot-state bookkeeping — every committed
+    position's K/V was already written by the verify lanes."""
+    b, d = draft.shape
+    k = d + 1
+    dev = tok.device
+    rows = torch.arange(b, device=dev)
+    # a = accepted draft prefix length: out[:, j] is the successor of the
+    # sequence THROUGH draft[j-1]
+    match = (draft == out[:, :d]).long()
+    a = torch.cumprod(match, dim=1).sum(dim=1)  # [B] in 0..D
+    idx = torch.arange(k, device=dev)[None, :]
+    emit = (active[:, None] & (idx < (a + 1)[:, None])
+            & (idx < rem[:, None]))
+    is_eos = (eosv[:, None] >= 0) & (out == eosv[:, None])
+    eos_emitted = (emit & is_eos).long()
+    # lanes strictly AFTER the first emitted EOS are cut; the EOS itself
+    # is emitted (exclusive running count)
+    before = torch.cumsum(eos_emitted, dim=1) - eos_emitted
+    emit = emit & (before == 0)
+    e = emit.long().sum(dim=1)  # [B] emitted count
+    outs = torch.where(emit, out, -1)
+    # the new pending token is the LAST emitted one (its K/V is written by
+    # the next dispatch's lane 0)
+    tok = torch.where(e > 0, out[rows, torch.clamp(e - 1, 0, k - 1)], tok)
+    pos = pos + e
+    rem = rem - e
+    hit = ((eos_emitted > 0) & emit).any(dim=1)
+    active = active & ~hit & (rem > 0)
+    return outs, tok, pos, active, rem, kc, vc
+
+
+@torch.no_grad()
+def verify_step_slots_paged(
+    params: Dict,
+    tok: torch.Tensor,
+    draft: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    rem: torch.Tensor,
+    eosv: torch.Tensor,
+    table: torch.Tensor,
+    kc: torch.Tensor,
+    vc: torch.Tensor,
+    cfg: LlamaConfig,
+    block_size: int,
+    kv_quant: str = "off",
+    ks: Optional[torch.Tensor] = None,
+    vs: Optional[torch.Tensor] = None,
+):
+    """The paged twin of :func:`verify_step_slots`: lane writes target
+    (table[row, (pos+j) // bs], (pos+j) % bs); lanes past the table go
+    to scratch. The engine maps every position an accepted run can
+    commit before it dispatches. Under ``kv_quant`` the [B, K] lane
+    writes flatten into one :func:`_kvq_store` per plane per layer, and
+    the result grows ``(ks, vs)``."""
+    b, k = draft.shape[0], draft.shape[1] + 1
+    bs = block_size
+    m = table.shape[1]
+    s = m * bs
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    rows = torch.arange(b, device=tok.device)[:, None]
+    qpos = _lane_positions(pos, k)
+    inb = qpos < s
+    wblk = torch.where(
+        inb, table[rows, torch.clamp(qpos // bs, 0, m - 1)], 0
+    ).reshape(-1)
+    woff = torch.where(inb, qpos % bs, 0).reshape(-1)
+
+    def attend(i, q, knew, vnew, qmask):
+        _paged_write(kc, vc, ks, vs, i, wblk, woff,
+                     knew.reshape(b * k, kvh, hd),
+                     vnew.reshape(b * k, kvh, hd), kv_quant)
+        return _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant,
+                             ks, vs)
+
+    out = _verify_argmax(params, cfg, tok, draft, qpos, s, attend)
+    acc = _spec_accept(tok, draft, out, pos, active, rem, eosv, kc, vc)
+    if kv_quant != "off":
+        return acc + (ks, vs)
+    return acc
 
 
 def _sample(logits, temperature, generator, top_k: int, top_p: float):

@@ -256,3 +256,60 @@ def test_cuda_train_step_launch_counts():
     L = cfg.n_layers
     assert tfa.launch_counts() == {"flash_fwd": 0, "flash_fwd_lse": 2 * L,
                                    "flash_bwd_dq": L, "flash_bwd_dkv": L}
+
+
+# the serving modes on the card: (engine options, requests). Prompts share
+# a two-block prefix (prefix hits, a full hit's copy-on-write), one is long
+# enough to chunk, and two repeat (speculation accepts).
+_SHARED = list(range(2, 18))
+_MODE_REQS = [(_SHARED + [30, 31, 32], 9), (_SHARED, 7),
+              (list(range(40, 76)), 6), ([1, 2, 3, 4] * 3, 14),
+              (_SHARED, 5), ([5, 9] * 5, 11)]
+_MODES = {
+    "paged": dict(block_size=8, prefix_cache=True, prefill_chunk=8),
+    # 9 usable blocks: growth preempts 4 times and every request ends (at
+    # 8 the reference's policy preempts r2 and r3 in turn forever,
+    # ROADMAP Queue C)
+    "preempt": dict(block_size=8, pool_blocks=10, max_slots=4),
+    "int8": dict(block_size=8, prefix_cache=True, kv_quant="int8"),
+    "int4": dict(block_size=8, kv_quant="int4", prefill_chunk=8),
+    "spec": dict(spec_k=4),
+    "spec_paged_int8": dict(block_size=8, kv_quant="int8", spec_k=4),
+}
+
+
+def _serve_tiny(device, mode):
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, seed=0, device="cpu")
+    params = {k: ({n: t.to(device) for n, t in v.items()}
+                  if isinstance(v, dict) else v.to(device))
+              for k, v in params.items()}
+    kw = {"max_slots": 3, "max_len": 64, "horizon": 4, **_MODES[mode]}
+    eng = ContinuousBatchingEngine(params, cfg, device=device, **kw)
+    for i, (prompt, max_new) in enumerate(_MODE_REQS[:3]):
+        eng.submit(f"r{i}", prompt, max_new)
+    eng.step()
+    for i, (prompt, max_new) in enumerate(_MODE_REQS[3:], start=3):
+        eng.submit(f"r{i}", prompt, max_new)
+    res = eng.run()
+    assert eng.recoveries == 0
+    return {rid: (r.tokens, r.outcome) for rid, r in res.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(_MODES))
+def test_cuda_serving_modes_match_cpu(mode):
+    """The paged (prefix cache, chunked prefill, preemption), quantized
+    and speculative engines on the tiny config in f32: the card's greedy
+    tokens are the port's CPU run's (which the CPU tests hold to the
+    reference engine's)."""
+    _need_card()
+    want = _serve_tiny("cpu", mode)
+    tfa.reset_launches()
+    got = _serve_tiny("cuda", mode)
+    assert got == want
+    assert all(outcome == "done" for _, outcome in got.values())
+    assert tfa.launch_counts()["flash_fwd"] == 0

@@ -243,10 +243,28 @@ def test_submit_rejections_and_not_ported_modes():
     eng.run()
     with pytest.raises(AdmissionError):
         eng.submit("a", [1, 2], 3)
-    for kw in ({"block_size": 8}, {"prefix_cache": True},
-               {"prefill_chunk": 4}, {"kv_quant": "int8"}, {"spec_k": 2}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    # the serving modes are ported: each rejects what the reference's
+    # constructor rejects, with the reference's message, and serves
+    for kw, msg in (
+        ({"block_size": 8, "max_len": 60}, "multiple of block_size"),
+        ({"block_size": 8, "pool_blocks": 4}, "pool_blocks 4 < 9"),
+        ({"prefix_cache": True}, "require block_size > 0"),
+        ({"prefill_chunk": 4}, "require block_size > 0"),
+        ({"kv_quant": "int8"}, "requires the paged KV cache"),
+        ({"kv_quant": "fp8", "block_size": 8}, "one of off/int8/int4"),
+        ({"spec_k": -1}, "spec_k must be >= 0"),
+        ({"spec_k": 2, "temperature": 0.5}, "requires greedy decoding"),
+    ):
+        with pytest.raises(ValueError, match=msg):
+            JEngine(JP, JCFG, **{"max_len": 64, **kw})
+        with pytest.raises(ValueError, match=msg):
             _engine(**kw)
+    for kw in ({"block_size": 8, "prefix_cache": True, "prefill_chunk": 4},
+               {"block_size": 8, "kv_quant": "int4"}, {"spec_k": 2}):
+        eng = _engine(max_slots=1, **kw)
+        eng.submit("m", [1, 2, 3], 4)
+        got = eng.run()["m"]
+        assert got.outcome == "done" and len(got.tokens) == 4, kw
 
 
 def test_bucket_cap_takes_dense_path_like_reference():
@@ -328,8 +346,23 @@ def test_cli_serve_flag_validation(tmp_path):
     bad = _cli("serve", str(tmp_path), "--requests",
                str(tmp_path / "missing"), "--device", "cpu")
     assert bad.returncode == 1 and "bad request feed" in bad.stderr
-    for flags in (["--block-size", "8"], ["--kv-quant", "int8"],
-                  ["--spec-k", "2"], ["--int8"], ["--mesh", "tp=2"]):
+    # the reference verb's checks and messages (edl_tpu/cli/main.py)
+    for flags, msg in (
+        (["--block-size", "-1"], "--block-size must be >= 0"),
+        (["--block-size", "24", "--max-len", "64"], "must be a multiple of"),
+        (["--prefix-cache"], "require --block-size > 0"),
+        (["--prefill-chunk", "8"], "require --block-size > 0"),
+        (["--kv-quant", "int8"], "requires the paged KV cache"),
+        (["--spec-k", "-1"], "--spec-k must be >= 0"),
+        (["--spec-k", "2", "--temperature", "0.5"],
+         "requires greedy decoding"),
+        (["--spec-ngram", "0"], "--spec-ngram must be >= 1"),
+    ):
+        out = _cli("serve", str(tmp_path), "--device", "cpu", *flags,
+                   stdin='{"prompt": [1]}\n')
+        assert out.returncode == 1 and msg in out.stderr, flags
+    # weight-only int8 and sharded loading are still to port
+    for flags in (["--int8"], ["--mesh", "tp=2"]):
         out = _cli("serve", str(tmp_path), "--device", "cpu", *flags,
                    stdin='{"prompt": [1]}\n')
         assert out.returncode == 1 and "not ported yet" in out.stderr, flags
