@@ -4,9 +4,9 @@
     python3 chip_smoke.py             # what the card check runs
     python3 chip_smoke.py --profile   # also: torch.profiler over one
                                       # decode block and one admission
-                                      # per KV layout, and over one
-                                      # train step (CUDA events per
-                                      # phase)
+                                      # per KV layout, over one train
+                                      # step (CUDA events per phase),
+                                      # and the CTR chunk's kernels
 
 1. Builds every kernel of the serving and training paths from the
    sources in this checkout (``edl_tpu_torch/ops/csrc/*.cu``, one nvcc
@@ -86,6 +86,28 @@
    batch the flash loss and gradients against the dense (non-flash)
    path's: loss within 1e-4 relative, every leaf's gradient cosine
    >= 0.999.
+7. CTR phase: bench.py's headline (bench.py:1119-1230) on the port: the
+   Criteo-shaped CTR model (vocab 2^20, emb 16, MLP 400-400-400,
+   random weights from a seeded generator on the card), batch 16384 of
+   ``synthetic_batch`` (4 raw batches cycled into 12-step chunks),
+   ``adam(1e-3)``, bf16 compute, through ``stack_batches`` and
+   ``make_train_multistep``: 2 warm-up chunks, then 3 loops of 240 steps
+   (examples/s: best, median, spread). Then the reshard stalls, each the
+   minimum of 2 runs: ``device_reshard`` (the fast path), and
+   ``staged_reshard`` with f32 and int8 moment staging; the f32 run's
+   rate gives ``host_stage_bw_gbs`` and ``stall_model_8b_1host_s`` as
+   bench.py derives them. Checks: finite losses that fall over the run;
+   on the trained state, f32 staging bit-identical to ``snapshot`` +
+   ``restore``, int8 staging with params exact and moments within 1/127
+   of their row's absmax, and the params one step after the int8-staged
+   state within the bound those moment errors allow Adam's update
+   around the same step from the unstaged state; one f32 step at vocab
+   8192, batch 256 on the card against the same step on the CPU within
+   1e-4 in loss and every param, and Adam's first moment after it
+   ((1 - b1) * grad) within 1e-4 of each leaf's largest entry; no flash
+   launch. It prints one chunk's
+   device-busy share and launches a step (``torch.profiler``), and with
+   ``--profile`` its top kernels and their families.
 
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
@@ -146,6 +168,16 @@ SM_REPEATS = 4  # part (c): a 64-token pattern repeated
 # int4 is gated on completion and finite logits only, as in the
 # reference
 SM_TEACHER_EPS = {"off": TEACHER_EPS, "int8": 0.25, "int4": None}
+# ctr phase: bench.py's CTR headline (bench.py:45-56, 1119-1230) as it is
+CTR = {"vocab": 2 ** 20, "batch": 16384, "raw_batches": 4, "chunk": 12,
+       "warmup": 2, "measure": 240, "loops": 3}
+# one f32 step on the card against the same step on the CPU (small size):
+# loss and params within CTR_CPU_ATOL; Adam's first moment after the step,
+# (1 - b1) * grad, within CTR_CPU_GRAD_RTOL of each leaf's largest entry
+# (both sum in f32 in different orders; a bf16 gradient is off by 2^-9)
+CTR_SMALL = {"vocab": 8192, "batch": 256}
+CTR_CPU_ATOL = 1e-4
+CTR_CPU_GRAD_RTOL = 1e-4
 
 
 def _smi() -> str:
@@ -1000,6 +1032,329 @@ def _profile_step(card, step, state, batch, llama, cfg, step_s):
     }), flush=True)
 
 
+def _ctr_gates_reshard(state, step, batch, ckpt, trainer, device):
+    """The reshard gates: f32 staging bit-identical to snapshot +
+    restore; int8 staging keeps params exact and moments within 1/127 of
+    their row's absmax; one step from the int8-staged state moves every
+    param within what those moment errors can move Adam's update
+    (:func:`_ctr_resume_check`) of the same step from the unstaged state.
+    Returns the worst moment error (in row absmax), the resumed step's
+    check, and the share of live second moments (first moment nonzero)
+    that staged to 0."""
+    import torch
+
+    def keyed(st):
+        ps = trainer.leaves(st.params)
+        out = {f"p{i}": p for i, p in enumerate(ps)}
+        out.update({f"o{i}/{n}": t
+                    for i, n, t, _ in trainer.optimizer_tensors(st)})
+        return out
+
+    staged = keyed(ckpt.staged_reshard(state, stage="f32", device=device))
+    ref = keyed(ckpt.restore(ckpt.snapshot(state), device=device))
+    if staged.keys() != ref.keys() or not all(
+            staged[k].dtype == ref[k].dtype and torch.equal(staged[k], ref[k])
+            for k in ref):
+        raise AssertionError("f32 staged reshard differs from snapshot + "
+                             "restore")
+    del staged, ref
+    q8 = ckpt.staged_reshard(state, stage="int8", device=device)
+    before, after = keyed(state), keyed(q8)
+    worst = 0.0
+    for k, x in before.items():
+        y = after[k]
+        if k.startswith("p") or x.numel() < 4096 or x.dim() == 0:
+            if not torch.equal(x, y):
+                raise AssertionError(f"int8 staging changed {k}")
+            continue
+        den = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12)
+        worst = max(worst, float(((x - y).abs() / den).max()))
+    if worst > 1 / 127 + 1e-6:
+        raise AssertionError(f"int8-staged moments off by {worst} of their "
+                             f"row absmax > 1/127")
+    # second moments staged to 0 under a live first moment: their next
+    # update is exp_avg / eps (ROADMAP Queue C)
+    live = zeroed = 0
+    for k, v in after.items():
+        if k.endswith("/exp_avg_sq") and v.numel() >= 4096:
+            m = before[k[:-len("_sq")]] != 0
+            live += int(m.sum())
+            zeroed += int((m & (v == 0)).sum())
+    del before, after
+    plain = ckpt.restore(ckpt.snapshot(state), device=device)
+    q8, m8 = step(q8, batch)
+    plain, mf = step(plain, batch)
+    resumed = _ctr_resume_check(state, q8, plain, trainer)
+    resumed["losses_int8_vs_unstaged"] = [float(m8["loss"]),
+                                          float(mf["loss"])]
+    return worst, resumed, zeroed / max(live, 1)
+
+
+def _ctr_resume_check(state, staged, plain, trainer):
+    """Params after one Adam step from ``staged`` (``state`` staged
+    through int8: params exact, moments within 1/127 of their row's
+    absmax) against the same step from an unstaged copy ``plain``.
+
+    Adam moves a param by lr/bc1 * m / D, D = sqrt(v/bc2) + eps, with
+    m, v the moments after the step. With e_m, e_v the staging bound
+    (1/127 of the row absmax of ``state``'s moments; 0 for leaves staged
+    exactly) and g~, g the two steps' gradients (the table's f32
+    ``index_add_`` may sum in another order):
+      |m~ - m| <= dm = b1 e_m + (1 - b1) |g~ - g|
+      |v~ - v| <= dv = b2 e_v + (1 - b2) |g~^2 - g^2|
+      |D~ - D| <= dD = min(sqrt(dv / bc2),
+                           (dv / bc2) / (sqrt(v / bc2) + sqrt(v_lo / bc2)))
+      |p~ - p| <= lr / bc1 * (dm + |m| dD / D) / D_lo
+    where v_lo = max(v - dv, 0), D_lo = sqrt(v_lo / bc2) + eps <= D~,
+    and m, v, D are the unstaged step's. The first moment enters the
+    update linearly; a second moment that staged to 0 (ROADMAP Queue C)
+    leaves D_lo near eps there, so the bound is loose on those entries
+    and tight where v is near its row's absmax. f32 rounding adds 2^-22
+    of each term of m and v and of |p|, and 2^-21 of the update. Raises
+    where a param exceeds bound + rounding; returns the worst ratio and
+    the largest difference."""
+    import torch
+
+    group = plain.opt_state.param_groups[0]
+    lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
+    r = 2.0 ** -22
+    worst = diff = 0.0
+    for p0, pu, ps in zip(trainer.leaves(state.params),
+                          trainer.leaves(plain.params),
+                          trainer.leaves(staged.params)):
+        st0, stu = state.opt_state.state[p0], plain.opt_state.state[pu]
+        t = float(stu["step"])
+        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        m0, v0 = st0["exp_avg"].double(), st0["exp_avg_sq"].double()
+        g, gs = pu.grad.double(), ps.grad.double()
+        m, v = stu["exp_avg"].double(), stu["exp_avg_sq"].double()
+        if m0.numel() >= 4096:
+            e_m = m0.abs().amax(dim=-1, keepdim=True) / 127
+            e_v = v0.abs().amax(dim=-1, keepdim=True) / 127
+        else:
+            e_m = e_v = 0.0
+        dm = (b1 * e_m + (1 - b1) * (gs - g).abs()
+              + r * (b1 * m0.abs() + (1 - b1) * g.abs()))
+        dv = (b2 * e_v + (1 - b2) * (gs * gs - g * g).abs()
+              + r * (b2 * v0 + (1 - b2) * g * g))
+        v_lo = (v - dv).clamp_min(0)
+        den = (v / bc2).sqrt() + (v_lo / bc2).sqrt()
+        d_d = torch.minimum((dv / bc2).sqrt(),
+                            torch.where(den > 0, dv / bc2 / den,
+                                        float("inf")))
+        big_d, d_lo = (v / bc2).sqrt() + eps, (v_lo / bc2).sqrt() + eps
+        bound = (lr / bc1 * (dm + m.abs() * d_d / big_d) / d_lo
+                 + 2 * r * lr / bc1 * m.abs() / d_lo
+                 + r * pu.detach().double().abs())
+        got = (ps.detach().double() - pu.detach().double()).abs()
+        worst = max(worst, float((got / bound).max()))
+        diff = max(diff, float(got.max()))
+    if not worst <= 1.0:
+        raise AssertionError(f"params one step after int8 staging: "
+                             f"{worst} of the bound the staged moments "
+                             f"allow")
+    return {"param_worst_of_bound": worst, "param_max_abs_diff": diff}
+
+
+def _ctr_small_step_agrees():
+    """One f32 CTR step at CTR_SMALL on the card against the same step of
+    the port on the CPU: loss and every param within CTR_CPU_ATOL, and
+    every leaf's first moment after the step ((1 - b1) * its gradient:
+    a one-step Adam update is about lr * sign(grad), so the params alone
+    hardly see the gradient's size) within CTR_CPU_GRAD_RTOL of the
+    leaf's largest entry. Returns the worst differences."""
+    import torch
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.train import trainer
+
+    gen = torch.Generator().manual_seed(1)
+    host = ctr.init_params(gen, vocab=CTR_SMALL["vocab"], device="cpu")
+    nb = ctr.synthetic_batch(np.random.RandomState(1), CTR_SMALL["batch"],
+                             vocab=CTR_SMALL["vocab"])
+    out = []
+    for dev in ("cpu", "cuda"):
+        tx = trainer.adam(1e-3)
+        params = trainer.replace_leaves(
+            host, [p.to(dev, copy=True) for p in trainer.leaves(host)])
+        st = trainer.TrainState.create(params, tx)
+        st, m = trainer.make_train_step(ctr.make_loss_fn(), tx)(
+            st, trainer.global_batch(nb, device=dev))
+        out.append((float(m["loss"]),
+                    [p.detach().cpu() for p in trainer.leaves(st.params)],
+                    [t.cpu() for _, n, t, _ in trainer.optimizer_tensors(st)
+                     if n == "exp_avg"]))
+    (lc, pc, mc), (ld, pd, md) = out
+    worst = max([abs(lc - ld)] + [float((a - b).abs().max())
+                                  for a, b in zip(pc, pd)])
+    grad_rel = max(float((a - b).abs().max() / a.abs().max().clamp_min(
+        1e-30)) for a, b in zip(mc, md))
+    if not (worst <= CTR_CPU_ATOL and grad_rel <= CTR_CPU_GRAD_RTOL):
+        raise AssertionError(
+            f"CTR step on the card vs the CPU: loss/params off by {worst} "
+            f"(limit {CTR_CPU_ATOL}), first moments by {grad_rel} of their "
+            f"leaf's largest entry (limit {CTR_CPU_GRAD_RTOL})")
+    return worst, grad_rel
+
+
+def ctr_phase(card, profile: bool):
+    """bench.py's CTR headline on the port (bench.py:1119-1230): the
+    Criteo-shaped model (vocab 2^20, emb 16, MLP 400-400-400) at batch
+    16384, adam(1e-3), bf16 compute, 12 steps a chunk over 4 raw batches
+    cycled; 2 warm-up chunks, then 3 loops of 240 steps (best, median,
+    spread); then the reshard stalls, each the minimum of 2 runs (the
+    device fast path, host staging in f32 and in int8) and the models
+    derived from them; then the gates."""
+    import torch
+
+    from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.obs import costmodel
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.runtime import checkpoint as ckpt
+    from edl_tpu_torch.runtime import elastic
+    from edl_tpu_torch.train import trainer
+
+    c = CTR
+    device = "cuda"
+
+    def fence(st):
+        return float(st.params["out"]["b"].detach().sum())  # a scalar fetch
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = ctr.init_params(gen, vocab=c["vocab"], device=device)
+    tx = trainer.adam(1e-3)
+    state = trainer.TrainState.create(params, tx)
+    rng = np.random.RandomState(0)
+    raw = [ctr.synthetic_batch(rng, c["batch"], vocab=c["vocab"])
+           for _ in range(c["raw_batches"])]
+    stacked = trainer.stack_batches(
+        [raw[i % len(raw)] for i in range(c["chunk"])], device=device)
+    loss_fn = ctr.make_loss_fn(torch.bfloat16)
+    multi = trainer.make_train_multistep(loss_fn, tx)
+    fa.reset_launches()
+
+    t0 = time.perf_counter()
+    state, m = multi(state, stacked)
+    first_loss = float(m["losses"][0])  # fence: first chunk
+    compile_s = time.perf_counter() - t0
+    for _ in range(c["warmup"]):
+        state, m = multi(state, stacked)
+    float(m["loss"])
+    chunks = c["measure"] // c["chunk"]
+    rates, loop_s = [], []
+    for _ in range(c["loops"]):
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            state, m = multi(state, stacked)
+        float(m["loss"])  # fence once a loop: chunks stay pipelined
+        dt = time.perf_counter() - t0
+        loop_s.append(dt)
+        rates.append(c["batch"] * chunks * c["chunk"] / dt)
+    final_loss = float(m["loss"])
+    rates = np.asarray(rates)
+    if not all(math.isfinite(x) for x in (first_loss, final_loss)):
+        raise AssertionError(f"non-finite CTR loss: {first_loss}, "
+                             f"{final_loss}")
+    if not final_loss < first_loss:
+        raise AssertionError(f"CTR loss did not fall: {first_loss} -> "
+                             f"{final_loss}")
+
+    kernels, calls = _device_kernels(_profiled(
+        lambda: multi(state, stacked)))
+    dev_ms = sum(kernels.values())
+    chunk_ms = min(loop_s) / chunks * 1e3
+    busy = {"chunk_device_ms": dev_ms, "chunk_host_ms": chunk_ms,
+            "chunk_device_busy_share": dev_ms / chunk_ms,
+            "launches_per_step": calls / c["chunk"]}
+    if profile:
+        busy["chunk_top_kernels_ms"] = _top(kernels, 12, 70)
+        fams = {}
+        for name, ms in kernels.items():
+            fam = _ctr_family(name)
+            fams[fam] = fams.get(fam, 0.0) + ms
+        busy["chunk_by_family_ms"] = dict(
+            sorted(fams.items(), key=lambda kv: -kv[1]))
+
+    # the gates run on the trained state, before the stall runs stage it
+    # (a state already staged through int8 re-quantizes onto itself)
+    step = trainer.make_train_step(loss_fn, tx)
+    worst_q8, resumed, nu_zeroed = _ctr_gates_reshard(
+        state, step, trainer.global_batch(raw[0], device=device), ckpt,
+        trainer, device)
+    stall_fast = stall_f32 = stall_int8 = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state = elastic.device_reshard(state, device=device)
+        fence(state)
+        stall_fast = min(stall_fast, time.perf_counter() - t0)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state = ckpt.staged_reshard(state, stage="f32", device=device)
+        fence(state)
+        stall_f32 = min(stall_f32, time.perf_counter() - t0)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state = ckpt.staged_reshard(state, stage="int8", device=device)
+        fence(state)
+        stall_int8 = min(stall_int8, time.perf_counter() - t0)
+    state_b = ckpt.state_nbytes(state)
+    moment_b = ckpt.state_nbytes(state.opt_state)
+    host_bw = state_b / stall_f32  # one host: the f32 run's raw rate
+    model_8b = ckpt.host_fallback_stall_model(
+        17 * (1 << 30), hosts_after=1, host_bw_bytes_s=host_bw,
+        moment_bytes=1 << 30, stage="int8")
+
+    small_err, small_grad_rel = _ctr_small_step_agrees()
+    counts = fa.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the CTR path launched flash kernels: {counts}")
+    row = {
+        "phase": "ctr", "model": "ctr (bench.py:1119)", "vocab": c["vocab"],
+        "emb": ctr.DEFAULT_EMBEDDING, "mlp": list(ctr.MLP_DIMS),
+        "batch": c["batch"], "chunk": c["chunk"], "optimizer": "adam(1e-3)",
+        "compute": "bfloat16",
+        "ctr_examples_per_sec_per_chip": float(rates.max()),
+        "ctr_median": float(np.median(rates)),
+        "ctr_spread_pct": float(100 * (rates.max() - rates.min())
+                                / rates.max()),
+        "loop_rates": rates.tolist(), "compile_s": compile_s,
+        "first_loss": first_loss, "final_loss": final_loss,
+        "train_flops_per_example": costmodel.ctr_train_flops_per_example(),
+        "ctr_state_mb": state_b / 2 ** 20, "ctr_moment_mb": moment_b / 2 ** 20,
+        "reshard_stall_s": stall_fast,
+        "reshard_stall_host_f32_s": stall_f32,
+        "reshard_stall_host_fallback_s": stall_int8,
+        "reshard_stage": "int8",
+        "host_stage_bw_gbs": host_bw / 2 ** 30,
+        "stall_model_8b_1host_s": model_8b,
+        "int8_moment_worst_of_row_absmax": worst_q8,
+        "int8_resumed_step": resumed,
+        "int8_nu_zeroed_share": nu_zeroed,
+        "small_step_vs_cpu_worst": small_err, "small_step_atol": CTR_CPU_ATOL,
+        "small_step_grad_vs_cpu_of_leaf_max": small_grad_rel,
+        "small_step_grad_rtol": CTR_CPU_GRAD_RTOL,
+        "flash_launches": counts, **busy, "card": card,
+    }
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _ctr_family(name):
+    n = name.lower()
+    for keys, fam in (
+            (("gemm", "nvjet", "xmma", "cutlass", "splitk"), "matmul (MLP)"),
+            (("multi_tensor", "adam"), "adam"),
+            (("indexfunc", "index_add", "scatter"),
+             "embedding backward (index_add)"),
+            (("index_select", "indexselect", "gather"), "embedding forward"),
+            (("copy", "cast", "convert"), "cast/copy (table, params)"),
+            (("reduce",), "reduction"),
+            (("fill",), "fill (zero grads)")):
+        if any(k in n for k in keys):
+            return fam
+    return "elementwise/other"
+
+
 def main() -> int:
     try:
         import torch
@@ -1050,6 +1405,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     train_counts = train_phase(card, profile)
+    torch.cuda.empty_cache()
+    ctr_phase(card, profile)
 
     # the serving path's largest prefill: the 1000-token prompt's bucket
     main = rows[(1024, True, 128)]

@@ -51,3 +51,16 @@ def params_from_numpy(
         return to_device(tensor_from_numpy(node), dev, dtype)
 
     return conv(tree)
+
+
+def ctr_params_from_numpy(
+    tree: Any, device: DeviceLike = None, dtype: Optional[torch.dtype] = None
+) -> Any:
+    """The reference's CTR param tree (``edl_tpu/models/ctr.py``, read
+    out as NumPy) → the port's (:mod:`edl_tpu_torch.models.ctr`):
+    ``embedding``, ``mlp`` (a list of {``w``, ``b``}) and ``out``. Raises
+    on any other top-level key, so a llama tree is not mistaken for
+    it."""
+    if set(tree) != {"embedding", "mlp", "out"}:
+        raise ValueError(f"not a CTR param tree: keys {sorted(tree)}")
+    return params_from_numpy(tree, device, dtype)

@@ -20,6 +20,17 @@ scores divided into f32 (the reference divides by a NumPy scalar,
 which promotes) and masked with that dtype's minimum, softmax in f32.
 The decode, prefill and verify paths update the KV cache or pool IN
 PLACE where the reference donates the buffers to XLA.
+
+KV layouts are head-major where the reference's are position-major:
+the contiguous cache is [L, B, KV, S, hd] (the reference's
+[L, B, S, KV, hd]) and the paged pool [L, nb, KV, bs, hd] (the
+reference's [L, nb, bs, KV, hd]); the quantized pool's scale planes
+stay [L, nb, KV]. In the reference's layout the GQA products
+``btkgd,bskd->bkgts`` cannot merge (B, KV) into one batch dimension,
+so ``torch.einsum`` copied each layer's whole cache before its
+``bmm``; head-major, both products are strided ``bmm`` calls over the
+cache as it lies (:func:`_gqa_attend`). Values are the same; only the
+axis order differs.
 """
 
 from __future__ import annotations
@@ -324,7 +335,9 @@ def prefill_padded(
     """Prefill over an END-padded prompt batch [B, Tb] → (logits at each
     row's ``last`` index [B, V] f32, k/v caches [L, B, Tb, KV, hd]).
     Causality makes end-padding invisible to every real position, so
-    the serving engine buckets prompt lengths."""
+    the serving engine buckets prompt lengths. The caches come out in
+    the reference's position-major layout; a writer into the head-major
+    decode cache transposes them (``.transpose(2, 3)``)."""
     b = tokens.shape[0]
     x = _embed(params, tokens, cfg)
     rope = _rope_tables(cfg, tokens.shape[1], x.device)
@@ -340,6 +353,43 @@ def prefill_padded(
     return logits, torch.stack(ks), torch.stack(vs)
 
 
+def _gqa_attend(cfg: LlamaConfig, q, k, v, mask, kv_major: bool = False,
+                kscale=None, vscale=None) -> torch.Tensor:
+    """Masked dense GQA attention of ``q`` [B, T, H, hd] over a
+    head-major cache ``k``/``v`` [B, KV, S, hd] (``kv_major``: [KV, B,
+    S, hd], the paged gather's order): the reference's
+    ``btkgd,bskd->bkgts`` and ``bkgts,bskd->btkgd`` products as two
+    ``bmm`` calls whose batch is the (B, KV) pair, so the cache is read
+    where it lies and only q, the scores and the output are rearranged.
+    ``mask`` [B|1, 1, 1, T, S] is in the reference's ``bkgts`` layout;
+    ``kscale``/``vscale`` (the quantized pool's strips, in the scores'
+    layout) multiply the f32 scores and the probs. Returns [B, T,
+    H*hd]."""
+    b, t, h, hd = q.shape
+    kvh = cfg.n_kv_heads
+    g = h // kvh
+    s = k.shape[2]
+    dt = q.dtype
+    qh = q.reshape(b, t, kvh, g, hd).permute(
+        (2, 0, 3, 1, 4) if kv_major else (0, 2, 3, 1, 4))
+    lead = qh.shape[:2]
+    scores = torch.bmm(qh.reshape(-1, g * t, hd),
+                       k.reshape(-1, s, hd).transpose(1, 2))
+    scores = scores.reshape(*lead, g, t, s).float() / math.sqrt(hd)
+    if kscale is not None:
+        scores = scores * kscale
+    if kv_major:
+        mask = mask.transpose(0, 1)
+    scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores, dim=-1)
+    if vscale is not None:
+        probs = probs * vscale
+    o = torch.bmm(probs.to(dt).reshape(-1, g * t, s), v.reshape(-1, s, hd))
+    o = o.reshape(*lead, g, t, hd).permute(
+        (1, 3, 0, 2, 4) if kv_major else (0, 3, 1, 2, 4))
+    return o.reshape(b, t, h * hd)
+
+
 @torch.no_grad()
 def decode_step_slots(
     params: Dict,
@@ -351,12 +401,10 @@ def decode_step_slots(
 ):
     """One continuous-batching decode step over B independent KV slots.
     tok/pos [B] (previous token, the cache position this step writes);
-    kc/vc [L, B, S, KV, hd], updated IN PLACE at (row, pos[row]) —
-    unique indices. Returns (logits [B, V] f32, kc, vc)."""
+    kc/vc [L, B, KV, S, hd] (head-major), updated IN PLACE at (row,
+    pos[row]) — unique indices. Returns (logits [B, V] f32, kc, vc)."""
     b = tok.shape[0]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    groups = h // kvh
-    s = kc.shape[2]
+    s = kc.shape[3]
     rows = torch.arange(b, device=tok.device)
     mask = (torch.arange(s, device=tok.device)[None, :] <= pos[:, None])
     mask = mask[:, None, None, None, :]
@@ -366,14 +414,9 @@ def decode_step_slots(
         lp = _layer_params(params, i)
         a = _rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, knew, vnew = _qkv(cfg, a, lp, rope)
-        kc[i, rows, pos] = knew[:, 0]
-        vc[i, rows, pos] = vnew[:, 0]
-        qg = q.reshape(b, 1, kvh, groups, hd)
-        scores = torch.einsum("btkgd,bskd->bkgts", qg, kc[i])
-        scores = scores.float() / math.sqrt(hd)
-        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        o = torch.einsum("bkgts,bskd->btkgd", probs, vc[i]).reshape(b, 1, h * hd)
+        kc[i, rows, :, pos] = knew[:, 0]
+        vc[i, rows, :, pos] = vnew[:, 0]
+        o = _gqa_attend(cfg, q, kc[i], vc[i], mask)
         x = x + _matw(o, lp["wo"])
         x = _mlp(cfg, x, lp)
     x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -441,8 +484,8 @@ def _horizon(step, tok, pos, active, rem, eosv, horizon, generator,
 
 # -- inference: paged KV cache (block tables) ---------------------------------
 #
-# K/V live in a POOL of fixed-size blocks [L, n_blocks, block_size, KV, hd]
-# and each slot carries a BLOCK TABLE row mapping its logical positions to
+# K/V live in a POOL of fixed-size blocks [L, n_blocks, KV, block_size, hd]
+# (head-major inside a block) and each slot carries a BLOCK TABLE row mapping its logical positions to
 # physical blocks: logical position p of row r lives at
 # (table[r, p // block_size], p % block_size). The serving engine allocates
 # blocks as requests grow, frees them on finish, and maps leading entries of
@@ -452,8 +495,11 @@ def _horizon(step, tok, pos, active, rem, eosv, horizon, generator,
 # every position past a row's own, so scratch is never read back. Every
 # function below writes the pool IN PLACE (the reference donates it) and
 # returns it for symmetry with the reference's signatures. Attention is the
-# reference's gather through the table plus a masked dense einsum — no
-# flash kernel on this path, as in the reference.
+# reference's gather through the table plus masked dense products — the
+# gather reads each layer's [nb, KV, bs, hd] blocks as [nb * KV] rows in
+# head-major order (:func:`_pool_rows`), so it lands [KV, B, S, hd] and
+# the products are strided bmm calls (:func:`_gqa_attend`) — and no flash
+# kernel on this path, as in the reference.
 #
 # Quantized pools (kv_quant "int8" / "int4") store int8 (or two int4 per
 # byte along hd) with per-(block, kv-head) f32 absmax scales ks/vs
@@ -514,7 +560,7 @@ def _kvq_store(
     kv_quant: str,
 ):
     """Quantize ``new`` [N, KV, hd] lane writes into layer ``i`` of the
-    packed ``pool`` [L, nb, bs, KV, hdp] at (``wblk``, ``woff``) [N], in
+    packed ``pool`` [L, nb, KV, bs, hdp] at (``wblk``, ``woff``) [N], in
     place, maintaining the per-(block, kv-head) f32 ``scale`` [L, nb, KV].
 
     (1) scatter-max the new values' absmax into per-block scale
@@ -544,56 +590,62 @@ def _kvq_store(
     # resident-content rescale: the identity (ratio 1) when the scale did
     # not move; a fresh block's stale previous-tenant content zeroes
     ratio = (kept / s_safe)[wblk]  # [N, KV]
-    cur = _kvq_unpack(pool[i][wblk], kv_quant)  # [N, bs, KV, hd]
-    resc = torch.clamp(torch.round(cur * ratio[:, None, :, None]),
+    cur = _kvq_unpack(pool[i][wblk], kv_quant)  # [N, KV, bs, hd]
+    resc = torch.clamp(torch.round(cur * ratio[:, :, None, None]),
                        -qmax, qmax)
     pool[i, wblk] = _kvq_pack(resc, kv_quant)
     qnew = torch.clamp(torch.round(newf / s_safe[wblk][:, :, None]),
                        -qmax, qmax)
-    pool[i, wblk, woff] = _kvq_pack(qnew, kv_quant)
+    pool[i, wblk, :, woff] = _kvq_pack(qnew, kv_quant)
     scale[i] = s_new
     return pool, scale
 
 
 def _kvq_scale_strip(scale_i: torch.Tensor, table: torch.Tensor, bs: int):
-    """Per-position scale strip for the attention gather: the [.., M, KV]
+    """Per-position scale strip for the attention gather: the [nb, KV]
     block scales gathered through the table, expanded to
-    [B, KV, 1, 1, S] against the ``bkgts`` score/prob layout (block j's
-    scale covers positions j*bs .. (j+1)*bs - 1)."""
-    sc = scale_i[table].repeat_interleave(bs, dim=-2)  # [.., S, KV]
-    sc = sc.transpose(-1, -2)  # [.., KV, S]
+    [KV, B, 1, 1, S] against the paged gather's ``kbgts`` score/prob
+    layout (block j's scale covers positions j*bs .. (j+1)*bs - 1)."""
+    sc = scale_i.t()[:, table].repeat_interleave(bs, dim=-1)  # [KV, .., S]
     if sc.dim() == 2:  # single-slot table (prefill): add the batch axis
-        sc = sc[None]
+        sc = sc[:, None]
     return sc[:, :, None, None, :]
 
 
-def _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant, ks, vs):
+def _pool_rows(table: torch.Tensor, kvh: int) -> torch.Tensor:
+    """Row ids of the paged gather, [KV, *table.shape]: a pool layer
+    [nb, KV, bs, hd] read as [nb * KV, bs * hd] rows, block ``j``'s head
+    ``k`` is row ``j * KV + k``. Gathering these rows (a dim-0 gather of
+    whole rows, the fast one) lands the table's blocks head-major,
+    [KV, B, M, bs * hd]. The table is the same in every layer, so a
+    step computes this once."""
+    heads = torch.arange(kvh, device=table.device)
+    return table[None] * kvh + heads.reshape(kvh, *([1] * table.dim()))
+
+
+def _paged_attend(cfg, q, kc, vc, i, table, rows, qmask, bs, kv_quant, ks,
+                  vs):
     """Masked dense GQA attention of ``q`` [B, T, H, hd] over layer
     ``i``'s pool gathered through ``table`` ([B, M], or [M] for one
-    slot): the reference's table gather + einsum, with the quantized
-    pool's factored dequant. Returns [B, T, H*hd]."""
-    b, t = q.shape[:2]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    slot; ``rows`` = :func:`_pool_rows` of it): the reference's table
+    gather + products, with the quantized pool's factored dequant. The
+    gather reads the layer's [KV, nb, bs, hd] blocks as rows, so it
+    lands [KV, B, M, bs, hd] in one piece and (KV, B) is the products'
+    batch. Returns [B, T, H*hd]."""
+    b = q.shape[0]
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
     s = table.shape[-1] * bs
-    dt = q.dtype
-    quant = kv_quant != "off"
-    kci, vci = kc[i][table], vc[i][table]
-    if quant:
-        kci = _kvq_unpack(kci, kv_quant).to(dt)
-        vci = _kvq_unpack(vci, kv_quant).to(dt)
-    kci = kci.reshape(-1, s, kvh, hd)
-    vci = vci.reshape(-1, s, kvh, hd)
-    qg = q.reshape(b, t, kvh, h // kvh, hd)
-    scores = torch.einsum("btkgd,bskd->bkgts", qg, kci)
-    scores = scores.float() / math.sqrt(hd)
-    if quant:
-        scores = scores * _kvq_scale_strip(ks[i], table, bs)
-    scores = torch.where(qmask, scores, torch.finfo(scores.dtype).min)
-    probs = torch.softmax(scores, dim=-1)
-    if quant:
-        probs = probs * _kvq_scale_strip(vs[i], table, bs)
-    o = torch.einsum("bkgts,bskd->btkgd", probs.to(dt), vci)
-    return o.reshape(b, t, h * hd)
+    kci = kc[i].reshape(-1, bs * kc.shape[-1])[rows]
+    vci = vc[i].reshape(-1, bs * vc.shape[-1])[rows]
+    kscale = vscale = None
+    if kv_quant != "off":
+        kci = _kvq_unpack(kci, kv_quant).to(q.dtype)
+        vci = _kvq_unpack(vci, kv_quant).to(q.dtype)
+        kscale = _kvq_scale_strip(ks[i], table, bs)
+        vscale = _kvq_scale_strip(vs[i], table, bs)
+    return _gqa_attend(cfg, q, kci.reshape(kvh, b, s, hd),
+                       vci.reshape(kvh, b, s, hd), qmask, kv_major=True,
+                       kscale=kscale, vscale=vscale)
 
 
 def _paged_write(kc, vc, ks, vs, i, wblk, woff, knew, vnew, kv_quant):
@@ -602,8 +654,8 @@ def _paged_write(kc, vc, ks, vs, i, wblk, woff, knew, vnew, kv_quant):
         _kvq_store(kc, ks, i, wblk, woff, knew, kv_quant)
         _kvq_store(vc, vs, i, wblk, woff, vnew, kv_quant)
     else:
-        kc[i, wblk, woff] = knew
-        vc[i, wblk, woff] = vnew
+        kc[i, wblk, :, woff] = knew
+        vc[i, wblk, :, woff] = vnew
 
 
 def _paged_result(logits, kc, vc, ks, vs, kv_quant):
@@ -627,7 +679,7 @@ def decode_step_slots_paged(
     vs: Optional[torch.Tensor] = None,
 ):
     """One slot-decode step over the paged pool. tok/pos [B]; table
-    [B, M] physical block ids; kc/vc [L, n_blocks, block_size, KV, hd]
+    [B, M] physical block ids; kc/vc [L, n_blocks, KV, block_size, hd]
     (int8 with hd packed under ``kv_quant``, plus scales ``ks``/``vs``).
     Returns (logits [B, V] f32, kc, vc[, ks, vs]).
 
@@ -646,6 +698,7 @@ def decode_step_slots_paged(
     off = torch.where(inb, pos % bs, 0)
     qmask = (torch.arange(s, device=dev)[None, :] <= pos[:, None])
     qmask = qmask[:, None, None, None, :]
+    rows = _pool_rows(table, cfg.n_kv_heads)
     x = _embed(params, tok[:, None], cfg)
     rope = _rope_tables(cfg, 1, dev, pos[:, None])
     for i in range(cfg.n_layers):
@@ -654,8 +707,8 @@ def decode_step_slots_paged(
         q, knew, vnew = _qkv(cfg, a, lp, rope)
         _paged_write(kc, vc, ks, vs, i, blk, off, knew[:, 0], vnew[:, 0],
                      kv_quant)
-        o = _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant,
-                          ks, vs)
+        o = _paged_attend(cfg, q, kc, vc, i, table, rows, qmask, bs,
+                          kv_quant, ks, vs)
         x = x + _matw(o, lp["wo"])
         x = _mlp(cfg, x, lp)
     x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -741,6 +794,7 @@ def prefill_paged(
     woff = torch.where(real, positions % bs, 0)
     qmask = (torch.arange(s, device=dev)[None, :] <= positions[:, None])
     qmask = qmask[None, None, None]  # [1,1,1,Tb,S]
+    rows = _pool_rows(table, cfg.n_kv_heads)
     x = _embed(params, tokens, cfg)
     rope = _rope_tables(cfg, tb, dev, positions)
     for i in range(cfg.n_layers):
@@ -749,8 +803,8 @@ def prefill_paged(
         q, knew, vnew = _qkv(cfg, a, lp, rope)
         _paged_write(kc, vc, ks, vs, i, wblk, woff, knew[0], vnew[0],
                      kv_quant)
-        o = _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant,
-                          ks, vs)
+        o = _paged_attend(cfg, q, kc, vc, i, table, rows, qmask, bs,
+                          kv_quant, ks, vs)
         x = x + _matw(o, lp["wo"])
         x = _mlp(cfg, x, lp)
     x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
@@ -788,8 +842,8 @@ def verify_step_slots(
     """One speculative draft-verify step over B contiguous KV slots.
     tok [B] (pending tokens); draft [B, D] (-1 = no draft in that lane:
     never matches an argmax); pos/active/rem/eosv as in
-    :func:`decode_horizon_slots`; kc/vc [L, B, S, KV, hd], written in
-    place. Returns ``(outs [B, D+1], tok, pos, active, rem, kc, vc)`` —
+    :func:`decode_horizon_slots`; kc/vc [L, B, KV, S, hd] (head-major),
+    written in place. Returns ``(outs [B, D+1], tok, pos, active, rem, kc, vc)`` —
     the committed tokens with -1 tails, the horizon drain contract.
 
     A lane past the cache end has nowhere to go: its write is redirected
@@ -798,8 +852,7 @@ def verify_step_slots(
     ``pos`` stays below S, since a request's prompt plus budget fits
     its slot)."""
     b, k = draft.shape[0], draft.shape[1] + 1
-    s = kc.shape[2]
-    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s = kc.shape[3]
     rows = torch.arange(b, device=tok.device)[:, None]
     qpos = _lane_positions(pos, k)
     inb = qpos < s
@@ -807,15 +860,10 @@ def verify_step_slots(
     keep = inb[:, :, None, None]
 
     def attend(i, q, knew, vnew, qmask):
-        kc[i, rows, wpos] = torch.where(keep, knew, knew[:, :1])
-        vc[i, rows, wpos] = torch.where(keep, vnew, vnew[:, :1])
-        qg = q.reshape(b, k, kvh, h // kvh, hd)
-        scores = torch.einsum("btkgd,bskd->bkgts", qg, kc[i])
-        scores = scores.float() / math.sqrt(hd)
-        scores = torch.where(qmask, scores, torch.finfo(scores.dtype).min)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        return torch.einsum("bkgts,bskd->btkgd", probs, vc[i]).reshape(b, k,
-                                                                       -1)
+        # [B, K] row/position pairs around the head slice: [B, K, KV, hd]
+        kc[i, rows, :, wpos] = torch.where(keep, knew, knew[:, :1])
+        vc[i, rows, :, wpos] = torch.where(keep, vnew, vnew[:, :1])
+        return _gqa_attend(cfg, q, kc[i], vc[i], qmask)
 
     out = _verify_argmax(params, cfg, tok, draft, qpos, s, attend)
     return _spec_accept(tok, draft, out, pos, active, rem, eosv, kc, vc)
@@ -922,13 +970,14 @@ def verify_step_slots_paged(
         inb, table[rows, torch.clamp(qpos // bs, 0, m - 1)], 0
     ).reshape(-1)
     woff = torch.where(inb, qpos % bs, 0).reshape(-1)
+    rows = _pool_rows(table, kvh)
 
     def attend(i, q, knew, vnew, qmask):
         _paged_write(kc, vc, ks, vs, i, wblk, woff,
                      knew.reshape(b * k, kvh, hd),
                      vnew.reshape(b * k, kvh, hd), kv_quant)
-        return _paged_attend(cfg, q, kc, vc, i, table, qmask, bs, kv_quant,
-                             ks, vs)
+        return _paged_attend(cfg, q, kc, vc, i, table, rows, qmask, bs,
+                             kv_quant, ks, vs)
 
     out = _verify_argmax(params, cfg, tok, draft, qpos, s, attend)
     acc = _spec_accept(tok, draft, out, pos, active, rem, eosv, kc, vc)
@@ -989,11 +1038,11 @@ def generate(
     b, t0 = tokens.shape
     dev = tokens.device
     logits, ks, vs = prefill_padded(params, tokens, t0 - 1, cfg)
-    shape = (cfg.n_layers, b, t0 + max_new, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, b, cfg.n_kv_heads, t0 + max_new, cfg.head_dim)
     kc = torch.zeros(shape, dtype=ks.dtype, device=dev)
     vc = torch.zeros(shape, dtype=vs.dtype, device=dev)
-    kc[:, :, :t0] = ks
-    vc[:, :, :t0] = vs
+    kc[:, :, :, :t0] = ks.transpose(2, 3)
+    vc[:, :, :, :t0] = vs.transpose(2, 3)
     out = []
     for i in range(max_new):
         tok = _sample(logits, temperature, generator, top_k, top_p)

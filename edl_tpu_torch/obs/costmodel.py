@@ -1,5 +1,6 @@
-"""Analytic FLOPs of a Llama-family config — the port's copy of the
-train-FLOPs formula of ``edl_tpu/obs/costmodel.py`` (the MFU numerator).
+"""Analytic FLOPs — the port's copy of the train-FLOPs formulas of
+``edl_tpu/obs/costmodel.py`` (the MFU numerators): a Llama-family
+config's per token, and the CTR tower's per example.
 
 Configs are duck typed: anything with ``vocab / d_model / n_layers /
 n_heads / n_kv_heads / d_ff`` works. Device peaks are not here: the
@@ -41,3 +42,17 @@ def train_flops_per_token(cfg, seq: int) -> float:
     causal attention. Remat recompute is NOT counted (MFU counts model
     FLOPs, not hardware FLOPs)."""
     return 6.0 * matmul_params(cfg) + attn_flops_per_token_train(cfg, seq)
+
+
+def ctr_train_flops_per_example(
+    emb: int = 16, mlp_dims=(400, 400, 400, 1), n_sparse: int = 26,
+    n_dense: int = 13,
+) -> float:
+    """6 x matmul params of the Criteo-shaped CTR tower (models/ctr.py
+    defaults). The embedding gather itself is bandwidth, not FLOPs."""
+    in_dim = n_dense + n_sparse * emb
+    total = 0.0
+    for out_dim in mlp_dims:
+        total += in_dim * out_dim
+        in_dim = out_dim
+    return 6.0 * total

@@ -170,9 +170,9 @@ class _Block:
 class ContinuousBatchingEngine:
     """In-process continuous-batching server over a llama param tree
     (dense, in ``cfg.dtype``, on ``device``). The KV cache is either
-    [L, max_slots, max_len, KV, hd] (contiguous) or, with
-    ``block_size > 0``, a pool [L, pool_blocks, block_size, KV, hd]
-    addressed through per-slot block tables (int8 with hd packed, plus
+    [L, max_slots, KV, max_len, hd] (contiguous) or, with
+    ``block_size > 0``, a pool [L, pool_blocks, KV, block_size, hd]
+    (both head-major, see ``models/llama.py``) addressed through per-slot block tables (int8 with hd packed, plus
     f32 scales [L, pool_blocks, KV], under ``kv_quant``); allocated
     once and updated in place.
 
@@ -369,7 +369,7 @@ class ContinuousBatchingEngine:
                 # per-block-per-kv-head f32 scales; a zero scale decodes
                 # a zero block, so the fresh pool is self-consistent
                 hdp = llama.kvq_packed_head_dim(self.kv_quant, hd)
-                shape = (L, self.pool_blocks, self.block_size, kvh, hdp)
+                shape = (L, self.pool_blocks, kvh, self.block_size, hdp)
                 self._kc = torch.zeros(shape, dtype=torch.int8, device=dev)
                 self._vc = torch.zeros(shape, dtype=torch.int8, device=dev)
                 sshape = (L, self.pool_blocks, kvh)
@@ -378,7 +378,7 @@ class ContinuousBatchingEngine:
                 self._vs = torch.zeros(sshape, dtype=torch.float32,
                                        device=dev)
             else:
-                shape = (L, self.pool_blocks, self.block_size, kvh, hd)
+                shape = (L, self.pool_blocks, kvh, self.block_size, hd)
                 self._kc = torch.zeros(shape, dtype=cfg.dtype, device=dev)
                 self._vc = torch.zeros(shape, dtype=cfg.dtype, device=dev)
             self._balloc = _paged.BlockAllocator(
@@ -392,7 +392,7 @@ class ContinuousBatchingEngine:
                 [_paged.SCRATCH] * self._m for _ in range(n)
             ]
         else:
-            shape = (L, n, self.max_len, kvh, hd)
+            shape = (L, n, kvh, self.max_len, hd)  # head-major
             self._kc = torch.zeros(shape, dtype=cfg.dtype, device=dev)
             self._vc = torch.zeros(shape, dtype=cfg.dtype, device=dev)
         # lanes deadline-evicted (or preempted) while their device row
@@ -859,8 +859,8 @@ class ContinuousBatchingEngine:
         logits, ks, vs = llama.prefill_padded(
             self.params, toks, t0 - 1, self.cfg
         )
-        self._kc[:, slot, :tb] = ks[:, 0]
-        self._vc[:, slot, :tb] = vs[:, 0]
+        self._kc[:, slot, :, :tb] = ks[:, 0].transpose(1, 2)
+        self._vc[:, slot, :, :tb] = vs[:, 0].transpose(1, 2)
         return self._start_slot(slot, logits, t0, max_new, eos_id)
 
     def _start_slot(self, slot: int, logits: torch.Tensor, pos: int,

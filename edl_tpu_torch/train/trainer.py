@@ -13,21 +13,28 @@ update is in place: the returned state holds the same parameter
 tensors and optimizer as the one passed in (the reference donates the
 old state's buffers, so neither side may reuse an old state).
 
-Not ported yet (ROADMAP Queue A item 2): ``state_pspecs``,
-``shard_state``, ``global_batch``, ``stack_batches`` and
-``LocalSyncStepper``; a ``plan``/``mesh`` that shards anything raises.
+Placement on one device: :func:`shard_state` (a TrainState onto the
+card, or the host snapshot back onto it), :func:`global_batch` and
+:func:`stack_batches` (host batches onto the card); a placed state's
+optimizer is a new instance of the same class and hyperparameters,
+bound to the placed params (:func:`rebind_state`). Not ported yet
+(ROADMAP Queue A item 2b): ``state_pspecs`` and ``LocalSyncStepper``;
+a ``plan``/``mesh`` that shards anything raises.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from edl_tpu_torch.obs import metrics as obs_metrics
-from edl_tpu_torch.utils.device import require_unsharded
+from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
+                                        resolve_device)
+from edl_tpu_torch.utils.tree import leaves, replace_leaves
 
 
 def _record_dispatch(dt_s: float, n_steps: int = 1) -> None:
@@ -41,17 +48,6 @@ def _record_dispatch(dt_s: float, n_steps: int = 1) -> None:
         "train-step program dispatch (enqueue) time",
     ).observe(dt_s)
     r.counter("edl_train_steps_total", "optimizer steps completed").inc(n_steps)
-
-
-def leaves(tree) -> List[torch.Tensor]:
-    """Tensor leaves of a nested dict/list tree, in key order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for k in tree for x in leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in leaves(v)]
-    return []
 
 
 def trainable(params):
@@ -199,3 +195,90 @@ def make_train_multistep(
         return state, {"loss": losses[-1], "losses": losses}
 
     return multi
+
+
+# -- placement on one device ----------------------------------------------
+
+
+def optimizer_tensors(state: TrainState) -> List[Tuple[int, str,
+                                                       torch.Tensor, bool]]:
+    """Every tensor the optimizer holds, as ``(param leaf index, state
+    name, tensor, host)``: the moments (``exp_avg``, ``exp_avg_sq``, ...)
+    and the per-param ``step``. The index is the param's position in
+    :func:`leaves` of ``state.params``, found by identity. ``host`` marks
+    a tensor torch keeps on the CPU whatever its param's device (the
+    ``step`` of an optimizer that is neither capturable nor fused), so
+    a placement leaves it there."""
+    index = {id(p): i for i, p in enumerate(leaves(state.params))}
+    out = []
+    for group in state.opt_state.param_groups:
+        on_dev = bool(group.get("capturable") or group.get("fused"))
+        for p in group["params"]:
+            for name, t in state.opt_state.state.get(p, {}).items():
+                if isinstance(t, torch.Tensor):
+                    out.append((index[id(p)], name, t,
+                                name == "step" and not on_dev))
+    return out
+
+
+def rebind_state(state: TrainState, new_params: Sequence[torch.Tensor],
+                 new_tensors: Dict[Tuple[int, str], torch.Tensor]
+                 ) -> TrainState:
+    """A TrainState over ``new_params`` (replacing :func:`leaves` of
+    ``state.params`` in order; each keeps its ``requires_grad``) whose
+    optimizer is a new instance of ``state.opt_state``'s class and
+    hyperparameters, bound to the new params and holding
+    ``new_tensors[(param leaf index, state name)]`` in place of each
+    tensor :func:`optimizer_tensors` lists (and beside the entries of a
+    fresh optimizer that holds none yet). The next step of the result
+    is the step ``state`` would take."""
+    old = leaves(state.params)
+    for p, q in zip(old, new_params):
+        q.requires_grad_(p.requires_grad)
+    index = {id(p): i for i, p in enumerate(old)}
+    opt = state.opt_state
+    groups = [{**{k: v for k, v in g.items() if k != "params"},
+               "params": [new_params[index[id(p)]] for p in g["params"]]}
+              for g in opt.param_groups]
+    new_opt = type(opt)(groups, **opt.defaults)
+    for p, st in opt.state.items():
+        new_opt.state[new_params[index[id(p)]]] = dict(st)
+    for (i, name), t in new_tensors.items():
+        new_opt.state[new_params[i]][name] = t
+    return TrainState(step=state.step,
+                      params=replace_leaves(state.params, new_params),
+                      opt_state=new_opt)
+
+
+def shard_state(state: TrainState, plan=None, mesh=None,
+                device: DeviceLike = None) -> TrainState:
+    """Place a TrainState — a host snapshot, or a state on another
+    device — on ``device`` (CUDA unless ``"cpu"`` is named): every param
+    and moment is copied there, the host-kept ``step`` tensors are
+    copied on the CPU, and the optimizer is rebound to the copies. A
+    sharding ``plan``/``mesh`` raises."""
+    require_unsharded(plan, mesh, "shard_state")
+    dev = resolve_device(device)
+    params = [p.detach().to(dev, copy=True) for p in leaves(state.params)]
+    tensors = {(i, name): t.to("cpu" if host else dev, copy=True)
+               for i, name, t, host in optimizer_tensors(state)}
+    return rebind_state(state, params, tensors)
+
+
+def global_batch(batch, plan=None, mesh=None, device: DeviceLike = None):
+    """Place a host batch (a dict of arrays) on ``device``: on one
+    device the batch axes split nothing. A sharding plan raises."""
+    require_unsharded(plan, mesh, "global_batch")
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def stack_batches(batches, plan=None, mesh=None, device: DeviceLike = None):
+    """Stack host batches along a new leading steps axis and place them
+    on ``device`` for :func:`make_train_multistep`. A sharding plan
+    raises."""
+    require_unsharded(plan, mesh, "stack_batches")
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.stack([np.asarray(b[k]) for b in batches]),
+                               device=dev)
+            for k in batches[0]}

@@ -82,11 +82,19 @@ def ref():
     return get
 
 
+def _ref_layout(a):
+    """A port plane as the reference lays it out: the head-major pool
+    [L, nb, KV, bs, hdp] becomes [L, nb, bs, KV, hdp]; scale planes
+    [L, nb, KV] are the same on both sides."""
+    return a.swapaxes(2, 3) if a.ndim == 5 else a
+
+
 def _cmp_quant(got, want, blocks):
     """Integer planes equal, scale planes within SCALE_RTOL, on
-    ``blocks`` (scratch takes colliding pad writes on both sides)."""
+    ``blocks`` (scratch takes colliding pad writes on both sides); the
+    port's pools are permuted into the reference's layout first."""
     for g, w in zip(got, want):
-        g, w = g.numpy()[:, blocks], np.asarray(w)[:, blocks]
+        g, w = _ref_layout(g.numpy())[:, blocks], np.asarray(w)[:, blocks]
         if w.dtype == np.int8:
             np.testing.assert_array_equal(g, w)
         else:
@@ -122,9 +130,10 @@ def test_kvq_store_matches_reference(kv_quant):
     equal, scales within 1e-6 relative."""
     rng = np.random.RandomState(3)
     hdp = tl.kvq_packed_head_dim(kv_quant, HD)
-    tp = torch.zeros((L, NB, BS, KV, hdp), dtype=torch.int8)
+    tp = torch.zeros((L, NB, KV, BS, hdp), dtype=torch.int8)
     ts = torch.zeros((L, NB, KV), dtype=torch.float32)
-    jp, js = jnp.asarray(tp.numpy()), jnp.asarray(ts.numpy())
+    jp = jnp.zeros((L, NB, BS, KV, hdp), jnp.int8)
+    js = jnp.asarray(ts.numpy())
     writes = [([1], [off], 1.0) for off in range(BS)]
     writes += [([2, 2, 3, 0, 0], [0, 1, 0, 0, 0], 3.0),
                ([2, 3], [2, 1], 0.2), ([1], [0], 0.5)]
@@ -149,7 +158,7 @@ def test_kvq_store_roundtrip_error_bound(kv_quant):
     step per rescale)."""
     rng = np.random.RandomState(3)
     hdp = tl.kvq_packed_head_dim(kv_quant, HD)
-    pool = torch.zeros((L, 5, BS, KV, hdp), dtype=torch.int8)
+    pool = torch.zeros((L, 5, KV, BS, hdp), dtype=torch.int8)
     scale = torch.zeros((L, 5, KV), dtype=torch.float32)
     vals = rng.randn(BS, KV, HD).astype(np.float32)
     for off in range(BS):
@@ -158,7 +167,9 @@ def test_kvq_store_roundtrip_error_bound(kv_quant):
             torch.from_numpy(vals[off][None]), kv_quant)
     sc = scale[0, 1].numpy()
     assert np.all(sc > 0)
-    deq = tl._kvq_unpack(pool[0, 1], kv_quant).numpy() * sc[None, :, None]
+    # the head-major block [KV, bs, hd] read by offset: [bs, KV, hd]
+    deq = tl._kvq_unpack(pool[0, 1], kv_quant).numpy().swapaxes(0, 1)
+    deq = deq * sc[None, :, None]
     step = sc[None, :, None]
     assert np.all(np.abs(deq[-1] - vals[-1]) <= 0.5 * step[0] + 1e-6)
     assert np.all(np.abs(deq - vals) <= (0.5 * BS) * step + 1e-6)
@@ -169,7 +180,7 @@ def test_kvq_store_roundtrip_error_bound(kv_quant):
 def test_kvq_store_fresh_block_resets_scale():
     """A write at offset 0 marks the block FRESH: the previous tenant's
     large scale is dropped and its stale content reads back as zero."""
-    pool = torch.zeros((1, 3, 4, KV, 8), dtype=torch.int8)
+    pool = torch.zeros((1, 3, KV, 4, 8), dtype=torch.int8)
     scale = torch.zeros((1, 3, KV), dtype=torch.float32)
     big = torch.full((1, KV, 8), 100.0)
     for off in range(4):
@@ -179,7 +190,7 @@ def test_kvq_store_fresh_block_resets_scale():
                   torch.full((1, KV, 8), 0.5), "int8")
     sc = scale[0, 1].numpy()
     assert np.all(sc == pytest.approx(0.5 / 127.0))  # reset, not 100/127
-    deq = tl._kvq_unpack(pool[0, 1], "int8").numpy()
+    deq = tl._kvq_unpack(pool[0, 1], "int8").numpy().swapaxes(0, 1)
     assert np.all(deq[1:] == 0)  # stale offsets zeroed
     assert deq[0] * sc[:, None] == pytest.approx(0.5, abs=1e-5)
 
@@ -206,7 +217,9 @@ def _jq(planes):
 
 
 def _tq(planes):
-    return [torch.from_numpy(p.copy()) for p in planes]
+    """Reference-layout planes as the port's (pools head-major)."""
+    return [torch.from_numpy(np.ascontiguousarray(_ref_layout(p)))
+            for p in planes]
 
 
 @pytest.mark.parametrize("kv_quant", ["int8", "int4"])

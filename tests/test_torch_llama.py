@@ -77,9 +77,21 @@ def test_prefill_padded_logits_and_cache_parity():
 
 
 def _cache(seed, b, s):
+    """A cache in the reference's [L, B, S, KV, hd] layout."""
     rng = np.random.RandomState(seed)
     shape = (JCFG.n_layers, b, s, JCFG.n_kv_heads, JCFG.head_dim)
     return [rng.randn(*shape).astype(np.float32) for _ in range(2)]
+
+
+def _head_major(a):
+    """The reference's [L, B, S, KV, hd] cache as the port's head-major
+    [L, B, KV, S, hd] tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a.swapaxes(2, 3)))
+
+
+def _pos_major(t):
+    """The port's head-major cache back in the reference's layout."""
+    return t.numpy().swapaxes(2, 3)
 
 
 def test_decode_step_slots_parity():
@@ -90,12 +102,12 @@ def test_decode_step_slots_parity():
         JP, jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(kc),
         jnp.asarray(vc), JCFG,
     )
-    tk, tv = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    tk, tv = _head_major(kc), _head_major(vc)
     gl, gk, gv = tl.decode_step_slots(TP, _t(tok), _t(pos), tk, tv, TCFG)
     assert gk is tk and gv is tv  # updated in place
     np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **TOL)
-    np.testing.assert_allclose(gk.numpy(), np.asarray(wk), **TOL)
-    np.testing.assert_allclose(gv.numpy(), np.asarray(wv), **TOL)
+    np.testing.assert_allclose(_pos_major(gk), np.asarray(wk), **TOL)
+    np.testing.assert_allclose(_pos_major(gv), np.asarray(wv), **TOL)
 
 
 def test_decode_horizon_slots_parity():
@@ -120,14 +132,15 @@ def test_decode_horizon_slots_parity():
     )
     got = tl.decode_horizon_slots(
         TP, _t(tok), _t(pos), torch.from_numpy(active), _t(rem), _t(eosv),
-        torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy()), TCFG,
-        horizon=5,
+        _head_major(kc), _head_major(vc), TCFG, horizon=5,
     )
     for w, g in zip(want[:5], got[:5]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (got[0].numpy()[1, 2:] == -1).all()  # frozen after EOS
-    np.testing.assert_allclose(got[5].numpy(), np.asarray(want[5]), **TOL)
-    np.testing.assert_allclose(got[6].numpy(), np.asarray(want[6]), **TOL)
+    np.testing.assert_allclose(_pos_major(got[5]), np.asarray(want[5]),
+                               **TOL)
+    np.testing.assert_allclose(_pos_major(got[6]), np.asarray(want[6]),
+                               **TOL)
 
 
 @pytest.mark.parametrize("t0,max_new", [(6, 7), (11, 4)])

@@ -299,18 +299,26 @@ BS, NB = 8, 12
 
 
 def _pool(seed):
-    """A pool with resident content in every block (scratch included)."""
+    """A pool with resident content in every block (scratch included),
+    in the reference's [L, nb, bs, KV, hd] layout."""
     rng = np.random.RandomState(seed)
     shape = (L, NB, BS, KV, HD)
     return (rng.randn(*shape).astype(np.float32),
             rng.randn(*shape).astype(np.float32))
 
 
+def _tpool(a):
+    """A reference-layout pool as the port's head-major [L, nb, KV, bs,
+    hd] tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a.swapaxes(2, 3)))
+
+
 def _cmp_pools(got, want, live):
     """Pools agree on every non-scratch block (scratch takes colliding
-    pad writes in an unspecified order on both sides)."""
+    pad writes in an unspecified order on both sides); the port's
+    head-major pools are permuted into the reference's layout."""
     for g, w in zip(got, want):
-        g, w = g.numpy()[:, live], np.asarray(w)[:, live]
+        g, w = g.numpy().swapaxes(2, 3)[:, live], np.asarray(w)[:, live]
         np.testing.assert_allclose(g, w, **TOL)
 
 
@@ -327,8 +335,8 @@ def test_prefill_paged_parity(start, n, tb):
                             jnp.asarray(table, jnp.int32), jnp.asarray(kc),
                             jnp.asarray(vc), JCFG, BS)
     got = tl.prefill_paged(TP, torch.from_numpy(toks), start, n - 1,
-                           torch.from_numpy(table), torch.from_numpy(kc),
-                           torch.from_numpy(vc), TCFG, BS)
+                           torch.from_numpy(table), _tpool(kc), _tpool(vc),
+                           TCFG, BS)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
     _cmp_pools(got[1:], want[1:], list(range(1, NB)))
 
@@ -351,8 +359,7 @@ def test_decode_step_slots_paged_parity():
         JCFG, BS)
     got = tl.decode_step_slots_paged(
         TP, torch.from_numpy(tok), torch.from_numpy(pos),
-        torch.from_numpy(table), torch.from_numpy(kc), torch.from_numpy(vc),
-        TCFG, BS)
+        torch.from_numpy(table), _tpool(kc), _tpool(vc), TCFG, BS)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
     _cmp_pools(got[1:], want[1:], list(range(1, NB)))
 
@@ -374,8 +381,7 @@ def test_decode_horizon_slots_paged_parity():
     got = tl.decode_horizon_slots_paged(
         TP, *(torch.from_numpy(a) for a in (tok, pos, active, rem, eosv,
                                             table)),
-        torch.from_numpy(kc), torch.from_numpy(vc), TCFG, block_size=BS,
-        horizon=4)
+        _tpool(kc), _tpool(vc), TCFG, block_size=BS, horizon=4)
     for g, w in zip(got[:5], want[:5]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     _cmp_pools(got[5:], want[5:], list(range(1, NB)))

@@ -140,6 +140,12 @@ def _tints(*arrs):
     return [torch.from_numpy(a) for a in arrs]
 
 
+def _head_major(a):
+    """A reference-layout cache or pool ([L, B|nb, S|bs, KV, hd]) as the
+    port's head-major tensor ([L, B|nb, KV, S|bs, hd])."""
+    return torch.from_numpy(np.ascontiguousarray(a.swapaxes(2, 3)))
+
+
 def _check_carries(got, want):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -156,10 +162,11 @@ def test_verify_step_slots_parity():
         jnp.asarray(vc), JCFG)
     got = tl.verify_step_slots(
         TP, *_tints(tok, draft, pos, active, rem, eosv),
-        torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy()), TCFG)
+        _head_major(kc), _head_major(vc), TCFG)
     _check_carries(got[:5], want[:5])
     for g, w in zip(got[5:], want[5:]):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+        np.testing.assert_allclose(g.numpy().swapaxes(2, 3), np.asarray(w),
+                                   **TOL)
 
 
 @pytest.mark.parametrize("kv_quant", ["off", "int8"])
@@ -190,11 +197,13 @@ def test_verify_step_slots_paged_parity(kv_quant):
         jnp.asarray(kc), jnp.asarray(vc), JCFG, block_size=bs, **kw_j)
     got = tl.verify_step_slots_paged(
         TP, *_tints(tok, draft, pos, active, rem, eosv, table),
-        torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy()), TCFG,
-        block_size=bs, **kw_t)
+        _head_major(kc), _head_major(vc), TCFG, block_size=bs, **kw_t)
     _check_carries(got[:5], want[:5])
     for g, w in zip(got[5:], want[5:]):
-        g, w = g.numpy()[:, live], np.asarray(w)[:, live]
+        g, w = g.numpy(), np.asarray(w)
+        if g.ndim == 5:  # the port's head-major pools
+            g = g.swapaxes(2, 3)
+        g, w = g[:, live], w[:, live]
         if w.dtype == np.int8:
             np.testing.assert_array_equal(g, w)
         elif w.ndim == 3:  # scale planes
