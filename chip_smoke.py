@@ -33,10 +33,14 @@
    kernels against ``flash_attention_lse_ref`` / ``flash_attention_bwd_ref``
    on the card, bf16, d=128: B=4 T=2048 H=16 KV=8 causal (the flagship's
    attention, the main shape), T in {100, 128, 1024} causal, T=1024
-   non-causal (H=16, KV=8), and H=32 KV=8 at T=1024; and d=64 at B=2
-   T=1024 H=16 KV=8 causal, so every instantiation of the three
-   training kernels is checked (the non-causal d=64 backward by
-   ``tests/test_torch_cuda.py``). Tolerances: the
+   non-causal (H=16, KV=8), H=32 KV=8 at T=1024, the ladder rungs'
+   attention at the first batch of each ladder, B=16 T=2048 and B=4
+   T=8192 H=16 KV=8 causal (the plain versions, host-bound at T=8192,
+   take seconds; each shape prints them as ``plain_check_s``; a rung
+   that steps down to a smaller batch has that shape checked after the
+   ladder, phase 8); and d=64 at B=2 T=1024 H=16 KV=8 causal, so every
+   instantiation of the three training kernels is checked (the
+   non-causal d=64 backward by ``tests/test_torch_cuda.py``). Tolerances: the
    forward output as in 2; lse |kernel - plain| <= 1e-4 (f32 on both
    sides, the forward's 128 x 128 tiles, only the f32 summation order
    differs); dq/dk/dv <= 1e-2 * max|plain| + 2^-7 * |plain| (both
@@ -86,7 +90,33 @@
    batch the flash loss and gradients against the dense (non-flash)
    path's: loss within 1e-4 relative, every leaf's gradient cosine
    >= 0.999.
-7. CTR phase: bench.py's headline (bench.py:1119-1230) on the port: the
+7. Remat-policies phase: the same flagship, params and batch [4, 2048]
+   under each remat policy ("full", "attn", "mlp", "dots"): one
+   ``value_and_grad`` counted by a dispatch mode, then the best of 3
+   uncounted ones (seconds, peak memory). Checks: ``flash_fwd_lse``
+   launches (and ``edl_tpu_torch::flash_fwd`` ops) of 16 under "attn"
+   (the flash op's outputs are saved, the recompute runs none) and 32
+   under the others; the weight products (``aten.mm``) the backward
+   recomputes: 6 a layer under "full" and "attn", 4 under "mlp" (w1 and
+   w3 saved), 0 under "dots"; loss within 1e-6 relative and every
+   gradient leaf within 1e-5 of its largest entry of "full"'s (the same
+   ops on the same card: equal is expected; the largest difference is
+   printed).
+8. Train-ladder phase: bench.py:_llama_measure on the port. First three
+   ``adafactor(1e-3)`` steps of a small f32 Llama (d256/L2, dense
+   attention, batch [2, 64]) on the card and on the CPU: losses, params
+   and the ``v_row`` / ``v_col`` / ``v`` statistics within 1e-4 of each
+   leaf's largest entry. Then the flagship (full remat) with
+   ``adafactor(1e-3)`` through ``make_train_multistep`` (2 steps a
+   call): T=2048 at batch 16, 8, 4 or 2 (4 calls a loop) and T=8192 at
+   batch 4, 2 or 1 (2 calls a loop), each the first batch that fits (a
+   rung steps down only on ``torch.cuda.OutOfMemoryError``), one warm-up
+   call, best of 3 loops. Prints tokens/s/chip, MFU (T=2048) and long
+   MFU (T=8192) (``train_flops_per_token`` over 989 TF/s), the batch,
+   the state's GiB (``state_nbytes``) and every loss. Checks: finite
+   losses that fall; per step 32 ``flash_fwd_lse``, 16 of each backward
+   sweep and no primal forward.
+9. CTR phase: bench.py's headline (bench.py:1119-1230) on the port: the
    Criteo-shaped CTR model (vocab 2^20, emb 16, MLP 400-400-400,
    random weights from a seeded generator on the card), batch 16384 of
    ``synthetic_batch`` (4 raw batches cycled into 12-step chunks),
@@ -111,7 +141,10 @@
 
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
-shape, and its launches on the main path), then the
+shape, and its launches on the main path; the three training kernels
+three times, at B4 T2048 with the train phase's launches and at each
+ladder rung's shape (the batch that fit) with that rung's launches,
+each with its launches on every training path), then the
 card's name and power limit, then ``{"ok": true, "device": ...}`` as
 the last line. Any failure raises (non-zero exit); without CUDA it
 exits 1 before printing any result. Needs one card.
@@ -136,12 +169,18 @@ KERNEL_SHAPES = ([(t, c, 128) for t in (8, 128, 1024, 1536, 2048)
                   for c in (True, False)]
                  + [(1024, True, 64), (1024, False, 64)])
 # training kernels: (B, T, H, KV, causal, head dim); the first is the
-# main shape, the last holds the d=64 instantiations of all three
+# main shape (the flagship's attention at B4 T2048, the train phase's),
+# the last two the ladder's rungs' attention at the first batch of each
+# ladder (B16 T2048; B4 T8192, where the plain versions, ~2000 block
+# pairs of small launches each, are host-bound); the one before them
+# holds the d=64 instantiations of all three. A rung that steps down
+# has its own batch's shape checked after the ladder.
 TRAIN_MAIN = (4, 2048, 16, 8, True, 128)
 TRAIN_SHAPES = [TRAIN_MAIN, (4, 100, 16, 8, True, 128),
                 (4, 128, 16, 8, True, 128), (4, 1024, 16, 8, True, 128),
                 (4, 1024, 16, 8, False, 128), (1, 1024, 32, 8, True, 128),
-                (2, 1024, 16, 8, True, 64)]
+                (2, 1024, 16, 8, True, 64), (16, 2048, 16, 8, True, 128),
+                (4, 8192, 16, 8, True, 128)]
 LSE_ATOL = 1e-4
 GRAD_ATOL_OF_MAX = 1e-2
 TRAIN_STEPS = 5
@@ -178,6 +217,35 @@ CTR = {"vocab": 2 ** 20, "batch": 16384, "raw_batches": 4, "chunk": 12,
 CTR_SMALL = {"vocab": 8192, "batch": 256}
 CTR_CPU_ATOL = 1e-4
 CTR_CPU_GRAD_RTOL = 1e-4
+# remat_policies phase: per layer, the weight products (aten.mm) the
+# backward recomputes, reckoned from the layer's graph (models/llama.py
+# _remat_policy: wq wk wv wo w1 w3 under "full" and "attn", w1 and w3
+# saved under "mlp", every product saved under "dots"; the w2 product is
+# never recomputed), and the flash_fwd_lse launches of a step (forward,
+# plus the recompute unless "attn" saved the flash op's outputs)
+REMAT_POLICIES = ("full", "attn", "mlp", "dots")
+REMAT_RECOMPUTED_MM = {"full": 6, "attn": 6, "mlp": 4, "dots": 0}
+REMAT_LSE_PER_LAYER = {"full": 2, "attn": 1, "mlp": 2, "dots": 2}
+# every policy runs the same ops on the same inputs, so loss and
+# gradients are expected equal to "full"'s; the bound admits only f32
+# summation order (the embedding gradient's scatter-add)
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_OF_MAX = 1e-5
+# train_ladder phase: bench.py:_llama_measure on the port (bench.py:
+# 95-260): (T, batch ladder, multistep calls a loop), 2 steps a call,
+# best of 3 loops
+LADDER_RUNGS = ((2048, (16, 8, 4, 2), 4), (8192, (4, 2, 1), 2))
+LADDER_STEPS = 2
+LADDER_LOOPS = 3
+# three adafactor(1e-3) steps of a small f32 Llama (dense attention) on
+# the card against the CPU: losses, params and second-moment statistics
+# within AF_CPU_OF_MAX of each leaf's largest entry (f32 on both sides,
+# sums in other orders; the unfactored update ~ lr * sign(grad) makes a
+# params-only check blind to the gradient's size)
+AF_SMALL = {"vocab": 1024, "d_model": 256, "n_layers": 2, "n_heads": 4,
+            "n_kv_heads": 2, "d_ff": 512}
+AF_SMALL_BATCH = (2, 64)
+AF_CPU_OF_MAX = 1e-4
 
 
 def _smi() -> str:
@@ -314,95 +382,102 @@ def _grad_err(got, want, name, where):
 def train_kernel_phase(card):
     """lse forward, dQ and dK/dV kernels against their plain versions at
     TRAIN_SHAPES; returns the rows by shape."""
+    return {shape: train_kernel_row(shape, card) for shape in TRAIN_SHAPES}
+
+
+def train_kernel_row(shape, card):
+    """The lse forward, dQ and dK/dV kernels at one training shape (B, T,
+    H, KV, causal, d): held against their plain versions, then timed
+    beside them, SDPA and the bound. Prints and returns the row."""
     import torch
     import torch.nn.functional as F
 
     from edl_tpu_torch.ops import flash_attention as fa
     from edl_tpu_torch.ops.bench_flash import device_ms
 
-    rows = {}
-    for shape in TRAIN_SHAPES:
-        b, t, h, kv, causal, d = shape
-        where = f"B={b} T={t} H={h} KV={kv} causal={causal} d={d}"
-        gen = torch.Generator(device="cuda").manual_seed(b * t + h + causal)
-        q, do = (torch.randn(b, t, h, d, generator=gen, device="cuda",
-                             dtype=torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn(b, t, kv, d, generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(2))
-        out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
-        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
-        torch.cuda.synchronize()
-        blk = _plain_block(t)
-        want_out, want_lse = fa.flash_attention_lse_ref(q, k, v, causal, blk,
-                                                        blk)
-        _check_out(out, want_out, f"flash_fwd_lse output at {where}")
-        lse_err = float((lse - want_lse).abs().max())
-        if not (torch.isfinite(lse).all() and lse_err <= LSE_ATOL):
-            raise AssertionError(f"flash_fwd_lse lse disagrees at {where}: "
-                                 f"max abs err {lse_err}")
+    b, t, h, kv, causal, d = shape
+    where = f"B={b} T={t} H={h} KV={kv} causal={causal} d={d}"
+    gen = torch.Generator(device="cuda").manual_seed(b * t + h + causal)
+    q, do = (torch.randn(b, t, h, d, generator=gen, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, t, kv, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter()
+    blk = _plain_block(t)
+    want_out, want_lse = fa.flash_attention_lse_ref(q, k, v, causal, blk,
+                                                    blk)
+    _check_out(out, want_out, f"flash_fwd_lse output at {where}")
+    lse_err = float((lse - want_lse).abs().max())
+    if not (torch.isfinite(lse).all() and lse_err <= LSE_ATOL):
+        raise AssertionError(f"flash_fwd_lse lse disagrees at {where}: "
+                             f"max abs err {lse_err}")
 
-        def plain_bwd():
-            return fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
-                                              blk, blk)
+    def plain_bwd():
+        return fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                          blk, blk)
 
-        wdq, wdk, wdv = plain_bwd()
-        errs = {"dq": _grad_err(dq, wdq, "flash_bwd_dq", where),
-                "dk": _grad_err(dk, wdk, "flash_bwd_dkv dk", where),
-                "dv": _grad_err(dv, wdv, "flash_bwd_dkv dv", where)}
-        del wdq, wdk, wdv
+    wdq, wdk, wdv = plain_bwd()
+    errs = {"dq": _grad_err(dq, wdq, "flash_bwd_dq", where),
+            "dk": _grad_err(dk, wdk, "flash_bwd_dkv dk", where),
+            "dv": _grad_err(dv, wdv, "flash_bwd_dkv dv", where)}
+    del wdq, wdk, wdv
+    plain_check_s = time.perf_counter() - t_plain
 
-        # the library yardstick: SDPA forward (grad on, so it keeps its
-        # logsumexp) and its backward, dq, dk and dv in one call
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        dot = do.transpose(1, 2)
+    # the library yardstick: SDPA forward (grad on, so it keeps its
+    # logsumexp) and its backward, dq, dk and dv in one call
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
 
-        def lib_fwd():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=True)
+    def lib_fwd():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
 
-        lib_out = lib_fwd()
-        lib_fwd_ms = device_ms(lib_fwd, 10)
-        lib_bwd_ms = device_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True), 10)
-        del lib_out
-        delta = fa._delta(out, do).contiguous()
-        fwd_ms = device_ms(
-            lambda: fa.flash_attention_lse_cuda(q, k, v, causal), 10)
-        dq_ms = device_ms(lambda: fa.flash_bwd_dq_cuda(
-            q, k, v, do, lse, delta, causal), 10)
-        dkv_ms = device_ms(lambda: fa.flash_bwd_dkv_cuda(
-            q, k, v, do, lse, delta, causal), 10)
-        plain_fwd_ms = _time_ms(lambda: fa.flash_attention_lse_ref(
-            q, k, v, causal, blk, blk), 1, 1)
-        plain_bwd_ms = _time_ms(plain_bwd, 1, 1)
-        bounds = {
-            "flash_fwd_lse": _bound(b, t, h, kv, d, causal, 4, 2, 2, 1),
-            "flash_bwd_dq": _bound(b, t, h, kv, d, causal, 6, 3, 2, 2),
-            "flash_bwd_dkv": _bound(b, t, h, kv, d, causal, 8, 2, 4, 2),
-            # the whole backward: FA2's five products, q k v o dO lse
-            # delta read once, dq dk dv written once
-            "backward": _bound(b, t, h, kv, d, causal, 10, 4, 4, 2),
-        }
-        row = {
-            "phase": "train_kernels", "B": b, "T": t, "H": h, "KV": kv,
-            "causal": causal, "d": d, "lse_max_abs_err": lse_err,
-            "dq_max_abs_err": errs["dq"], "dk_max_abs_err": errs["dk"],
-            "dv_max_abs_err": errs["dv"],
-            "tol": {"lse": LSE_ATOL,
-                    "grads": "1e-2*max|plain| + 2^-7*|plain|"},
-            "flash_fwd_lse_ms": fwd_ms, "flash_bwd_dq_ms": dq_ms,
-            "flash_bwd_dkv_ms": dkv_ms, "plain_fwd_lse_ms": plain_fwd_ms,
-            "plain_bwd_ms": plain_bwd_ms, "library_fwd_ms": lib_fwd_ms,
-            "library_bwd_ms": lib_bwd_ms,
-            "bound_ms": {n: v[0] for n, v in bounds.items()},
-            "bound_by": {n: v[1] for n, v in bounds.items()},
-            "flops": {n: v[2] for n, v in bounds.items()},
-            "card": card,
-        }
-        rows[shape] = row
-        print(json.dumps(row), flush=True)
-    return rows
+    lib_out = lib_fwd()
+    lib_fwd_ms = device_ms(lib_fwd, 10)
+    lib_bwd_ms = device_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), 10)
+    del lib_out
+    delta = fa._delta(out, do).contiguous()
+    fwd_ms = device_ms(
+        lambda: fa.flash_attention_lse_cuda(q, k, v, causal), 10)
+    dq_ms = device_ms(lambda: fa.flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, causal), 10)
+    dkv_ms = device_ms(lambda: fa.flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, causal), 10)
+    plain_fwd_ms = _time_ms(lambda: fa.flash_attention_lse_ref(
+        q, k, v, causal, blk, blk), 1, 1)
+    plain_bwd_ms = _time_ms(plain_bwd, 1, 1)
+    bounds = {
+        "flash_fwd_lse": _bound(b, t, h, kv, d, causal, 4, 2, 2, 1),
+        "flash_bwd_dq": _bound(b, t, h, kv, d, causal, 6, 3, 2, 2),
+        "flash_bwd_dkv": _bound(b, t, h, kv, d, causal, 8, 2, 4, 2),
+        # the whole backward: FA2's five products, q k v o dO lse
+        # delta read once, dq dk dv written once
+        "backward": _bound(b, t, h, kv, d, causal, 10, 4, 4, 2),
+    }
+    row = {
+        "phase": "train_kernels", "B": b, "T": t, "H": h, "KV": kv,
+        "causal": causal, "d": d, "lse_max_abs_err": lse_err,
+        "dq_max_abs_err": errs["dq"], "dk_max_abs_err": errs["dk"],
+        "dv_max_abs_err": errs["dv"],
+        "tol": {"lse": LSE_ATOL,
+                "grads": "1e-2*max|plain| + 2^-7*|plain|"},
+        "flash_fwd_lse_ms": fwd_ms, "flash_bwd_dq_ms": dq_ms,
+        "flash_bwd_dkv_ms": dkv_ms, "plain_fwd_lse_ms": plain_fwd_ms,
+        "plain_bwd_ms": plain_bwd_ms, "plain_check_s": plain_check_s,
+        "library_fwd_ms": lib_fwd_ms,
+        "library_bwd_ms": lib_bwd_ms,
+        "bound_ms": {n: v[0] for n, v in bounds.items()},
+        "bound_by": {n: v[1] for n, v in bounds.items()},
+        "flops": {n: v[2] for n, v in bounds.items()},
+        "card": card,
+    }
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def slice_phase(card):
@@ -854,6 +929,316 @@ def train_phase(card, profile: bool):
     if profile:
         _profile_step(card, step, state, batch, llama, cfg, step_s)
     return counts
+
+
+def _counter():
+    """A TorchDispatchMode that counts the flash forward ops
+    (``edl_tpu_torch::flash_fwd``, one ``flash_fwd_lse`` launch each on
+    the card) and the weight products (``aten.mm``) that run with grad
+    on: under a backward, those are the remat's recompute (the
+    backward's own products run with grad off)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    mm = torch.ops.aten.mm.default
+    flash = torch.ops.edl_tpu_torch.flash_fwd.default
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.flash_fwd = self.mm_grad_on = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func == flash:
+                self.flash_fwd += 1
+            elif func == mm and torch.is_grad_enabled():
+                self.mm_grad_on += 1
+            return func(*args, **(kwargs or {}))
+
+    return Counter()
+
+
+def _remat_step(params, cfg, batch):
+    """One ``value_and_grad`` of the Llama loss under ``cfg``, counted:
+    returns (loss, grads in leaf order, {"flash_fwd_ops": the flash
+    forward ops of the step, "recomputed_mm": the weight products its
+    backward recomputed})."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.train import trainer
+
+    fwd, bwd = _counter(), _counter()
+    with fwd:
+        loss = llama.make_loss_fn(cfg)(params, batch)
+    ps = [p for p in trainer.leaves(params) if p.requires_grad]
+    with bwd:
+        grads = list(torch.autograd.grad(loss, ps))
+    return loss.detach(), grads, {"flash_fwd_ops": fwd.flash_fwd
+                                  + bwd.flash_fwd,
+                                  "recomputed_mm": bwd.mm_grad_on}
+
+
+def _remat_check(policy, n_layers, counts, lse_launches, loss, grads,
+                 ref_loss, ref_grads):
+    """The remat_policies gates for one policy: the flash forward ops,
+    the ``flash_fwd_lse`` launches and the recomputed weight products
+    equal the reckoned counts; loss and every gradient leaf equal
+    "full"'s (``ref_*``) within REMAT_LOSS_RTOL and REMAT_GRAD_OF_MAX of
+    the leaf's largest entry. Raises; returns the differences."""
+    lse = REMAT_LSE_PER_LAYER[policy] * n_layers
+    want = {"flash_fwd_ops": lse, "flash_fwd_lse_launches": lse,
+            "recomputed_mm": REMAT_RECOMPUTED_MM[policy] * n_layers}
+    got = {**counts, "flash_fwd_lse_launches": lse_launches}
+    if got != want:
+        raise AssertionError(f"remat {policy!r}: counts {got}, want {want}")
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst = diff = 0.0
+    for g, r in zip(grads, ref_grads, strict=True):
+        d = float((g - r).abs().max())
+        diff = max(diff, d)
+        worst = max(worst, d / max(float(r.abs().max()), 1e-30))
+    if not (loss_rel <= REMAT_LOSS_RTOL and worst <= REMAT_GRAD_OF_MAX):
+        raise AssertionError(
+            f"remat {policy!r} vs 'full': loss rel diff {loss_rel} (limit "
+            f"{REMAT_LOSS_RTOL}), worst gradient leaf {worst} of its max "
+            f"(limit {REMAT_GRAD_OF_MAX})")
+    return {"counts": got, "loss_rel_diff_vs_full": loss_rel,
+            "grad_worst_of_leaf_max_vs_full": worst,
+            "grad_max_abs_diff_vs_full": diff}
+
+
+def remat_policies_phase(card):
+    """The flagship (full width and depth) at B4 T2048, the same params
+    and batch under each remat policy: one counted ``value_and_grad``
+    (the gates, :func:`_remat_check`), then the best of 3 uncounted
+    ones for the step time and the peak memory. Returns the
+    ``flash_fwd_lse`` launches of each policy's step."""
+    import dataclasses
+
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.train import trainer
+
+    cfg0 = _flagship_train_config()
+    b, t = 4, 2048
+    batch = {"tokens": torch.from_numpy(llama.synthetic_tokens(
+        np.random.RandomState(0), b, t, cfg0.vocab)["tokens"]).cuda()}
+    params = trainer.trainable(
+        llama.init_params(cfg0, seed=0, device="cuda", dtype=torch.float32))
+    vg = trainer.value_and_grad
+    vg(llama.make_loss_fn(cfg0))(params, batch)  # warm-up (allocator, cuBLAS)
+    ref = None
+    launches = {}
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        fa.reset_launches()
+        loss, grads, counts = _remat_step(params, cfg, batch)
+        torch.cuda.synchronize()
+        lse = fa.launch_counts()["flash_fwd_lse"]
+        launches[policy] = lse
+        if ref is None:
+            ref = (loss, grads)
+        gates = _remat_check(policy, cfg.n_layers, counts, lse, loss, grads,
+                             *ref)
+        del grads
+        loss_fn = llama.make_loss_fn(cfg)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_s = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = vg(loss_fn)(params, batch)
+            torch.cuda.synchronize()
+            step_s = min(step_s, time.perf_counter() - t0)
+            del out
+        print(json.dumps({
+            "phase": "remat_policies", "policy": policy,
+            "model": "flagship_train (bench.py:69)", "layers": cfg.n_layers,
+            "batch": b, "seq": t, "loss": float(loss),
+            "recomputed_mm_per_layer": REMAT_RECOMPUTED_MM[policy],
+            "flash_fwd_lse_per_layer": REMAT_LSE_PER_LAYER[policy], **gates,
+            "loss_rtol": REMAT_LOSS_RTOL, "grad_of_max": REMAT_GRAD_OF_MAX,
+            "value_and_grad_s": step_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_above_start_gb": (torch.cuda.max_memory_allocated() - base)
+            / 1e9,
+            "card": card,
+        }), flush=True)
+    del ref, params
+    return launches
+
+
+def _adafactor_small_run(device):
+    """Three ``adafactor(1e-3)`` steps of a small f32 Llama (AF_SMALL,
+    dense attention) on ``device``, from the same params and batches on
+    every device: returns (losses, state)."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.train import trainer
+
+    cfg = llama.LlamaConfig(**AF_SMALL, dtype=torch.float32)
+    params = llama.init_params(cfg, seed=2, device="cpu")
+    params = trainer.replace_leaves(
+        params, [p.to(device) for p in trainer.leaves(params)])
+    rng = np.random.RandomState(2)
+    tx = trainer.adafactor(1e-3)
+    state = trainer.TrainState.create(params, tx)
+    step = trainer.make_train_step(llama.make_loss_fn(cfg), tx)
+    losses = []
+    for _ in range(3):
+        nb = llama.synthetic_tokens(rng, *AF_SMALL_BATCH, cfg.vocab)
+        state, m = step(state, trainer.global_batch(nb, device=device))
+        losses.append(float(m["loss"]))
+    return losses, state
+
+
+def _adafactor_agreement(cpu, card):
+    """Two :func:`_adafactor_small_run` results: losses, params and the
+    second-moment statistics (``v_row``, ``v_col``, ``v``) within
+    AF_CPU_OF_MAX of each leaf's largest entry (the losses: of the
+    loss). Raises; returns the worst ratio and the statistics' count."""
+    from edl_tpu_torch.train import trainer
+
+    (lc, sc), (ld, sd) = cpu, card
+
+    def keyed(st):
+        out = {f"p{i}": p.detach().cpu()
+               for i, p in enumerate(trainer.leaves(st.params))}
+        out.update({f"o{i}/{n}": t.cpu()
+                    for i, n, t, _ in trainer.optimizer_tensors(st)
+                    if n != "step"})
+        return out
+
+    a, b = keyed(sc), keyed(sd)
+    if a.keys() != b.keys():
+        raise AssertionError(f"adafactor states differ in keys: "
+                             f"{sorted(a.keys() ^ b.keys())}")
+    worst = max(abs(x - y) / abs(x) for x, y in zip(lc, ld, strict=True))
+    for k in a:
+        den = max(float(a[k].abs().max()), 1e-30)
+        worst = max(worst, float((a[k] - b[k]).abs().max()) / den)
+    if not worst <= AF_CPU_OF_MAX:
+        raise AssertionError(f"adafactor steps on the card vs the CPU: off "
+                             f"by {worst} of a leaf's largest entry (limit "
+                             f"{AF_CPU_OF_MAX})")
+    return worst, sum(k.startswith("o") for k in a)
+
+
+def _ladder_check(losses, counts, n_layers, steps):
+    """A ladder rung's gates: finite losses that fall from the first step
+    to the last, and per step 2L ``flash_fwd_lse`` (the forward and the
+    full remat's recompute), L of each backward sweep and no primal
+    forward launch. Raises."""
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite ladder loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ladder loss did not fall: {losses}")
+    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * n_layers,
+            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+    if counts != {k: steps * v for k, v in want.items()}:
+        raise AssertionError(f"ladder launches over {steps} steps {counts}, "
+                             f"want {want} a step")
+
+
+def _ladder_rung(cfg, t, ladder, lreps, rng):
+    """bench.py:_llama_measure on the port: adafactor(1e-3) through
+    ``make_train_multistep`` (LADDER_STEPS steps a call), one warm-up
+    call, then the best of LADDER_LOOPS loops of ``lreps`` calls, at the
+    first batch of ``ladder`` that fits. A rung steps down only when the
+    card runs out of memory; any other failure raises."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.runtime import checkpoint as ckpt
+    from edl_tpu_torch.train import trainer
+
+    tx = trainer.adafactor(1e-3)
+    tried = []
+    for per_chip in ladder:
+        try:
+            state = trainer.TrainState.create(llama.init_params(
+                cfg, seed=1, device="cuda", dtype=torch.float32), tx)
+            toks = trainer.stack_batches(
+                [llama.synthetic_tokens(rng, per_chip, t, cfg.vocab)
+                 for _ in range(LADDER_STEPS)], device="cuda")
+            multi = trainer.make_train_multistep(llama.make_loss_fn(cfg), tx)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            state, m = multi(state, toks)
+            losses = [m["losses"]]
+            float(m["loss"])  # warm-up fence
+            first_s = time.perf_counter() - t0
+            rate = 0.0
+            for _ in range(LADDER_LOOPS):
+                t0 = time.perf_counter()
+                for _ in range(lreps):
+                    state, m = multi(state, toks)
+                    losses.append(m["losses"])
+                float(m["loss"])
+                rate = max(rate, lreps * LADDER_STEPS * per_chip * t
+                           / (time.perf_counter() - t0))
+        except torch.cuda.OutOfMemoryError as e:
+            if per_chip == ladder[-1]:
+                raise
+            tried.append({"batch": per_chip, "error": str(e)[:160]})
+        else:
+            steps = LADDER_STEPS * (1 + LADDER_LOOPS * lreps)
+            counts = fa.launch_counts()
+            losses = [float(x) for x in torch.cat(losses)]
+            _ladder_check(losses, counts, cfg.n_layers, steps)
+            return {"T": t, "batch": per_chip, "out_of_memory": tried,
+                    "tokens_per_s_per_chip": rate, "steps": steps,
+                    "first_call_s": first_s, "losses": losses,
+                    "launches": counts,
+                    "state_gb": ckpt.state_nbytes(state) / 2 ** 30,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        finally:
+            state = toks = multi = m = None
+            torch.cuda.empty_cache()
+        print(f"# train_ladder: batch {per_chip} at T={t} ran out of "
+              f"memory, stepping down", flush=True)
+    raise AssertionError("unreachable: the last rung returns or raises")
+
+
+def train_ladder_phase(card):
+    """bench.py's flagship ladder (``_llama_flagship_bench``, bf16 rungs)
+    on the port: three small adafactor steps on the card against the
+    CPU (:func:`_adafactor_agreement`), then the T=2048 and T=8192
+    rungs (:func:`_ladder_rung`), tokens/s/chip and MFU of each. Returns
+    each rung's batch and launches by T."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+
+    worst, n_stats = _adafactor_agreement(_adafactor_small_run("cpu"),
+                                          _adafactor_small_run("cuda"))
+    cfg = _flagship_train_config()
+    rng = np.random.RandomState(0)
+    rows = {}
+    for i, (t, ladder, lreps) in enumerate(LADDER_RUNGS):
+        r = _ladder_rung(cfg, t, ladder, lreps, rng)
+        fpt = llama.train_flops_per_token(cfg, t)
+        rows[t] = r
+        print(json.dumps({
+            "phase": "train_ladder", "model": "flagship_train (bench.py:69)",
+            "optimizer": "adafactor(1e-3)", "remat": "full", "ladder": ladder,
+            "steps_per_call": LADDER_STEPS, "calls_per_loop": lreps,
+            "loops": LADDER_LOOPS, **r, "train_flops_per_token": fpt,
+            ("long_mfu" if i else "mfu"):
+                r["tokens_per_s_per_chip"] * fpt / PEAK_BF16_FLOPS,
+            "small_steps_vs_cpu_worst_of_leaf_max": worst,
+            "small_steps_statistics": n_stats,
+            "small_steps_of_max": AF_CPU_OF_MAX, "card": card,
+        }), flush=True)
+        torch.cuda.empty_cache()
+    return {t: (r["batch"], r["launches"]) for t, r in rows.items()}
 
 
 def _kernel_family(name):
@@ -1406,12 +1791,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts = train_phase(card, profile)
     torch.cuda.empty_cache()
+    remat_lse = remat_policies_phase(card)
+    torch.cuda.empty_cache()
+    ladder_runs = train_ladder_phase(card)
+    torch.cuda.empty_cache()
+    # each rung's attention, at the batch that fit, held to its plain
+    # versions (TRAIN_SHAPES holds each ladder's first batch)
+    ladder_shapes = {t: (b, t) + TRAIN_MAIN[2:]
+                     for t, (b, _) in ladder_runs.items()}
+    for shape in ladder_shapes.values():
+        if shape not in train_rows:
+            train_rows[shape] = train_kernel_row(shape, card)
+    torch.cuda.empty_cache()
     ctr_phase(card, profile)
 
     # the serving path's largest prefill: the 1000-token prompt's bucket
     main = rows[(1024, True, 128)]
-    tmain = train_rows[TRAIN_MAIN]
-    tshape = "B4 T2048 H16 KV8 d128 causal bf16"
     src = "edl_tpu_torch/ops/csrc/"
     ref = "edl_tpu/ops/flash_attention.py:"
 
@@ -1426,14 +1821,45 @@ def main() -> int:
             "bound_share": bound[0] / ms, "shape": shape,
         }
 
-    def train_entry(name, source, replaces, errs, ms, plain, library):
-        err = max(r[e] for r in list(train_rows.values()) + list(rows.values())
-                  for e in errs if e in r)
-        return entry(name, source, replaces, train_counts[name], err,
-                     tmain[ms], tmain[plain],
-                     (tmain["bound_ms"][name], tmain["bound_by"][name],
-                      tmain["flops"][name]),
-                     tmain[library], tshape)
+    def shape_name(b, t, h, kv, causal, d):
+        return (f"B{b} T{t} H{h} KV{kv} d{d} "
+                f"{'causal' if causal else 'full'} bf16")
+
+    # each training kernel three times: at the flagship's B4 T2048
+    # (launches: the train phase's 5 steps) and at each ladder rung's
+    # shape (launches: that rung's run); launches of every training path
+    # beside them
+    by_path = {"train (adamw, full remat, 5 steps)": train_counts,
+               **{f"train_ladder T{t}": c
+                  for t, (_, c) in ladder_runs.items()}}
+    remat = {f"remat_policies {p} (1 step)": n for p, n in remat_lse.items()}
+    trainers = []
+    for shape, launched in ((TRAIN_MAIN, train_counts),
+                            *((ladder_shapes[t], c)
+                              for t, (_, c) in ladder_runs.items())):
+        tr = train_rows[shape]
+        for name, source, replaces, errs, ms, plain, library in (
+                # with_lse=True: the fwd rule _flash_fwd (:363) of the
+                # same kernel
+                ("flash_fwd_lse", "flash_fwd.cu", "100", ["lse_max_abs_err"],
+                 "flash_fwd_lse_ms", "plain_fwd_lse_ms", "library_fwd_ms"),
+                # the plain backward and SDPA's backward each compute dq,
+                # dk and dv in one call: their times stand beside both
+                ("flash_bwd_dq", "flash_bwd.cu", "226", ["dq_max_abs_err"],
+                 "flash_bwd_dq_ms", "plain_bwd_ms", "library_bwd_ms"),
+                ("flash_bwd_dkv", "flash_bwd.cu", "287",
+                 ["dk_max_abs_err", "dv_max_abs_err"], "flash_bwd_dkv_ms",
+                 "plain_bwd_ms", "library_bwd_ms")):
+            err = max(r[e] for r in list(train_rows.values())
+                      + list(rows.values()) for e in errs if e in r)
+            e = entry(name, source, replaces, launched[name], err, tr[ms],
+                      tr[plain], (tr["bound_ms"][name], tr["bound_by"][name],
+                                  tr["flops"][name]),
+                      tr[library], shape_name(*shape))
+            e["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
+            if name == "flash_fwd_lse":
+                e["launches_by_path"].update(remat)
+            trainers.append(e)
 
     summary = {"kernels": [
         entry("flash_fwd", "flash_fwd.cu", "100", launches,
@@ -1441,18 +1867,7 @@ def main() -> int:
               main["kernel_ms"], main["ref_ms"],
               _bound(1, 1024, 32, 8, 128, True), main["library_ms"],
               "B1 T1024 H32 KV8 d128 causal bf16"),
-        # with_lse=True: the fwd rule _flash_fwd (:363) of the same kernel
-        train_entry("flash_fwd_lse", "flash_fwd.cu", "100",
-                    ["lse_max_abs_err"],
-                    "flash_fwd_lse_ms", "plain_fwd_lse_ms", "library_fwd_ms"),
-        # the plain backward and SDPA's backward each compute dq, dk and
-        # dv in one call: their times stand beside both sweeps
-        train_entry("flash_bwd_dq", "flash_bwd.cu", "226",
-                    ["dq_max_abs_err"], "flash_bwd_dq_ms", "plain_bwd_ms",
-                    "library_bwd_ms"),
-        train_entry("flash_bwd_dkv", "flash_bwd.cu", "287",
-                    ["dk_max_abs_err", "dv_max_abs_err"], "flash_bwd_dkv_ms",
-                    "plain_bwd_ms", "library_bwd_ms"),
+        *trainers,
     ]}
     print(json.dumps(summary), flush=True)
     print(_smi(), flush=True)

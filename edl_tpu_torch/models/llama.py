@@ -35,14 +35,19 @@ axis order differs.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from edl_tpu_torch.models.losses import row_mean
 from edl_tpu_torch.obs import costmodel
@@ -70,8 +75,14 @@ class LlamaConfig:
     # layer inputs are saved across layers (torch.utils.checkpoint).
     # Training-only: neither field rides to_meta.
     remat: bool = False
-    # what the remat saves besides layer inputs: "full" (nothing, the
-    # flagship's) is ported; "attn" / "mlp" / "dots" are not yet
+    # what the remat saves besides layer inputs (the FLOPs/HBM dial, a
+    # selective-checkpoint policy; see _remat_policy):
+    #   "full" — nothing (the flagship's: least memory, most recompute)
+    #   "attn" — the flash op's (out, lse): the backward re-runs no
+    #            attention (needs use_flash and a flash-supported T)
+    #   "mlp"  — the w1 and w3 products' outputs, the MLP's [B,T,d_ff]
+    #   "dots" — every weight product (aten.mm), as the reference's
+    #            dots_with_no_batch_dims_saveable
     remat_policy: str = "full"
 
     @property
@@ -261,12 +272,29 @@ def _qkv(cfg: LlamaConfig, a: torch.Tensor, lp: Dict, rope):
     return q, k, v
 
 
+# the remat policies' counterpart of jax's checkpoint_name: the name of
+# the site whose ops are being dispatched, read by a policy
+_SITE: contextvars.ContextVar[Optional[str]] = contextvars.ContextVar(
+    "edl_remat_site", default=None)
+
+
+@contextlib.contextmanager
+def _site(name: str):
+    token = _SITE.set(name)
+    try:
+        yield
+    finally:
+        _SITE.reset(token)
+
+
 def _mlp(cfg: LlamaConfig, x: torch.Tensor, lp: Dict) -> torch.Tensor:
-    """Post-attention SwiGLU block, residual included."""
+    """Post-attention SwiGLU block, residual included. The w1 and w3
+    products run under the site name ``"mlp"``, which the ``"mlp"``
+    remat policy saves."""
     m = _rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    gate = torch.nn.functional.silu(_matw(m, lp["w1"]))
-    up = _matw(m, lp["w3"])
-    return x + _matw(gate * up, lp["w2"])
+    with _site("mlp"):
+        gate, up = _matw(m, lp["w1"]), _matw(m, lp["w3"])
+    return x + _matw(torch.nn.functional.silu(gate) * up, lp["w2"])
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
@@ -279,17 +307,65 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
     return _mlp(cfg, x, lp), k, v
 
 
-def _remat_policy(cfg: LlamaConfig) -> None:
-    """The remat FLOPs/HBM dial. "full" (recompute everything but the
-    layer input) is torch.utils.checkpoint as it is; the policies that
-    save named residuals are not ported."""
-    if cfg.remat_policy in ("attn", "mlp", "dots"):
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
-            f"Queue A item 2); use remat_policy='full' or remat=False"
-        )
-    if cfg.remat_policy != "full":
-        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+_MM = torch.ops.aten.mm.default
+_FLASH_FWD = torch.ops.edl_tpu_torch.flash_fwd.default
+
+
+def _policy(save: Callable[[object], bool]):
+    """A ``checkpoint`` ``context_fn`` whose policy must-saves the
+    outputs of the ops ``save`` accepts and recomputes every other."""
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if save(op)
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _remat_policy(cfg: LlamaConfig) -> Callable:
+    """The remat FLOPs/HBM dial (see ``LlamaConfig.remat_policy``) as a
+    ``context_fn`` for ``checkpoint``: the reference's
+    ``_remat_policy`` (``edl_tpu/models/llama.py:405-426``) over the
+    dispatcher's ops.
+
+    Eager recompute re-runs the layer's Python, so a saved op skips
+    only its own work, never that of the ops feeding it (no dead-code
+    elimination as in XLA), and non-reentrant checkpointing stops once
+    the last tensor the backward needs is back. Per layer the backward
+    therefore recomputes these weight products (the w2 product's
+    output is needed by nothing, so it is never recomputed):
+
+    - ``"full"``: wq, wk, wv, wo, w1, w3 (6) and the flash forward.
+    - ``"attn"``: the same 6 products, no flash forward: the flash op's
+      ``(out, lse)`` is saved (the reference's ``flash_out`` /
+      ``flash_lse``).
+    - ``"mlp"``: wq, wk, wv, wo (4) and the flash forward. The policy
+      saves the w1 and w3 products' outputs ``[B, T, d_ff]``: the same
+      bytes as the reference's ``mlp_gate`` / ``mlp_up``
+      (``silu(w1·m)`` and ``w3·m``, ``edl_tpu/models/llama.py:379-380``).
+      The port saves at the products, not at ``silu``, because a saved
+      ``silu`` would still recompute its input ``w1·m`` here; the cheap
+      ``silu`` is what it recomputes instead.
+    - ``"dots"``: no product (every ``aten.mm``, the weight products
+      with no batch dims, is saved; the attention's batched products and
+      the flash op are not), and the flash forward.
+    """
+    if cfg.remat_policy == "mlp":
+        return _policy(lambda op: op == _MM and _SITE.get() == "mlp")
+    if cfg.remat_policy == "attn":
+        if not cfg.use_flash:
+            raise ValueError(
+                'remat_policy="attn" saves the flash kernel\'s named '
+                "residuals; without use_flash there is nothing to "
+                "save and the policy would silently degrade to full "
+                "rematerialization"
+            )
+        return _policy(lambda op: op == _FLASH_FWD)
+    if cfg.remat_policy == "dots":
+        return _policy(lambda op: op == _MM)
+    if cfg.remat_policy == "full":
+        return noop_context_fn
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
 def _unbind_layers(params: Dict) -> List[Dict]:
@@ -312,16 +388,27 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     params that require grad it builds the graph, with ``cfg.remat``
     each layer is checkpointed (non-reentrant) and recomputed in the
     backward. Serving params do not require grad, so serving builds no
-    graph. A sharding ``plan``/``mesh`` raises (not ported yet)."""
+    graph. ``cfg.remat_policy`` picks what the remat saves
+    (:func:`_remat_policy`). A sharding ``plan``/``mesh`` raises (not
+    ported yet)."""
     require_unsharded(plan, mesh, "llama.forward")
-    if cfg.remat:
-        _remat_policy(cfg)
+    if (cfg.remat and cfg.remat_policy == "attn" and cfg.use_flash
+            and not flash_supported(tokens.shape[1])):
+        # attention() would take the dense path, the flash op would
+        # never run, and the policy would degrade to full remat
+        raise ValueError(
+            f'remat_policy="attn" needs the flash kernel, but '
+            f"seq len {tokens.shape[1]} is not flash-supported "
+            f"(flash_supported() is False) — pad T or switch policy"
+        )
+    context_fn = _remat_policy(cfg) if cfg.remat else None
     x = _embed(params, tokens, cfg)
     rope = _rope_tables(cfg, tokens.shape[1], x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in _unbind_layers(params):
         if remat:
-            x = checkpoint(_layer_out, cfg, x, lp, rope, use_reentrant=False)
+            x = checkpoint(_layer_out, cfg, x, lp, rope, use_reentrant=False,
+                           context_fn=context_fn)
         else:
             x = _layer_out(cfg, x, lp, rope)
     x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)

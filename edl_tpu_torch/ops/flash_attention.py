@@ -11,9 +11,14 @@ dim 64 or 128) or raises:
   writes the base-2 logsumexp (``_flash_fwd``, ``with_lse=True``),
   taken when an input needs a gradient;
 - ``csrc/flash_bwd.cu`` ``flash_bwd_dq_bf16`` / ``flash_bwd_dkv_bf16``:
-  the dQ and dK/dV sweeps (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``),
-  behind :class:`_FlashFn`, the counterpart of the reference's
-  ``custom_vjp``.
+  the dQ and dK/dV sweeps (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``).
+
+The training pair is two registered operators, the counterpart of the
+reference's ``custom_vjp``: ``torch.ops.edl_tpu_torch.flash_fwd``
+(``(out, lse)``) and ``torch.ops.edl_tpu_torch.flash_bwd`` (``(dq, dk,
+dv)``), tied by ``register_autograd``. A selective-checkpoint policy
+names the forward op to keep its outputs (``models/llama.py``'s
+``"attn"`` remat policy).
 
 On CPU tensors every one of them is its plain PyTorch version
 (:func:`flash_attention_ref`, :func:`flash_attention_lse_ref`,
@@ -440,34 +445,82 @@ def _device_kind(q: torch.Tensor) -> str:
     raise ValueError(f"no flash attention path for device {q.device}")
 
 
-class _FlashFn(torch.autograd.Function):
-    """The reference's ``custom_vjp`` (``_flash`` / ``_flash_fwd`` /
-    ``_flash_bwd``): the forward saves (q, k, v, out, lse) and the
-    backward runs the dQ and dK/dV sweeps. CUDA tensors take the
-    kernels, CPU tensors the plain versions on the same blocks."""
+# The training op as two registered operators in the port's namespace,
+# so that the dispatcher, and every mode on it, sees the flash forward
+# as one op: a selective-checkpoint policy can name and cache
+# ``flash_fwd`` (the reference's ``flash_out`` / ``flash_lse``
+# residuals, ``edl_tpu/ops/flash_attention.py:375-376``), and a fake or
+# meta tensor gets its shapes from ``register_fake`` without a launch.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_k):
-        if _device_kind(q) == "cuda":
-            out, lse = flash_attention_lse_cuda(q, k, v, causal)
-        else:
-            out, lse = flash_attention_lse_ref(q, k, v, causal, block_q,
-                                               block_k)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.blocks = causal, (block_q, block_k)
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        do = do.contiguous()
-        if _device_kind(q) == "cuda":
-            dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, do,
-                                                  ctx.causal)
-        else:
-            dq, dk, dv = flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                 ctx.causal, *ctx.blocks)
-        return dq, dk, dv, None, None, None
+@torch.library.custom_op(
+    "edl_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int block_q, "
+           "int block_k) -> (Tensor, Tensor)")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, block_q: int,
+                  block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``_flash_fwd``: ``(out [B, T, H, d], lse [B, H,
+    T] f32)``. CUDA tensors launch ``flash_fwd_lse_bf16``, CPU tensors
+    run :func:`flash_attention_lse_ref` on the same blocks."""
+    if _device_kind(q) == "cuda":
+        return flash_attention_lse_cuda(q, k, v, causal)
+    return flash_attention_lse_ref(q, k, v, causal, block_q, block_k)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, block_q, block_k):
+    b, t, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, t), dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "edl_tpu_torch::flash_bwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+           "Tensor do, bool causal, int block_q, int block_k) "
+           "-> (Tensor, Tensor, Tensor)")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool, block_q: int, block_k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's ``_flash_bwd``: ``(dq, dk, dv)`` from the
+    forward's residuals. CUDA tensors launch the dQ and dK/dV sweeps,
+    CPU tensors run :func:`flash_attention_bwd_ref`."""
+    if _device_kind(q) == "cuda":
+        return flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+    return flash_attention_bwd_ref(q, k, v, out, lse, do, causal, block_q,
+                                   block_k)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, lse, do, causal, block_q, block_k):
+    return tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for x in (q, k, v))
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, causal, block_q, block_k = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.blocks = causal, (block_q, block_k)
+    # lse is a residual, as in the reference's custom_vjp: no gradient
+    # flows into it, and none is materialized for it
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+
+
+def _flash_backward(ctx, do, _dlse):
+    if do is None:
+        return None, None, None, None, None, None
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_op(q, k, v, out, lse, do.contiguous(),
+                               ctx.causal, *ctx.blocks)
+    return dq, dk, dv, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
 
 
 def flash_attention(
@@ -480,8 +533,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """q [B, T, H, d], k/v [B, T, KV, d] → [B, T, H, d]. T must divide
     the (clamped) block sizes, as in the reference. Differentiable: when
-    grad is on and an input needs it, the forward runs through
-    :class:`_FlashFn` (lse forward, then the backward sweeps); otherwise
+    grad is on and an input needs it, the forward is the registered op
+    ``edl_tpu_torch::flash_fwd`` (the lse forward; its autograd runs
+    ``edl_tpu_torch::flash_bwd``, the backward sweeps); otherwise
     it is the primal forward. CUDA tensors go to the Hopper kernels, CPU
     tensors to the plain versions."""
     h, hk = q.shape[2], k.shape[2]
@@ -496,7 +550,7 @@ def flash_attention(
     kind = _device_kind(q)
     if torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashFn.apply(q, k, v, causal, block_q, block_k)
+        return _flash_fwd_op(q, k, v, causal, block_q, block_k)[0]
     if kind == "cuda":
         return flash_attention_cuda(q, k, v, causal)
     return flash_attention_ref(q, k, v, causal, block_q, block_k)

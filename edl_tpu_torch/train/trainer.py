@@ -6,7 +6,7 @@ step is eager PyTorch on one card: forward, ``backward()`` (the flash
 kernels' backward sweeps run inside it) and the optimizer's update.
 The optimizer is a ``torch.optim`` instance that owns its moments,
 built by a factory named after its optax counterpart (:func:`adamw`,
-:func:`adam`) with optax's defaults.
+:func:`adam`, :func:`adafactor`) with optax's defaults.
 
 As in the reference, ``step(state, batch) -> (state, metrics)``. The
 update is in place: the returned state holds the same parameter
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +98,142 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         ps, lr=learning_rate, betas=betas, eps=eps))
 
 
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(lr)``'s chain with optax's other defaults, step
+    for step (optax 0.2.6, ``_src/factorized.py`` and ``_src/alias.py``),
+    for one tensor at a time:
+
+    1. ``scale_by_factored_rms``: with ``t`` the steps taken so far and
+       ``β = 1 - (t + 1)^-0.8``, ``g² + 1e-30`` feeds the second-moment
+       estimate. A tensor is factored over its TWO LARGEST dims
+       ``(d1, d0)`` (``np.argsort`` of the shape, so a tie keeps the
+       earlier axis first) when the second largest is at least 128:
+       ``v_row`` (the mean over d0) and ``v_col`` (over d1) decay by β,
+       and the update is ``g · (v_row / mean(v_row over d1))^-½ ·
+       v_col^-½``. Otherwise ``v`` (full size) decays by β and the
+       update is ``g · v^-½``.
+    2. ``clip_by_block_rms(1.0)``: the update divided by
+       ``max(1, rms(u))``, the RMS over the whole tensor.
+    3. ``scale_by_learning_rate``: times ``lr``.
+    4. ``scale_by_param_block_rms``: times ``max(rms(p), 1e-3)``, the
+       RMS over the whole tensor.
+    5. ``scale(-1)``, then added to the param.
+
+    State per param, under optax's names: ``v_row`` and ``v_col`` for a
+    factored tensor, ``v`` for the others (optax's 1-element
+    placeholders for the unused ones are not kept), and ``step``, the
+    count, a CPU tensor as torch's Adam keeps it. ``torch.optim.
+    Adafactor`` is another algorithm (it factors the last two dims of
+    every tensor of 2 or more dims, does not clip, and steps by
+    ``min(lr, 1/sqrt(t))``)."""
+
+    MIN_DIM_SIZE_TO_FACTOR = 128
+    DECAY_RATE = 0.8
+    EPS = 1e-30
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @classmethod
+    def factored_dims(cls, shape):
+        """optax's ``_factored_dims`` at its defaults: ``(d1, d0)``, the
+        second largest and the largest axis, or None when the tensor is
+        not factored."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < cls.MIN_DIM_SIZE_TO_FACTOR:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(p, group["lr"])
+        return loss
+
+    def _update(self, p: torch.Tensor, lr: float) -> None:
+        g = p.grad
+        dims = self.factored_dims(tuple(p.shape))
+        st = self.state[p]
+        if not st:
+            st["step"] = torch.tensor(0.0)
+            if dims is None:
+                st["v"] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                st["v_row"] = p.new_zeros(shape[:d0] + shape[d0 + 1:])
+                st["v_col"] = p.new_zeros(shape[:d1] + shape[d1 + 1:])
+        # optax computes the decay in f32
+        i = np.float32(int(st["step"]) + 1)
+        beta = float(np.float32(1.0) - i ** np.float32(-self.DECAY_RATE))
+        keep = float(np.float32(1.0) - np.float32(beta))
+        g2 = g * g + self.EPS
+        if dims is None:
+            v = st["v"].mul_(beta).add_(g2 * keep)
+            u = g * v.pow(-0.5)
+        else:
+            d1, d0 = dims
+            v_row = st["v_row"].mul_(beta).add_(g2.mean(dim=d0) * keep)
+            v_col = st["v_col"].mul_(beta).add_(g2.mean(dim=d1) * keep)
+            r1 = d1 - 1 if d1 > d0 else d1
+            row = (v_row / v_row.mean(dim=r1, keepdim=True)).pow(-0.5)
+            u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
+        del g2
+        u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)
+        u = lr * u * torch.clamp(p.square().mean().sqrt(), min=1e-3)
+        p.add_(-1 * u)
+        st["step"] += 1
+
+
+# optax.adafactor's options and defaults; the port carries the defaults
+# only (a non-default value raises)
+_ADAFACTOR_DEFAULTS = dict(
+    min_dim_size_to_factor=128, decay_rate=0.8, decay_offset=0,
+    multiply_by_parameter_scale=True, clipping_threshold=1.0,
+    momentum=None, weight_decay_rate=None, eps=1e-30, factored=True,
+    weight_decay_mask=None)
+
+
+def adafactor(learning_rate: Optional[float] = None,
+              min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
+              decay_offset: int = 0, multiply_by_parameter_scale: bool = True,
+              clipping_threshold: Optional[float] = 1.0,
+              momentum: Optional[float] = None, dtype_momentum=None,
+              weight_decay_rate: Optional[float] = None, eps: float = 1e-30,
+              factored: bool = True, weight_decay_mask=None) -> Optimizer:
+    """``optax.adafactor`` with optax's signature, as :class:`Adafactor`:
+    a constant learning rate and optax's defaults for everything else.
+    Any other value (no learning rate, a schedule, momentum, weight
+    decay, another factoring, decay, clip or eps) is not ported and
+    raises ``NotImplementedError``; ``dtype_momentum`` shapes only a
+    momentum and is ignored."""
+    given = dict(
+        min_dim_size_to_factor=min_dim_size_to_factor, decay_rate=decay_rate,
+        decay_offset=decay_offset,
+        multiply_by_parameter_scale=multiply_by_parameter_scale,
+        clipping_threshold=clipping_threshold, momentum=momentum,
+        weight_decay_rate=weight_decay_rate, eps=eps, factored=factored,
+        weight_decay_mask=weight_decay_mask)
+    del dtype_momentum  # shapes only a momentum
+    if not isinstance(learning_rate, (int, float)):
+        raise NotImplementedError(
+            "adafactor without a constant learning rate is not ported")
+    for name, val in given.items():
+        if val != _ADAFACTOR_DEFAULTS[name]:
+            raise NotImplementedError(
+                f"adafactor {name}={val!r} is not ported (only "
+                f"{_ADAFACTOR_DEFAULTS[name]!r})")
+    return Optimizer(lambda ps: Adafactor(ps, lr=learning_rate))
+
+
 @dataclass
 class TrainState:
     """step count, params tree, and the optimizer (which owns the
@@ -122,15 +258,8 @@ def value_and_grad(loss_fn: Callable[[Any, Any], torch.Tensor]):
         loss = loss_fn(params, batch)
         ps = [p for p in leaves(params) if p.requires_grad]
         gs = dict(zip(map(id, ps), torch.autograd.grad(loss, ps)))
-
-        def tree(node):
-            if isinstance(node, dict):
-                return {k: tree(v) for k, v in node.items()}
-            if isinstance(node, (list, tuple)):
-                return [tree(v) for v in node]
-            return gs.get(id(node))
-
-        return loss.detach(), tree(params)
+        return loss.detach(), replace_leaves(
+            params, [gs.get(id(p)) for p in leaves(params)])
 
     return fn
 

@@ -22,15 +22,17 @@ def leaves(tree) -> List[torch.Tensor]:
 def replace_leaves(tree, new: Sequence[torch.Tensor]):
     """``tree`` with its tensor leaves (in :func:`leaves` order) replaced
     by ``new``."""
-    it = iter(new)
+    return _replace(tree, iter(new))
 
-    def rec(node):
-        if isinstance(node, torch.Tensor):
-            return next(it)
-        if isinstance(node, dict):
-            return {k: rec(node[k]) for k in node}
-        if isinstance(node, (list, tuple)):
-            return [rec(v) for v in node]
-        return node
 
-    return rec(tree)
+def _replace(node, it):
+    # a module-level recursion: a recursive closure would be a reference
+    # cycle holding ``it``, and with it every new leaf, until the garbage
+    # collector ran
+    if isinstance(node, torch.Tensor):
+        return next(it)
+    if isinstance(node, dict):
+        return {k: _replace(node[k], it) for k in node}
+    if isinstance(node, (list, tuple)):
+        return [_replace(v, it) for v in node]
+    return node

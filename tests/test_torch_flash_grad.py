@@ -98,9 +98,10 @@ def test_grads_match_reference_kernel(case):
 
 
 def test_bwd_ref_is_the_autograd_backward():
-    """_FlashFn's CPU backward is flash_attention_bwd_ref on the lse
-    forward's residuals, and both agree with autograd through the dense
-    softmax (the math the sweeps must reproduce)."""
+    """The flash op's CPU backward (``edl_tpu_torch::flash_bwd``) is
+    flash_attention_bwd_ref on the lse forward's residuals, and both
+    agree with autograd through the dense softmax (the math the sweeps
+    must reproduce)."""
     b, t, h, kv, d = 1, 64, 4, 2, 16
     q, k, v, w = (torch.from_numpy(x)
                   for x in _inputs(2, b, t, h, kv, d))

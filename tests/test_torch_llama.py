@@ -9,6 +9,7 @@ reference's own alternate paths; greedy tokens must be identical.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -206,3 +207,42 @@ def test_init_params_shapes_and_seed():
         assert tuple(a.shape) == tuple(b.shape), k
     torch.testing.assert_close(p1["layers"]["wq"], p2["layers"]["wq"],
                                atol=0, rtol=0)
+
+
+# __graft_entry__.entry()'s config: the flagship forward compile-checked
+# on one chip (vocab 32768, d512/L4/H8/KV4, d_ff 1536, bf16, flash)
+GRAFT = dict(vocab=32768, d_model=512, n_layers=4, n_heads=8, n_kv_heads=4,
+             d_ff=1536, use_flash=True)
+# Both forwards round to bf16 at the same points, ten a layer (the two
+# norms, the q/k/v, o, w1, w3 and w2 products, rope, the two residual
+# adds) and once at the logits. The frameworks sum in f32 in other
+# orders, so at any point an element may land one bf16 ulp (2^-8
+# relative) apart. Were every element one ulp apart at every point, each
+# independently, a position's logits would differ by
+# sqrt(10 * 4 + 1) * 2^-8 of their RMS: the bound on every position.
+GRAFT_ROW_RTOL = math.sqrt(10 * GRAFT["n_layers"] + 1) * 2 ** -8
+
+
+def _row_rel(got, want):
+    """Per position: RMS of the difference over the RMS of ``want``."""
+    return (np.sqrt(((got - want) ** 2).mean(-1))
+            / np.sqrt((want ** 2).mean(-1)))
+
+
+def test_bf16_forward_parity_at_the_graft_entry_config():
+    """The port's bf16 ``forward`` against the reference's (its flash in
+    Pallas interpret mode) at ``__graft_entry__.entry()``'s config and
+    tokens [4, 256], weights carried over by ``params_from_numpy``: every
+    position within GRAFT_ROW_RTOL, and a planted wrong ``rope_theta``
+    far outside it."""
+    jc = jl.LlamaConfig(**GRAFT, dtype=jnp.bfloat16)
+    tc = tl.LlamaConfig(**GRAFT, dtype=torch.bfloat16)
+    jp = jl.init_params(jax.random.PRNGKey(0), jc)
+    tokens = np.random.RandomState(0).randint(0, jc.vocab, (4, 256), np.int32)
+    want = np.asarray(jl.forward(jp, jnp.asarray(tokens), jc), np.float32)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+    got = tl.forward(tp, _t(tokens), tc)
+    assert got.dtype == torch.float32 and got.shape == (4, 256, jc.vocab)
+    assert _row_rel(got.numpy(), want).max() <= GRAFT_ROW_RTOL
+    bad = tl.forward(tp, _t(tokens), dataclasses.replace(tc, rope_theta=1e4))
+    assert _row_rel(bad.numpy(), want).max() > 10 * GRAFT_ROW_RTOL

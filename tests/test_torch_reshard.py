@@ -143,6 +143,53 @@ def test_next_step_after_reshard_equals_unresharded_step(how, tmp_path):
     _assert_states_equal(a, c)
 
 
+def _adafactor_state():
+    """The CTR state after two adafactor steps: the 400 x 400 MLP
+    weights factored (v_row, v_col), the [4096, 8] table and the biases
+    whole (v)."""
+    tx = trainer.adafactor(1e-3)
+    params = ctr_params_from_numpy(jax.tree_util.tree_map(np.asarray, JP),
+                                   "cpu")
+    state = trainer.TrainState.create(params, tx)
+    step = trainer.make_train_step(tctr.make_loss_fn(), tx)
+    for i in range(2):
+        state, _ = step(state, _batch(i))
+    return state, step
+
+
+@pytest.mark.parametrize("how", ["staged_f32", "snapshot_restore",
+                                 "save_load"])
+def test_adafactor_state_reshards_bit_for_bit(how, tmp_path, monkeypatch):
+    monkeypatch.setattr(shd, "_CHUNK_BYTES", 1 << 12)
+    state, step = _adafactor_state()
+    names = {n for _, n, _, _ in trainer.optimizer_tensors(state)}
+    assert names == {"step", "v_row", "v_col", "v"}
+    if how == "staged_f32":
+        moved = ckpt.staged_reshard(state, stage="f32", device="cpu")
+    elif how == "snapshot_restore":
+        moved = ckpt.restore(ckpt.snapshot(state), device="cpu")
+    else:
+        ckpt.save(str(tmp_path), state)
+        like = trainer.TrainState.create(
+            tctr.init_params(torch.Generator().manual_seed(5), vocab=VOCAB,
+                             emb=EMB, device="cpu"), trainer.adafactor(1e-3))
+        moved = ckpt.restore(ckpt.load(str(tmp_path), like), device="cpu")
+    assert type(moved.opt_state) is trainer.Adafactor
+    assert moved.opt_state.defaults == state.opt_state.defaults
+    _assert_states_equal(moved, state)
+    b = _batch(2)
+    a, ma = step(moved, b)
+    c, mc = step(state, b)
+    assert float(ma["loss"]) == float(mc["loss"])
+    _assert_states_equal(a, c)
+    params = sum(p.nbytes for p in trainer.leaves(state.params))
+    stats = sum(t.nbytes for _, n, t, _ in trainer.optimizer_tensors(state)
+                if n != "step")
+    assert ckpt.state_nbytes(a) == params + stats + 4 * len(
+        trainer.leaves(state.params))
+    assert stats < params / 2  # factored: far below Adam's 2x
+
+
 def test_staged_reshard_int8_moment_staging(monkeypatch):
     """The reference's bound: params move exactly, Adam moments within
     1/127 of their row's absmax; the next step's loss from there is the

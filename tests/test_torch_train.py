@@ -82,6 +82,25 @@ def test_loss_and_grads_match_reference(remat):
     assert all(p.grad is None for p in trainer.leaves(params))
 
 
+def test_value_and_grad_holds_no_gradient_after_return():
+    """The grads die with their last reference, without a garbage
+    collection: nothing inside value_and_grad keeps them in a reference
+    cycle (a training loop would hold a second copy of the gradients)."""
+    import gc
+    import weakref
+
+    gc.disable()
+    try:
+        loss, grads = trainer.value_and_grad(tl.make_loss_fn(TCFG))(
+            trainer.trainable(_tparams()), _tbatch(_batch(0)))
+        refs = [weakref.ref(g) for g in trainer.leaves(grads)]
+        assert len(refs) == len(jax.tree_util.tree_leaves(JP))
+        del loss, grads
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 def test_remat_changes_no_value():
     """Full remat recomputes the same layers: loss and grads identical to
     the non-remat graph, bit for bit on the CPU."""
@@ -226,12 +245,26 @@ def test_weighted_rows_in_the_loss_match_reference():
 
 @pytest.mark.parametrize("policy", ["attn", "mlp", "dots"])
 def test_unported_remat_policies_raise(policy):
-    cfg = dataclasses.replace(TCFG, remat=True, remat_policy=policy)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tl.make_loss_fn(cfg)(_tparams(), _tbatch(_batch(0)))
-    with pytest.raises(ValueError, match="unknown remat_policy"):
-        tl.forward(_tparams(), torch.zeros(1, 4, dtype=torch.long),
-                   dataclasses.replace(TCFG, remat=True, remat_policy="x"))
+    """Each selective remat policy: loss and grads against
+    ``jax.value_and_grad`` of the reference under the same
+    ``remat_policy`` (its flash in Pallas interpret mode) at 1e-4, and
+    equal to the port's own ``"full"`` remat bit for bit (the policies
+    change what is saved, not what is computed)."""
+    jc = dataclasses.replace(JCFG, remat=True, remat_policy=policy)
+    tc = dataclasses.replace(TCFG, remat=True, remat_policy=policy)
+    nb = _batch(2)
+    w_loss, w_grads = jax.value_and_grad(jl.make_loss_fn(jc))(
+        JP, {k: jnp.asarray(v) for k, v in nb.items()})
+    loss, grads = trainer.value_and_grad(tl.make_loss_fn(tc))(
+        trainer.trainable(_tparams()), _tbatch(nb))
+    np.testing.assert_allclose(float(loss), float(w_loss), **TOL)
+    _assert_tree_close(grads, w_grads, **TOL)
+    full = dataclasses.replace(tc, remat_policy="full")
+    f_loss, f_grads = trainer.value_and_grad(tl.make_loss_fn(full))(
+        trainer.trainable(_tparams()), _tbatch(nb))
+    torch.testing.assert_close(loss, f_loss, atol=0, rtol=0)
+    for a, b in zip(trainer.leaves(grads), trainer.leaves(f_grads)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
 def test_sharding_plans_raise_and_one_device_plan_runs():
@@ -261,3 +294,186 @@ def test_serving_params_build_no_graph():
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, JP), "cpu")
     logits = tl.forward(params, torch.zeros(1, 8, dtype=torch.long), TCFG)
     assert logits.grad_fn is None and not logits.requires_grad
+
+
+# -- adafactor -----------------------------------------------------------
+
+# one leaf per branch of optax's adafactor: factored over two largest
+# dims that are not the last two (argsort [1, 2, 0]: rows over axis 2,
+# columns over axis 0); a square factored leaf (the argsort tie); an
+# [L, d] leaf with L < 128, which optax leaves whole (torch.optim.
+# Adafactor would factor it); and a leaf whose update the block-RMS clip
+# cuts (its gradient grows 30x in the second step, past what the decayed
+# estimate has seen)
+AF_SHAPES = {"a_perm": (256, 4, 128), "b_square": (128, 128),
+             "c_layers": (4, 160), "d_clip": (8, 16)}
+AF_GROW = {"d_clip": (1.0, 30.0, 1.0)}
+
+
+def _af_data():
+    rng = np.random.RandomState(7)
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in AF_SHAPES.items()}
+    batches = [{k: (rng.randn(*s).astype(np.float32),
+                    rng.randn(*s).astype(np.float32),
+                    np.float32(AF_GROW.get(k, (1.0,) * 3)[i]))
+                for k, s in AF_SHAPES.items()} for i in range(3)]
+    return params, batches
+
+
+def _af_loss(tanh, mean, params, batch):
+    """sum over leaves of c * mean(tanh(p * x) * y)."""
+    return sum(batch[k][2] * mean(tanh(params[k] * batch[k][0]) * batch[k][1])
+               for k in sorted(params))
+
+
+def test_three_adafactor_steps_match_optax():
+    """``adafactor(1e-3)`` against ``optax.adafactor(1e-3)`` over 3 steps
+    through ``make_train_step``: losses at rtol 1e-4, params at atol 2e-5
+    (as for AdamW), the factored and unfactored statistics within 1e-4 of
+    each one's largest entry (they square the gradient, so an entry near
+    zero carries twice the gradient's relative rounding), and the state's
+    bytes equal to optax's apart from its 1-element
+    placeholders and ``count``."""
+    params0, batches = _af_data()
+    tx = optax.adafactor(1e-3)
+    rms_tx = optax.scale_by_factored_rms()  # the chain's first stage
+    jp = {k: jnp.asarray(v) for k, v in params0.items()}
+    opt, rms_st = tx.init(jp), rms_tx.init(jp)
+    j_loss = jax.value_and_grad(
+        lambda p, b: _af_loss(jnp.tanh, jnp.mean, p, b))
+    w_losses, clip_rms = [], []
+    for nb in batches:
+        loss, g = j_loss(jp, nb)
+        u, rms_st = rms_tx.update(g, rms_st, jp)
+        clip_rms.append(float(jnp.sqrt(jnp.mean(u["d_clip"] ** 2))))
+        upd, opt = tx.update(g, opt, jp)
+        jp = optax.apply_updates(jp, upd)
+        w_losses.append(float(loss))
+    assert max(clip_rms) > 1.0  # the clip branch ran
+
+    ttx = trainer.adafactor(1e-3)
+    state = trainer.TrainState.create(
+        {k: torch.from_numpy(v.copy()) for k, v in params0.items()}, ttx)
+    step = trainer.make_train_step(
+        lambda p, b: _af_loss(torch.tanh, torch.mean, p, b), ttx)
+    losses = []
+    for nb in batches:
+        state, m = step(state, {k: tuple(torch.as_tensor(x) for x in v)
+                                for k, v in nb.items()})
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, w_losses, rtol=1e-4)
+    for k in AF_SHAPES:
+        np.testing.assert_allclose(state.params[k].detach().numpy(),
+                                   np.asarray(jp[k]), atol=2e-5, rtol=0,
+                                   err_msg=k)
+
+    fac = opt[0]  # FactoredState(count, v_row, v_col, v)
+    got = {k: state.opt_state.state[state.params[k]] for k in AF_SHAPES}
+    for k, st in got.items():
+        factored = k in ("a_perm", "b_square")
+        assert sorted(st) == (["step", "v_col", "v_row"] if factored
+                              else ["step", "v"]), k
+        assert float(st["step"]) == 3 == int(fac.count)
+        for name in sorted(set(st) - {"step"}):
+            want = np.asarray(getattr(fac, name)[k])
+            assert st[name].shape == want.shape, (k, name)
+            np.testing.assert_allclose(st[name].numpy(), want, rtol=0,
+                                       atol=1e-4 * np.abs(want).max(),
+                                       err_msg=f"{k}/{name}")
+    assert got["a_perm"]["v_row"].shape == (4, 128)   # mean over axis 0
+    assert got["a_perm"]["v_col"].shape == (256, 4)   # mean over axis 2
+    want_bytes = sum(x.nbytes for x in jax.tree_util.tree_leaves(opt)
+                     if x.size > 1)
+    assert want_bytes == sum(t.nbytes for st in got.values()
+                             for n, t in st.items() if n != "step")
+
+
+def test_adafactor_defaults_are_optax_and_unported_options_raise():
+    import inspect
+
+    want = inspect.signature(optax.adafactor).parameters
+    got = inspect.signature(trainer.adafactor).parameters
+    assert list(got) == list(want)
+    for name, p in want.items():
+        if name != "dtype_momentum":
+            assert got[name].default == p.default, name
+    opt = trainer.adafactor(1e-3).init({"w": torch.zeros(2)})
+    assert isinstance(opt, trainer.Adafactor)
+    assert not isinstance(opt, torch.optim.Adafactor)
+    assert opt.defaults == dict(lr=1e-3)
+    # every value but optax's default raises, the learning rate's None
+    # (no lr step) and a schedule too
+    for kw in (dict(learning_rate=None), dict(learning_rate=lambda step: 1e-3),
+               dict(min_dim_size_to_factor=64), dict(decay_rate=0.5),
+               dict(decay_offset=10), dict(multiply_by_parameter_scale=False),
+               dict(clipping_threshold=None), dict(clipping_threshold=2.0),
+               dict(momentum=0.9), dict(weight_decay_rate=1e-4),
+               dict(eps=1e-8), dict(factored=False),
+               dict(weight_decay_mask=lambda p: p)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            trainer.adafactor(**{"learning_rate": 1e-3, **kw})
+    trainer.adafactor(1e-3, dtype_momentum=np.float32)  # shapes no momentum
+    # optax's _factored_dims at its defaults, shape by shape
+    from optax._src.factorized import _factored_dims
+
+    for shape in ((256, 4, 128), (128, 128), (4, 160), (16, 2048, 6144),
+                  (32768, 2048), (2048,), (127, 512), (128, 3, 128)):
+        assert trainer.Adafactor.factored_dims(shape) == \
+            _factored_dims(shape, True, 128), shape
+
+
+@pytest.mark.parametrize("fault", [None, "v_col", "lr", "lost"])
+def test_chip_smoke_adafactor_agreement_trips(fault, monkeypatch):
+    """chip_smoke's three-step adafactor check between two devices, run
+    here between two CPU runs: equal runs pass with both branches'
+    statistics compared, and the check trips on a v_col 1e-3 off, on a
+    learning rate 1% off (losses and statistics still agree: the params
+    do not) and on a run that lost a statistic."""
+    import chip_smoke
+
+    a = chip_smoke._adafactor_small_run("cpu")
+    if fault == "lr":
+        af = trainer.adafactor
+        monkeypatch.setattr(trainer, "adafactor", lambda lr: af(lr * 1.01))
+    b = chip_smoke._adafactor_small_run("cpu")
+    if fault is None:
+        worst, n_stats = chip_smoke._adafactor_agreement(a, b)
+        assert worst == 0
+        kinds = [n for _, n, _, _ in trainer.optimizer_tensors(b[1])]
+        assert n_stats == len(kinds) - kinds.count("step")
+        assert {"v_row", "v_col", "v"} <= set(kinds)  # both branches ran
+        return
+    for p in trainer.leaves(b[1].params):
+        st = b[1].opt_state.state[p]
+        if fault == "v_col" and "v_col" in st:
+            st["v_col"].mul_(1 + 1e-3)
+            break
+        if fault == "lost" and "v" in st:
+            del st["v"]
+            break
+    with pytest.raises(AssertionError, match="adafactor"):
+        chip_smoke._adafactor_agreement(a, b)
+
+
+@pytest.mark.parametrize("fault", [None, "nan", "flat", "lse_launch",
+                                   "primal_launch"])
+def test_chip_smoke_ladder_check_trips(fault):
+    import chip_smoke
+
+    n_layers, steps = 16, 26
+    losses = [10.4, 10.1, 9.7]
+    counts = {"flash_fwd": 0, "flash_fwd_lse": 32 * steps,
+              "flash_bwd_dq": 16 * steps, "flash_bwd_dkv": 16 * steps}
+    if fault == "nan":
+        losses[1] = float("nan")
+    elif fault == "flat":
+        losses[-1] = losses[0]
+    elif fault == "lse_launch":
+        counts["flash_fwd_lse"] = 16 * steps  # an "attn"-like step
+    elif fault == "primal_launch":
+        counts["flash_fwd"] = 1
+    if fault is None:
+        chip_smoke._ladder_check(losses, counts, n_layers, steps)
+        return
+    with pytest.raises(AssertionError, match="ladder"):
+        chip_smoke._ladder_check(losses, counts, n_layers, steps)
