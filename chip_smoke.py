@@ -14,9 +14,11 @@
 2. Kernel phase: the flash-attention forward kernel against its plain
    PyTorch version (``flash_attention_ref``) on the card, bf16, B=1,
    H=32, KV=8, d=128 (Llama-3-8B's attention), T in {8, 128, 1024,
-   1536, 2048}, causal and not; and d=64 at T=1024, causal and not,
+   1536, 2048}, causal and not; d=64 at T=1024, causal and not,
    where the lse variant is held to its plain version too, so every
-   instantiation of the forward template is checked. Tolerance:
+   instantiation of the forward template is checked; and the decode
+   ladder's prefills (phase 8a), B in {1, 8, 32} at T=512, H=16, KV=8,
+   d=128, causal (the flagship's attention). Tolerance:
    |kernel - plain| <= 2e-2 + 2^-7 * |plain| elementwise — both round
    the output to bf16 (one ulp is 2^-8 relative) and sum in different
    orders; the plain version runs on the kernel's 128 x 128 tiles (one
@@ -51,6 +53,19 @@
    plain versions, and SDPA (``enable_gqa=True``) forward and
    ``backward`` under autograd as the library yardstick (never called
    by the port).
+3a. int8_products phase: ``ops/int8_matmul`` (``torch._int_mm``, no
+   TPU kernel) at the flagship's seven projection shapes with M = 16 x
+   2048 (K x N 2048x2048, 2048x1024, 2048x6144, 6144x2048): the
+   forward, dgrad and wgrad of ``int8_matmul`` on the card against the
+   same op sequence on the CPU for 512 output rows (forward, dgrad) and
+   a 256-square block of wgrad, each a set of whole quantization
+   slices. q, s and the int32 accumulators must be equal, the outputs
+   within one rounding of the scale products (2^-8 relative in bf16,
+   2^-22 in f32). Device ms of ``_int_mm``, the activation quantizer,
+   bf16 ``torch.mm`` at the same shape (a yardstick), the op's forward
+   and forward + backward beside bf16's, and the int8 bound (FLOPs over
+   1979 TOPS, the H100 SXM's dense int8 spec; the summary row says
+   whether the card's name is that card's).
 4. Slice phase: Llama-3-8B at full width and depth, bf16,
    ``use_flash=True``, random weights from a seeded generator on the
    card, served through ``ContinuousBatchingEngine`` (8 slots x 2048
@@ -77,6 +92,16 @@
    is taken over the cold, a warm and the long (chunked) request of (a),
    every request preempted in (b) (restarted into reclaimed blocks) and
    two others, and three of (c).
+5a. int8_serving phase: the slice's weights quantized on the card
+   (``quantize_params_int8``), served with the slice's requests through
+   the contiguous engine and the paged one (block 16). Checks: the int8
+   tree (each projection and lm_head a record of int8 q8 in its
+   weight's shape and f32 s8, the embedding and norms dense, its bytes
+   <= 0.55 of the dense tree's), every request done, zero recoveries,
+   flash launches == prefills x 32 (contiguous; none paged), no
+   ``int8_matmul`` call, and the teacher-forced margin <= 0.1 row std
+   against the quantized model's dense forward. Prints tokens/s beside
+   the slice's float run.
 6. Train phase: the flagship training config (bench.py:69
    ``flagship_train_config``: d2048/L16/H16/KV8/ff6144/v32768, bf16
    activations, f32 masters, ``use_flash``, full remat) at full width and
@@ -111,11 +136,32 @@
    call): T=2048 at batch 16, 8, 4 or 2 (4 calls a loop) and T=8192 at
    batch 4, 2 or 1 (2 calls a loop), each the first batch that fits (a
    rung steps down only on ``torch.cuda.OutOfMemoryError``), one warm-up
-   call, best of 3 loops. Prints tokens/s/chip, MFU (T=2048) and long
-   MFU (T=8192) (``train_flops_per_token`` over 989 TF/s), the batch,
+   call, best of 2 loops (bench.py: 3). Prints tokens/s/chip, MFU
+   (T=2048) and long MFU (T=8192) (``train_flops_per_token`` over 989
+   TF/s), the batch,
    the state's GiB (``state_nbytes``) and every loss. Checks: finite
    losses that fall; per step 32 ``flash_fwd_lse``, 16 of each backward
-   sweep and no primal forward.
+   sweep and no primal forward. Then bench.py's int8 rungs
+   (bench.py:205-212): the same config with ``int8_mxu``, the same
+   ladders and loops: ``int8_mfu`` and
+   ``int8_long_mfu`` over the bf16 peak, and ``int8_train_speedup`` /
+   ``int8_long_speedup`` over the bf16 rung, -1 when the batches differ.
+   Checks as the bf16 rungs', and per step 2 x 7 x 16 ``int8_matmul``
+   forward calls (the forward and its recompute) and 7 x 16 backward
+   calls.
+8a. decode_ladder phase: bench.py's ``_llama_decode_bench``: the
+   flagship's decode config (remat off) with bf16 params, greedy
+   ``generate`` at (B, prompt) (1, 512), (8, 512), (32, 512), the
+   decode rate by differencing 64 and 192 new tokens (one warm-up and
+   one timed run a length: bench.py's reps cut), ``decode_pct_peak_bw`` =
+   ``decode_step_bytes`` over the step over 3.35 TB/s; then the
+   weight-only int8 rungs at B 1 and 8 on ``quantize_params_int8``'s
+   tree (roofline against its own bytes) and ``decode_int8_b1_speedup``
+   / ``decode_int8_speedup``. ``generate`` gets the config with
+   ``int8_mxu`` on and must drop it. Checks: the int8 tree (as in 5a),
+   no ``int8_matmul`` call, 16 primal flash launches a generate (its
+   prefill) and no other, and at B 8 every int8 token within 0.1 row
+   std of the quantized model's dense forward.
 9. CTR phase: bench.py's headline (bench.py:1119-1230) on the port: the
    Criteo-shaped CTR model (vocab 2^20, emb 16, MLP 400-400-400,
    random weights from a seeded generator on the card), batch 16384 of
@@ -144,7 +190,11 @@ kernel's device ms, its bound, TF/s and bound share at its main-path
 shape, and its launches on the main path; the three training kernels
 three times, at B4 T2048 with the train phase's launches and at each
 ladder rung's shape (the batch that fit) with that rung's launches,
-each with its launches on every training path), then the
+each with its launches on every training path, the int8 rungs' too;
+the primal forward four times, at B1 T1024 H32 with the slice's
+launches and at each decode rung's prefill shape with that rung's bf16
+and int8 launches, each with its launches on the slice, the int8
+serving runs and every decode rung), then the
 card's name and power limit, then ``{"ok": true, "device": ...}`` as
 the last line. Any failure raises (non-zero exit); without CUDA it
 exits 1 before printing any result. Needs one card.
@@ -163,11 +213,14 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 TEACHER_EPS = 0.1  # chosen logit within EPS x row std of the row max
-# primal forward: (T, causal, head dim); Llama-3-8B's attention at d=128,
-# and d=64 so that every instantiation of the template is checked
-KERNEL_SHAPES = ([(t, c, 128) for t in (8, 128, 1024, 1536, 2048)
+# primal forward: (B, T, H, KV, causal, head dim); Llama-3-8B's
+# attention (the slice's prefills) at d=128, and d=64 so that every
+# instantiation of the template is checked; the decode ladder's
+# prefills are DECODE_SHAPES, below
+KERNEL_SHAPES = ([(1, t, 32, 8, c, 128) for t in (8, 128, 1024, 1536, 2048)
                   for c in (True, False)]
-                 + [(1024, True, 64), (1024, False, 64)])
+                 + [(1, 1024, 32, 8, True, 64), (1, 1024, 32, 8, False, 64)])
+SLICE_MAIN = (1, 1024, 32, 8, True, 128)  # the slice's largest prefill
 # training kernels: (B, T, H, KV, causal, head dim); the first is the
 # main shape (the flagship's attention at B4 T2048, the train phase's),
 # the last two the ladder's rungs' attention at the first batch of each
@@ -232,11 +285,12 @@ REMAT_LSE_PER_LAYER = {"full": 2, "attn": 1, "mlp": 2, "dots": 2}
 REMAT_LOSS_RTOL = 1e-6
 REMAT_GRAD_OF_MAX = 1e-5
 # train_ladder phase: bench.py:_llama_measure on the port (bench.py:
-# 95-260): (T, batch ladder, multistep calls a loop), 2 steps a call,
-# best of 3 loops
+# 95-260): (T, batch ladder, multistep calls a loop), 2 steps a call.
+# bench.py takes the best of 3 loops; here the best of 2, bf16 and int8
+# rungs alike, to fit the script's time (an int8 loop is ~22 s)
 LADDER_RUNGS = ((2048, (16, 8, 4, 2), 4), (8192, (4, 2, 1), 2))
 LADDER_STEPS = 2
-LADDER_LOOPS = 3
+LADDER_LOOPS = 2
 # three adafactor(1e-3) steps of a small f32 Llama (dense attention) on
 # the card against the CPU: losses, params and second-moment statistics
 # within AF_CPU_OF_MAX of each leaf's largest entry (f32 on both sides,
@@ -246,6 +300,37 @@ AF_SMALL = {"vocab": 1024, "d_model": 256, "n_layers": 2, "n_heads": 4,
             "n_kv_heads": 2, "d_ff": 512}
 AF_SMALL_BATCH = (2, 64)
 AF_CPU_OF_MAX = 1e-4
+# int8_products phase: the int8 products of the flagship's seven
+# projections at the int8 ladder rung's M (B16 x T2048): (K, N) of
+# wq/wo, wk/wv, w1/w3 and w2. The CPU holds I8_ROWS output rows of the
+# forward and dgrad and an I8_COLS-square block of wgrad (each a slice
+# of whole quantization slices), since its int8 products over the
+# whole M take minutes; the quantizers' q and s and the int32
+# accumulators must be equal, the outputs within one rounding of the
+# scale products.
+I8_M = 16 * 2048
+I8_SHAPES = ((2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048))
+I8_ROWS = 512
+I8_COLS = 256
+I8_BF16_REL = 2 ** -8  # one bf16 rounding (forward, dgrad)
+I8_F32_REL = 2 ** -22  # one f32 rounding (wgrad)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8, the spec figure
+I8_PER_LAYER = 7  # int8 products a layer: wq wk wv wo w1 w3 w2
+# decode_ladder phase: bench.py _llama_decode_bench (bench.py:539-679):
+# (batch, prompt, max_new), the headline batch, and the int8 tree's
+# bytes over the bf16 tree's (predicted 0.537). Cut to fit the script's
+# time: bench.py times each generation length best of 5 reps at b=1
+# and 3 otherwise, each after a warm-up of that length; here one
+# warm-up a rung (the short length) and one timed run a length. With
+# bench.py's counts the new phases took ~210 s more (decode 11-19 ms a
+# step, an int8 B16 T2048 step 2.2 s; H100 80GB HBM3, 700 W).
+DECODE_LADDER = ((1, 512, 128), (8, 512, 128), (32, 512, 128))
+DECODE_HEADLINE = 8
+INT8_TREE_MOST = 0.55
+# each decode rung's prefill: the flagship's attention (as TRAIN_MAIN's)
+# at the rung's batch and prompt, held to its plain version in the
+# kernel phase
+DECODE_SHAPES = tuple((b, t0) + TRAIN_MAIN[2:] for b, t0, _ in DECODE_LADDER)
 
 
 def _smi() -> str:
@@ -309,60 +394,70 @@ def _check_out(got, want, what):
 
 
 def kernel_phase(card):
+    """The primal forward against its plain version at KERNEL_SHAPES and
+    DECODE_SHAPES (:func:`primal_kernel_row`); returns the rows by
+    shape."""
+    return {shape: primal_kernel_row(shape, card)
+            for shape in (*KERNEL_SHAPES, *DECODE_SHAPES)}
+
+
+def primal_kernel_row(shape, card):
+    """The primal forward kernel at one shape (B, T, H, KV, causal, d):
+    held against its plain version (and at d=64 the lse variant too),
+    then timed beside the plain version, SDPA and the bound. Prints and
+    returns the row."""
     import torch
     import torch.nn.functional as F
 
     from edl_tpu_torch.ops import flash_attention as fa
     from edl_tpu_torch.ops.bench_flash import device_ms
 
-    rows = {}
-    for t, causal, d in KERNEL_SHAPES:
-        where = f"T={t} causal={causal} d={d}"
-        gen = torch.Generator(device="cuda").manual_seed(t + causal + d)
-        q, k, v = (
-            torch.randn(1, t, n, d, generator=gen, device="cuda",
-                        dtype=torch.bfloat16)
-            for n in (32, 8, 8)
-        )
-        got = fa.flash_attention(q, k, v, causal=causal)
+    b, t, h, kv, causal, d = shape
+    where = f"B={b} T={t} H={h} KV={kv} causal={causal} d={d}"
+    gen = torch.Generator(device="cuda").manual_seed(b * t + causal + d)
+    q, k, v = (
+        torch.randn(b, t, n, d, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+        for n in (h, kv, kv)
+    )
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    blk = _plain_block(t)
+    want_out, want_lse = fa.flash_attention_lse_ref(q, k, v, causal, blk,
+                                                    blk)
+    err = _check_out(got, want_out, f"flash_fwd at {where}")
+    row = {"phase": "kernel", "kernel": "flash_fwd", "B": b, "T": t,
+           "H": h, "KV": kv, "causal": causal, "d": d, "max_abs_err": err}
+    if d == 64:  # the lse instantiations the training phase skips
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
         torch.cuda.synchronize()
-        blk = _plain_block(t)
-        want_out, want_lse = fa.flash_attention_lse_ref(q, k, v, causal, blk,
-                                                        blk)
-        err = _check_out(got, want_out, f"flash_fwd at {where}")
-        row = {"phase": "kernel", "kernel": "flash_fwd", "T": t,
-               "causal": causal, "d": d, "max_abs_err": err}
-        if d == 64:  # the lse instantiations the training phase skips
-            out, lse = fa.flash_attention_lse_cuda(q, k, v, causal)
-            torch.cuda.synchronize()
-            row["lse_out_max_abs_err"] = _check_out(
-                out, want_out, f"flash_fwd_lse at {where}")
-            lse_err = float((lse - want_lse).abs().max())
-            if not (torch.isfinite(lse).all() and lse_err <= LSE_ATOL):
-                raise AssertionError(f"flash_fwd_lse lse disagrees at "
-                                     f"{where}: max abs err {lse_err}")
-            row["lse_max_abs_err"] = lse_err
-        del want_out, want_lse
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-        kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal),
-                               20)
-        bound_ms, bound_by, flops = _bound(1, t, 32, 8, d, causal)
-        row.update({
-            "tol": "2e-2 + 2^-7*|plain|", "kernel_ms": kernel_ms,
-            "kernel_call_ms": _time_ms(
-                lambda: fa.flash_attention(q, k, v, causal), 20),
-            "ref_ms": _time_ms(lambda: fa.flash_attention_ref(
-                q, k, v, causal, blk, blk), 2, 1),
-            "library_ms": device_ms(lib, 20),
-            "bound_us": bound_ms * 1e3, "bound_by": bound_by,
-            "tflops": flops / kernel_ms / 1e9,
-            "card": card,
-        })
-        print(json.dumps(row), flush=True)
-        rows[(t, causal, d)] = row
-    return rows
+        row["lse_out_max_abs_err"] = _check_out(
+            out, want_out, f"flash_fwd_lse at {where}")
+        lse_err = float((lse - want_lse).abs().max())
+        if not (torch.isfinite(lse).all() and lse_err <= LSE_ATOL):
+            raise AssertionError(f"flash_fwd_lse lse disagrees at "
+                                 f"{where}: max abs err {lse_err}")
+        row["lse_max_abs_err"] = lse_err
+    del want_out, want_lse
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    kernel_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal), 20)
+    bound_ms, bound_by, flops = _bound(b, t, h, kv, d, causal)
+    row.update({
+        "tol": "2e-2 + 2^-7*|plain|", "kernel_ms": kernel_ms,
+        "kernel_call_ms": _time_ms(
+            lambda: fa.flash_attention(q, k, v, causal), 20),
+        "ref_ms": _time_ms(lambda: fa.flash_attention_ref(
+            q, k, v, causal, blk, blk), 2, 1),
+        "library_ms": device_ms(lib, 20),
+        "bound_us": bound_ms * 1e3, "bound_ms": bound_ms,
+        "bound_by": bound_by, "flops": flops,
+        "tflops": flops / kernel_ms / 1e9,
+        "card": card,
+    })
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def _grad_err(got, want, name, where):
@@ -480,9 +575,18 @@ def train_kernel_row(shape, card):
     return row
 
 
+def _slice_requests(vocab):
+    """The slice phase's prompts (lengths in the buckets 8..1024) and
+    new tokens a request."""
+    rng = np.random.RandomState(0)
+    lens = [5, 12, 30, 60, 100, 250, 500, 1000]
+    return [rng.randint(0, vocab, n).tolist() for n in lens], 32
+
+
 def slice_phase(card):
-    """Returns the flash launches of the run and the model's (params,
-    cfg), which the serving-modes phase reuses."""
+    """Returns the flash launches of the run, the model's (params, cfg),
+    which the serving-modes and int8_serving phases reuse, and the
+    run's tokens/s."""
     import dataclasses
 
     import torch
@@ -503,10 +607,8 @@ def slice_phase(card):
         params, cfg, max_slots=8, max_len=2048, horizon=8,
         metrics=metrics, device="cuda",
     )
-    rng = np.random.RandomState(0)
-    lens = [5, 12, 30, 60, 100, 250, 500, 1000]  # buckets 8 .. 1024
-    prompts = [rng.randint(0, cfg.vocab, n).tolist() for n in lens]
-    max_new = 32
+    prompts, max_new = _slice_requests(cfg.vocab)
+    lens = [len(p) for p in prompts]
 
     # warm-up request (cuBLAS handles, allocator), outside the counts
     eng.submit("warmup", prompts[0], 2)
@@ -581,7 +683,7 @@ def slice_phase(card):
         "card": card,
     }
     print(json.dumps(row), flush=True)
-    return launches, params, cfg
+    return launches, params, cfg, row["tokens_per_s"]
 
 
 def _teacher_margin(params, cfg, prompt, tokens, device):
@@ -934,13 +1036,18 @@ def train_phase(card, profile: bool):
 def _counter():
     """A TorchDispatchMode that counts the flash forward ops
     (``edl_tpu_torch::flash_fwd``, one ``flash_fwd_lse`` launch each on
-    the card) and the weight products (``aten.mm``) that run with grad
-    on: under a backward, those are the remat's recompute (the
-    backward's own products run with grad off)."""
+    the card) and the weight products that run with grad on, or (under
+    ``int8_mxu``) every ``edl_tpu_torch::int8_matmul`` op, whose
+    autograd runs its forward with grad off: under a backward, those
+    are the remat's recompute (the backward's own products run with
+    grad off and none is an int8_matmul op)."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    import edl_tpu_torch.ops.int8_matmul  # noqa: F401 (registers the op)
+
     mm = torch.ops.aten.mm.default
+    i8 = torch.ops.edl_tpu_torch.int8_matmul.default
     flash = torch.ops.edl_tpu_torch.flash_fwd.default
 
     class Counter(TorchDispatchMode):
@@ -951,7 +1058,7 @@ def _counter():
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if func == flash:
                 self.flash_fwd += 1
-            elif func == mm and torch.is_grad_enabled():
+            elif func == i8 or (func == mm and torch.is_grad_enabled()):
                 self.mm_grad_on += 1
             return func(*args, **(kwargs or {}))
 
@@ -1128,11 +1235,15 @@ def _adafactor_agreement(cpu, card):
     return worst, sum(k.startswith("o") for k in a)
 
 
-def _ladder_check(losses, counts, n_layers, steps):
+def _ladder_check(losses, counts, n_layers, steps, int8_calls=None,
+                  int8=False):
     """A ladder rung's gates: finite losses that fall from the first step
     to the last, and per step 2L ``flash_fwd_lse`` (the forward and the
     full remat's recompute), L of each backward sweep and no primal
-    forward launch. Raises."""
+    forward launch; with ``int8_calls`` (the ``int8_matmul`` op's
+    forward and backward calls), per step 2 x 7L forward calls (7 a
+    layer in the forward and again in its recompute) and 7L backward
+    calls on an ``int8`` rung, none on a bf16 one. Raises."""
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite ladder loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -1142,6 +1253,12 @@ def _ladder_check(losses, counts, n_layers, steps):
     if counts != {k: steps * v for k, v in want.items()}:
         raise AssertionError(f"ladder launches over {steps} steps {counts}, "
                              f"want {want} a step")
+    if int8_calls is not None:
+        per = I8_PER_LAYER * n_layers if int8 else 0
+        want = {"fwd": 2 * per, "bwd": per}
+        if int8_calls != {k: steps * v for k, v in want.items()}:
+            raise AssertionError(f"ladder int8_matmul calls over {steps} "
+                                 f"steps {int8_calls}, want {want} a step")
 
 
 def _ladder_rung(cfg, t, ladder, lreps, rng):
@@ -1154,6 +1271,7 @@ def _ladder_rung(cfg, t, ladder, lreps, rng):
 
     from edl_tpu_torch.models import llama
     from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.ops import int8_matmul as im
     from edl_tpu_torch.runtime import checkpoint as ckpt
     from edl_tpu_torch.train import trainer
 
@@ -1170,6 +1288,7 @@ def _ladder_rung(cfg, t, ladder, lreps, rng):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launches()
+            im.reset_calls()
             t0 = time.perf_counter()
             state, m = multi(state, toks)
             losses = [m["losses"]]
@@ -1191,12 +1310,14 @@ def _ladder_rung(cfg, t, ladder, lreps, rng):
         else:
             steps = LADDER_STEPS * (1 + LADDER_LOOPS * lreps)
             counts = fa.launch_counts()
+            calls = dict(im.calls)
             losses = [float(x) for x in torch.cat(losses)]
-            _ladder_check(losses, counts, cfg.n_layers, steps)
+            _ladder_check(losses, counts, cfg.n_layers, steps, calls,
+                          cfg.int8_mxu)
             return {"T": t, "batch": per_chip, "out_of_memory": tried,
                     "tokens_per_s_per_chip": rate, "steps": steps,
                     "first_call_s": first_s, "losses": losses,
-                    "launches": counts,
+                    "launches": counts, "int8_matmul_calls": calls,
                     "state_gb": ckpt.state_nbytes(state) / 2 ** 30,
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         finally:
@@ -1208,11 +1329,19 @@ def _ladder_rung(cfg, t, ladder, lreps, rng):
 
 
 def train_ladder_phase(card):
-    """bench.py's flagship ladder (``_llama_flagship_bench``, bf16 rungs)
-    on the port: three small adafactor steps on the card against the
-    CPU (:func:`_adafactor_agreement`), then the T=2048 and T=8192
-    rungs (:func:`_ladder_rung`), tokens/s/chip and MFU of each. Returns
-    each rung's batch and launches by T."""
+    """bench.py's flagship ladder (``_llama_flagship_bench``) on the
+    port: three small adafactor steps on the card against the CPU
+    (:func:`_adafactor_agreement`), then the bf16 rungs at T=2048 and
+    T=8192 (:func:`_ladder_rung`), tokens/s/chip and MFU of each, then
+    the int8 rungs (bench.py:205-212: the same config with
+    ``int8_mxu``, the same ladders): their tokens/s/chip, ``int8_mfu``
+    and ``int8_long_mfu`` over the bf16 peak, as bench.py publishes
+    them, and ``int8_train_speedup`` / ``int8_long_speedup`` over the
+    bf16 rung, or -1 when the two settled on different batches
+    (bench.py:227-247). Returns each rung's batch and launches by
+    (T, "bf16" or "int8")."""
+    import dataclasses
+
     import torch
 
     from edl_tpu_torch.models import llama
@@ -1222,23 +1351,461 @@ def train_ladder_phase(card):
     cfg = _flagship_train_config()
     rng = np.random.RandomState(0)
     rows = {}
-    for i, (t, ladder, lreps) in enumerate(LADDER_RUNGS):
-        r = _ladder_rung(cfg, t, ladder, lreps, rng)
-        fpt = llama.train_flops_per_token(cfg, t)
-        rows[t] = r
+    for kind, rcfg in (("bf16", cfg),
+                       ("int8", dataclasses.replace(cfg, int8_mxu=True))):
+        for i, (t, ladder, lreps) in enumerate(LADDER_RUNGS):
+            r = _ladder_rung(rcfg, t, ladder, lreps, rng)
+            fpt = llama.train_flops_per_token(cfg, t)
+            rows[t, kind] = r
+            rate = r["tokens_per_s_per_chip"]
+            mfu = ("long_mfu" if i else "mfu")
+            extra = {mfu: rate * fpt / PEAK_BF16_FLOPS}
+            if kind == "int8":
+                base = rows[t, "bf16"]
+                speedup = ("int8_long_speedup" if i
+                           else "int8_train_speedup")
+                extra = {
+                    "int8_tokens_per_sec_per_chip": rate,
+                    f"int8_{mfu}": rate * fpt / PEAK_BF16_FLOPS,
+                    speedup: (rate / base["tokens_per_s_per_chip"]
+                              if r["batch"] == base["batch"] else -1.0),
+                    "bf16_batch": base["batch"]}
+            print(json.dumps({
+                "phase": "train_ladder", "kind": kind,
+                "model": "flagship_train (bench.py:69)",
+                "int8_mxu": rcfg.int8_mxu,
+                "optimizer": "adafactor(1e-3)", "remat": "full",
+                "ladder": ladder, "steps_per_call": LADDER_STEPS,
+                "calls_per_loop": lreps, "loops": LADDER_LOOPS, **r,
+                "train_flops_per_token": fpt, **extra,
+                "small_steps_vs_cpu_worst_of_leaf_max": worst,
+                "small_steps_statistics": n_stats,
+                "small_steps_of_max": AF_CPU_OF_MAX, "card": card,
+            }), flush=True)
+            torch.cuda.empty_cache()
+    return {key: (r["batch"], r["launches"]) for key, r in rows.items()}
+
+
+def _int8_product_row(k, n, m, device, card):
+    """One int8 product shape [m, k] x [k, n]: ``int8_matmul``'s
+    forward, dgrad and wgrad on ``device`` held against the same op
+    sequence on the CPU (I8_ROWS rows of the forward and dgrad, an
+    I8_COLS block of wgrad), then timed beside bf16 ``torch.mm``.
+    Raises on a disagreement; prints and returns the row."""
+    import torch
+
+    from edl_tpu_torch.ops import int8_matmul as im
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(k + n)
+    a = torch.randn(m, k, generator=gen, device=device).to(bf16)
+    w = torch.randn(k, n, generator=gen, device=device) * k ** -0.5
+    g = torch.randn(m, n, generator=gen, device=device).to(bf16)
+    a.requires_grad_()
+    w.requires_grad_()
+    y = im.int8_matmul(a, w)
+    da, dw = torch.autograd.grad(y, (a, w), g)
+    a, w = a.detach(), w.detach()
+    where = f"M{m} K{k} N{n}"
+
+    def cpu(x):
+        return x.detach().cpu()
+
+    def equal(name, got, want):
+        if not torch.equal(cpu(got), want):
+            raise AssertionError(f"int8 {name} at {where}: the card's != "
+                                 f"the CPU's")
+
+    def close(name, got, want, rel):
+        diff = (cpu(got).float() - want.float()).abs()
+        if not bool((diff <= rel * want.float().abs()).all()):
+            raise AssertionError(f"int8 {name} at {where}: max abs err "
+                                 f"{float(diff.max())} past {rel} relative")
+        return float(diff.max())
+
+    r, c, q = I8_ROWS, I8_COLS, im.absmax_quant
+    errs = {}
+    with torch.no_grad():
+        # forward: rows of a (per-row scales) by every column of w
+        qa, sa = q(a, 1)
+        qw, sw = q(w, 0)
+        qa_c, sa_c = q(cpu(a[:r]), 1)
+        qw_c, sw_c = q(cpu(w), 0)
+        for name, got, want in (("qa", qa[:r], qa_c), ("sa", sa[:r], sa_c),
+                                ("qw", qw, qw_c), ("sw", sw, sw_c)):
+            equal(name, got, want)
+        acc_c = im._dot8(qa_c, qw_c)
+        equal("forward int32", im._dot8(qa, im._k_inner(qw))[:r], acc_c)
+        errs["forward"] = close("forward", y[:r], im._scaled(
+            acc_c, sa_c, sw_c).to(bf16), I8_BF16_REL)
+        del qa, sa
+        # dgrad: rows of g (per-row scales) by every row of w
+        qg, sg = q(g, 1)
+        qwn, swn = q(w, 1)
+        qg_c, sg_c = q(cpu(g[:r]), 1)
+        qwn_c, swn_c = q(cpu(w), 1)
+        for name, got, want in (("qg", qg[:r], qg_c), ("sg", sg[:r], sg_c),
+                                ("qwn", qwn, qwn_c), ("swn", swn, swn_c)):
+            equal(name, got, want)
+        acc_c = im._dot8(qg_c, qwn_c.t())
+        equal("dgrad int32", im._dot8(qg, qwn.t())[:r], acc_c)
+        errs["dgrad"] = close("dgrad", da[:r], im._scaled(
+            acc_c, sg_c, swn_c.t()).to(bf16), I8_BF16_REL)
+        del qg, sg
+        # wgrad: columns of a by columns of g, each over the whole M
+        qam, sam = q(a, 0)
+        qgm, sgm = q(g, 0)
+        qam_c, sam_c = q(cpu(a[:, :c]), 0)
+        qgm_c, sgm_c = q(cpu(g[:, :c]), 0)
+        for name, got, want in (("qam", qam[:, :c], qam_c),
+                                ("sam", sam[:, :c], sam_c),
+                                ("qgm", qgm[:, :c], qgm_c),
+                                ("sgm", sgm[:, :c], sgm_c)):
+            equal(name, got, want)
+        acc_c = im._dot8(qam_c.t(), qgm_c)
+        equal("wgrad int32", im._dot8(qam.t().contiguous(),
+                                      im._k_inner(qgm))[:c, :c], acc_c)
+        errs["wgrad"] = close("wgrad", dw[:c, :c], im._scaled(
+            acc_c, sam_c.t(), sgm_c), I8_F32_REL)
+        del qam, qgm, y, da, dw
+        row = {"phase": "int8_products", "M": m, "K": k, "N": n,
+               "max_abs_err": errs, "card": card}
+        if device == "cuda":
+            row.update(_int8_product_times(a, w, g, qw))
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def _int8_product_times(a, w, g, qw):
+    """Device ms of the int8 product (``_int_mm``, the forward's
+    layout), the activation quantizer, bf16 ``torch.mm`` at the same
+    shape (a yardstick), and the op's forward and forward + backward
+    beside bf16's three products; the int8 bound."""
+    import torch
+
+    from edl_tpu_torch.ops import int8_matmul as im
+    from edl_tpu_torch.ops.bench_flash import device_ms
+
+    (m, k), n = a.shape, w.shape[1]
+    qa, _ = im.absmax_quant(a, 1)
+    qwk = im._k_inner(qw)
+    wb = w.to(torch.bfloat16)
+    ops = 2.0 * m * k * n
+    op_ms = ops / PEAK_INT8_OPS * 1e3
+    byte_ms = (m * k + k * n + 4.0 * m * n) / PEAK_HBM_BYTES * 1e3
+    ai, wi = a.detach().requires_grad_(), w.detach().requires_grad_()
+    ab, wbg = a.detach().requires_grad_(), wb.detach().requires_grad_()
+
+    def i8_step():
+        torch.autograd.grad(im.int8_matmul(ai, wi), (ai, wi), g)
+
+    def bf16_step():
+        torch.autograd.grad(ab @ wbg, (ab, wbg), g)
+
+    with torch.enable_grad():
+        step_ms = {"int8_fwd_bwd_ms": device_ms(i8_step, 3),
+                   "bf16_fwd_bwd_ms": device_ms(bf16_step, 3)}
+    return {
+        "int_mm_ms": device_ms(lambda: im._dot8(qa, qwk), 10),
+        "quantizer_ms": device_ms(lambda: im.absmax_quant(a, 1), 10),
+        "bf16_mm_ms": device_ms(lambda: a @ wb, 10),
+        "int8_fwd_ms": device_ms(lambda: im.int8_matmul(a, w), 10),
+        **step_ms,
+        "int8_bound_ms": max(op_ms, byte_ms),
+        "int8_bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "int8_peak_tops": PEAK_INT8_OPS / 1e12,
+    }
+
+
+def int8_products_phase(card):
+    """The flagship's int8 products at the int8 ladder rung's M, each
+    shape held against the CPU (:func:`_int8_product_row`) and timed.
+    The int8 peak is the H100 SXM's spec figure: the row says whether
+    the card's name is that card's."""
+    import torch
+
+    for k, n in I8_SHAPES:
+        _int8_product_row(k, n, I8_M, "cuda", card)
+    name = torch.cuda.get_device_name(0)
+    print(json.dumps({
+        "phase": "int8_products_summary", "card": card,
+        "int8_peak_tops": PEAK_INT8_OPS / 1e12,
+        "peak_is_this_cards": "H100" in name and "HBM3" in name,
+    }), flush=True)
+
+
+def _int8_tree_check(qparams, params):
+    """The weight-only int8 tree: each of the seven projection weights
+    and ``lm_head`` a record of int8 ``q8`` in its weight's shape and
+    f32 ``s8`` of its output columns; the embedding and norms dense
+    and unchanged; the tree's bytes at most INT8_TREE_MOST of the
+    dense tree's. Raises; returns (int8 bytes, dense bytes)."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.utils.tree import leaves
+
+    recs = {f"layers/{k}": (qparams["layers"][k], params["layers"][k])
+            for k in llama._INT8_WEIGHTS}
+    recs["lm_head"] = (qparams["lm_head"], params["lm_head"])
+    for name, (rec, w) in recs.items():
+        if not (isinstance(rec, dict) and set(rec) == {"q8", "s8"}):
+            raise AssertionError(f"int8 tree: {name} is not a q8/s8 record")
+        if (rec["q8"].dtype != torch.int8 or rec["q8"].shape != w.shape
+                or rec["s8"].dtype != torch.float32
+                or rec["s8"].shape != w.shape[:-2] + w.shape[-1:]):
+            raise AssertionError(
+                f"int8 tree: {name} q8 {rec['q8'].dtype} "
+                f"{tuple(rec['q8'].shape)}, s8 {rec['s8'].dtype} "
+                f"{tuple(rec['s8'].shape)} for a {tuple(w.shape)} weight")
+    for name in ("embed", "ln_f", "layers/ln1", "layers/ln2"):
+        parts = name.split("/")
+        got, want = qparams, params
+        for p in parts:
+            got, want = got[p], want[p]
+        if got is not want:
+            raise AssertionError(f"int8 tree: {name} is not the dense leaf")
+    q_bytes = sum(x.nbytes for x in leaves(qparams))
+    d_bytes = sum(x.nbytes for x in leaves(params))
+    if q_bytes > INT8_TREE_MOST * d_bytes:
+        raise AssertionError(f"int8 tree: {q_bytes} bytes, "
+                             f"{q_bytes / d_bytes:.4f} of the dense tree's "
+                             f"> {INT8_TREE_MOST}")
+    return q_bytes, d_bytes
+
+
+def _generate_timed(params, prompt, cfg, n):
+    """One ``generate`` of ``n`` new tokens, fenced by reading a token:
+    (seconds, tokens)."""
+    from edl_tpu_torch.models import llama
+
+    t1 = time.perf_counter()
+    toks = llama.generate(params, prompt, cfg, max_new=n)
+    int(toks[0, -1])
+    return time.perf_counter() - t1, toks
+
+
+def _measure_decode(params, cfg, b, t0, max_new, device):
+    """bench.py ``measure_decode`` (bench.py:489-536) on the port: the
+    decode rate by differencing two generation lengths (max_new/2 and
+    3 max_new/2), one run each after one warm-up generate of the short
+    length (bench.py's reps cut: see DECODE_LADDER). Returns
+    (prefill s or -1, s a token or None, prompt, the long run's
+    tokens). Holds that ``generate`` ran no ``int8_matmul``: ``cfg``
+    may carry int8_mxu, which generate must drop."""
+    import torch
+
+    from edl_tpu_torch.ops import int8_matmul as im
+
+    prompt = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab, (b, t0))).to(device)
+    short, long_ = max_new // 2, max_new + max_new // 2
+    im.reset_calls()
+    _generate_timed(params, prompt, cfg, short)  # warm-up
+    t_short, _ = _generate_timed(params, prompt, cfg, short)
+    t_long, toks = _generate_timed(params, prompt, cfg, long_)
+    if any(im.calls.values()):
+        raise AssertionError(f"generate ran int8_matmul {im.calls}: "
+                             f"int8_mxu was left on")
+    if t_long <= t_short * 1.02:
+        return -1.0, None, prompt, toks
+    per_tok = (t_long - t_short) / (long_ - short)
+    prefill_s = t_short - short * per_tok
+    return (prefill_s if prefill_s >= 0 else -1.0), per_tok, prompt, toks
+
+
+def decode_ladder_phase(card):
+    """bench.py ``_llama_decode_bench`` on the port: the flagship's
+    decode config (``flagship_decode_config``: the train config with
+    remat off) with bf16 params from a seeded generator, greedy
+    ``generate`` over DECODE_LADDER, ``decode_pct_peak_bw`` =
+    ``decode_step_bytes`` over the step time over 3.35 TB/s; then the
+    weight-only int8 rungs (b=1 and the headline b=8) on
+    ``quantize_params_int8``'s tree, their roofline against that
+    tree's own bytes, and their speedups. ``generate`` is handed the
+    int8 training rung's config (int8_mxu on, as a job trained on the
+    int8 path hands it to serving): it must drop the flag. Gates: the
+    int8 tree (:func:`_int8_tree_check`), no ``int8_matmul`` call in
+    any generate, and at b=8 every greedy int8 token within
+    TEACHER_EPS row std of the quantized model's dense forward, and at
+    every rung one primal flash launch a layer a generate (its prefill)
+    and no other flash launch. Returns the flash launches by (tree,
+    batch)."""
+    import dataclasses
+
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.obs import costmodel
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.utils.tree import leaves
+
+    cfg = dataclasses.replace(_flagship_train_config(), remat=False)
+    gen_cfg = dataclasses.replace(cfg, int8_mxu=True)
+    params = llama.init_params(cfg, seed=2, device="cuda",
+                               dtype=torch.bfloat16)
+    param_bytes = sum(x.nbytes for x in leaves(params))
+    out, rungs, launches = {}, {}, {}
+
+    def rung(tree, tree_bytes, b, t0, max_new, weights):
+        fa.reset_launches()
+        prefill_s, per_tok, prompt, toks = _measure_decode(
+            tree, gen_cfg, b, t0, max_new, "cuda")
+        counts = fa.launch_counts()
+        want = {**dict.fromkeys(fa.KERNELS, 0),
+                "flash_fwd": 3 * cfg.n_layers}  # three generates
+        if counts != want:
+            raise AssertionError(f"decode_ladder {weights} b={b}: flash "
+                                 f"launches {counts}, want {want}")
+        launches[weights, b] = counts["flash_fwd"]
+        s_pad = t0 + max_new + max_new // 2  # the long run's cache
+        step_bytes = costmodel.decode_step_bytes(cfg, tree_bytes, b, s_pad)
+        ok = per_tok is not None
+        return {"b": b, "t0": t0, "new": [max_new // 2,
+                                         max_new + max_new // 2],
+                "prefill_s": prefill_s,
+                "per_token_ms": per_tok * 1e3 if ok else -1.0,
+                "decode_tokens_per_sec": b / per_tok if ok else -1.0,
+                "step_bytes": step_bytes,
+                "bound_ms": step_bytes / PEAK_HBM_BYTES * 1e3,
+                "decode_pct_peak_bw": (step_bytes / per_tok / PEAK_HBM_BYTES
+                                       if ok else -1.0)}, prompt, toks
+
+    for b, t0, max_new in DECODE_LADDER:
+        r, _, _ = rung(params, param_bytes, b, t0, max_new, "bfloat16")
+        rungs[b] = r
+        print(json.dumps({"phase": "decode_ladder", "weights": "bfloat16",
+                          **r, "card": card}), flush=True)
+    head = rungs[DECODE_HEADLINE]
+    out.update({"prefill_s": head["prefill_s"],
+                "decode_tokens_per_sec": head["decode_tokens_per_sec"],
+                "decode_pct_peak_bw": head["decode_pct_peak_bw"]})
+
+    qparams = llama.quantize_params_int8(params)
+    q_bytes, _ = _int8_tree_check(qparams, params)
+    del params
+    worst = 0.0
+    for b, t0, max_new in DECODE_LADDER:
+        if b not in (1, DECODE_HEADLINE):
+            continue
+        r, prompt, toks = rung(qparams, q_bytes, b, t0, max_new, "int8")
+        suffix = "" if b == DECODE_HEADLINE else "_b1"
+        base = rungs[b]["decode_tokens_per_sec"]
+        rate = r["decode_tokens_per_sec"]
+        out.update({
+            f"decode_int8{suffix}_tokens_per_sec": rate,
+            f"decode_int8{suffix}_pct_peak_bw": r["decode_pct_peak_bw"],
+            f"decode_int8{suffix}_speedup": (rate / base if rate > 0
+                                             and base > 0 else -1.0)})
+        if b == DECODE_HEADLINE:
+            for i in range(b):
+                worst = max(worst, _teacher_margin(
+                    qparams, cfg, prompt[i].tolist(), toks[i].tolist(),
+                    "cuda"))
+        print(json.dumps({"phase": "decode_ladder", "weights": "int8",
+                          **r, "card": card}), flush=True)
+    if worst > TEACHER_EPS:
+        raise AssertionError(f"decode_ladder int8 b={DECODE_HEADLINE}: "
+                             f"teacher-forced margin {worst:.4f} row std > "
+                             f"{TEACHER_EPS}")
+    print(json.dumps({
+        "phase": "decode_ladder_summary",
+        "model": "flagship_decode (bench.py:87)", "layers": cfg.n_layers,
+        "headline_batch": DECODE_HEADLINE, **out,
+        "param_bytes": param_bytes, "int8_param_bytes": q_bytes,
+        "int8_tree_ratio": q_bytes / param_bytes,
+        "int8_tree_most": INT8_TREE_MOST,
+        "int8_teacher_forced_worst_margin_std": worst,
+        "teacher_forced_eps_std": TEACHER_EPS,
+        "flash_launches": {f"{w} b{b}": n for (w, b), n in launches.items()},
+        "card": card}), flush=True)
+    return launches
+
+
+def int8_serving_phase(card, params, cfg, float_tps):
+    """The slice's model and weights quantized on the card
+    (``quantize_params_int8``), served through the contiguous and the
+    paged (block SM_BLOCK) engine with the slice's requests (8 slots x
+    2048, horizon 8). Gates: the int8 tree, every request done, zero
+    recoveries, flash launches == prefills x layers on the contiguous
+    engine (none on the paged one, as in the reference), no
+    ``int8_matmul`` call, and every token within TEACHER_EPS row std of
+    the quantized model's dense forward. Prints tokens/s beside the
+    slice's float run (``float_tps``). Returns the flash launches by
+    layout."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.ops import int8_matmul as im
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.serving.metrics import ServingMetrics
+
+    t0 = time.perf_counter()
+    qparams = llama.quantize_params_int8(params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    q_bytes, d_bytes = _int8_tree_check(qparams, params)
+    prompts, max_new = _slice_requests(cfg.vocab)
+    launches = {}
+    for layout, kw in (("contiguous", {}), ("paged", {"block_size":
+                                                      SM_BLOCK})):
+        metrics = ServingMetrics(registry=MetricsRegistry())
+        eng = ContinuousBatchingEngine(
+            qparams, cfg, max_slots=8, max_len=2048, horizon=8,
+            metrics=metrics, device="cuda", **kw)
+        eng.submit("warmup", prompts[0], 2)
+        eng.run()
+        prefills0 = metrics.dispatches["prefill"]
+        fa.reset_launches()
+        im.reset_calls()
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        for i in range(4):
+            eng.submit(f"r{i}", prompts[i], max_new)
+        eng.step()
+        for i in range(4, 8):
+            eng.submit(f"r{i}", prompts[i], max_new)
+        res = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        counts = fa.launch_counts()
+        prefills = metrics.dispatches["prefill"] - prefills0
+        want = prefills * cfg.n_layers if layout == "contiguous" else 0
+        if counts != {**dict.fromkeys(fa.KERNELS, 0), "flash_fwd": want}:
+            raise AssertionError(f"int8 {layout}: launches {counts}, want "
+                                 f"{want} flash_fwd ({prefills} prefills)")
+        if eng.recoveries or any(im.calls.values()):
+            raise AssertionError(f"int8 {layout}: {eng.recoveries} "
+                                 f"recoveries, int8_matmul {im.calls}")
+        for i in range(8):
+            r = res[f"r{i}"]
+            if r.outcome != "done" or len(r.tokens) != max_new:
+                raise AssertionError(f"int8 {layout} r{i}: outcome "
+                                     f"{r.outcome}, {len(r.tokens)} tokens")
+        worst = max(_teacher_margin(qparams, cfg, prompts[i],
+                                    res[f"r{i}"].tokens, "cuda")
+                    for i in range(8))
+        if worst > TEACHER_EPS:
+            raise AssertionError(f"int8 {layout}: teacher-forced margin "
+                                 f"{worst:.4f} row std > {TEACHER_EPS}")
+        launches[layout] = counts["flash_fwd"]
         print(json.dumps({
-            "phase": "train_ladder", "model": "flagship_train (bench.py:69)",
-            "optimizer": "adafactor(1e-3)", "remat": "full", "ladder": ladder,
-            "steps_per_call": LADDER_STEPS, "calls_per_loop": lreps,
-            "loops": LADDER_LOOPS, **r, "train_flops_per_token": fpt,
-            ("long_mfu" if i else "mfu"):
-                r["tokens_per_s_per_chip"] * fpt / PEAK_BF16_FLOPS,
-            "small_steps_vs_cpu_worst_of_leaf_max": worst,
-            "small_steps_statistics": n_stats,
-            "small_steps_of_max": AF_CPU_OF_MAX, "card": card,
-        }), flush=True)
-        torch.cuda.empty_cache()
-    return {t: (r["batch"], r["launches"]) for t, r in rows.items()}
+            "phase": "int8_serving", "layout": layout, "model": "llama3_8b",
+            "layers": cfg.n_layers, "block_size": kw.get("block_size", 0),
+            "requests": 8, "max_new": max_new, "prefills": prefills,
+            "flash_launches": counts["flash_fwd"], "wall_s": wall,
+            "tokens_per_s": 8 * max_new / wall,
+            "float_tokens_per_s": float_tps,
+            "block_mean_s": _block_mean(metrics),
+            "teacher_forced_worst_margin_std": worst,
+            "teacher_forced_eps_std": TEACHER_EPS,
+            "quantize_s": quantize_s, "int8_param_bytes": q_bytes,
+            "param_bytes": d_bytes, "int8_tree_ratio": q_bytes / d_bytes,
+            "card": card}), flush=True)
+        del eng
+    return launches
 
 
 def _kernel_family(name):
@@ -1779,34 +2346,42 @@ def main() -> int:
                   for k, v in _build.ptxas_info(n).items()},
     }), flush=True)
 
-    rows = kernel_phase(card)
-    train_rows = train_kernel_phase(card)
-    torch.cuda.empty_cache()
-    launches, params, cfg = slice_phase(card)
-    torch.cuda.empty_cache()
-    serving_modes_phase(card, params, cfg)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    rows = timed("kernel", kernel_phase, card)
+    train_rows = timed("train_kernels", train_kernel_phase, card)
+    timed("int8_products", int8_products_phase, card)
+    launches, params, cfg, float_tps = timed("slice", slice_phase, card)
+    timed("serving_modes", serving_modes_phase, card, params, cfg)
     if profile:
         _profile_serving(card, params, cfg)
+    int8_serve = timed("int8_serving", int8_serving_phase, card, params,
+                       cfg, float_tps)
     del params
     torch.cuda.empty_cache()
-    train_counts = train_phase(card, profile)
-    torch.cuda.empty_cache()
-    remat_lse = remat_policies_phase(card)
-    torch.cuda.empty_cache()
-    ladder_runs = train_ladder_phase(card)
-    torch.cuda.empty_cache()
+    train_counts = timed("train", train_phase, card, profile)
+    remat_lse = timed("remat_policies", remat_policies_phase, card)
+    ladder_runs = timed("train_ladder", train_ladder_phase, card)
     # each rung's attention, at the batch that fit, held to its plain
     # versions (TRAIN_SHAPES holds each ladder's first batch)
-    ladder_shapes = {t: (b, t) + TRAIN_MAIN[2:]
-                     for t, (b, _) in ladder_runs.items()}
+    ladder_shapes = {key: (b, key[0]) + TRAIN_MAIN[2:]
+                     for key, (b, _) in ladder_runs.items()}
     for shape in ladder_shapes.values():
         if shape not in train_rows:
             train_rows[shape] = train_kernel_row(shape, card)
     torch.cuda.empty_cache()
-    ctr_phase(card, profile)
+    decode_launches = timed("decode_ladder", decode_ladder_phase, card)
+    timed("ctr", ctr_phase, card, profile)
+    print(json.dumps({"phase": "seconds", **seconds,
+                      "total": time.perf_counter() - t0}), flush=True)
 
-    # the serving path's largest prefill: the 1000-token prompt's bucket
-    main = rows[(1024, True, 128)]
     src = "edl_tpu_torch/ops/csrc/"
     ref = "edl_tpu/ops/flash_attention.py:"
 
@@ -1830,13 +2405,14 @@ def main() -> int:
     # shape (launches: that rung's run); launches of every training path
     # beside them
     by_path = {"train (adamw, full remat, 5 steps)": train_counts,
-               **{f"train_ladder T{t}": c
-                  for t, (_, c) in ladder_runs.items()}}
+               **{f"train_ladder {kind} T{t}": c
+                  for (t, kind), (_, c) in ladder_runs.items()}}
     remat = {f"remat_policies {p} (1 step)": n for p, n in remat_lse.items()}
     trainers = []
     for shape, launched in ((TRAIN_MAIN, train_counts),
-                            *((ladder_shapes[t], c)
-                              for t, (_, c) in ladder_runs.items())):
+                            *((ladder_shapes[key], c)
+                              for key, (_, c) in ladder_runs.items()
+                              if key[1] == "bf16")):
         tr = train_rows[shape]
         for name, source, replaces, errs, ms, plain, library in (
                 # with_lse=True: the fwd rule _flash_fwd (:363) of the
@@ -1861,14 +2437,30 @@ def main() -> int:
                 e["launches_by_path"].update(remat)
             trainers.append(e)
 
-    summary = {"kernels": [
-        entry("flash_fwd", "flash_fwd.cu", "100", launches,
-              max(r["max_abs_err"] for r in rows.values()),
-              main["kernel_ms"], main["ref_ms"],
-              _bound(1, 1024, 32, 8, 128, True), main["library_ms"],
-              "B1 T1024 H32 KV8 d128 causal bf16"),
-        *trainers,
-    ]}
+    # the primal forward: at the slice's largest prefill (the
+    # 1000-token prompt's bucket; launches: the slice's requests) and at
+    # each decode rung's prefill shape (launches: that rung's bf16 and
+    # int8 generates); launches of every serving path beside them
+    primal_paths = {
+        "slice (bf16)": launches,
+        **{f"int8_serving {k}": n for k, n in int8_serve.items()},
+        **{f"decode_ladder {w} b{b}": n
+           for (w, b), n in decode_launches.items()}}
+    primals = []
+    for shape in (SLICE_MAIN, *DECODE_SHAPES):
+        r = rows[shape]
+        launched = (launches if shape == SLICE_MAIN else
+                    sum(n for (_, b), n in decode_launches.items()
+                        if b == shape[0]))
+        err = (max(rows[k]["max_abs_err"] for k in KERNEL_SHAPES)
+               if shape == SLICE_MAIN else r["max_abs_err"])
+        e = entry("flash_fwd", "flash_fwd.cu", "100", launched, err,
+                  r["kernel_ms"], r["ref_ms"],
+                  (r["bound_ms"], r["bound_by"], r["flops"]),
+                  r["library_ms"], shape_name(*shape))
+        e["launches_by_path"] = primal_paths
+        primals.append(e)
+    summary = {"kernels": [*primals, *trainers]}
     print(json.dumps(summary), flush=True)
     print(_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """``python -m edl_tpu_torch serve`` — the port of ``edl serve``
 (``edl_tpu/cli/main.py``): the contiguous and paged KV caches, the
-prefix cache, chunked prefill, quantized KV and speculative decoding.
+prefix cache, chunked prefill, quantized KV, speculative decoding and
+weight-only int8 params (``--int8``).
 
 Reads the same JSONL request feed and the same export directory as the
 reference verb and prints the same per-request JSON records on stdout
@@ -19,7 +20,6 @@ from typing import List, Optional
 
 # flags of the reference verb whose serving paths are not ported yet
 _NOT_PORTED_FLAGS = {
-    "int8": ("--int8", False),
     "mesh": ("--mesh", ""),
 }
 
@@ -74,9 +74,11 @@ def _read_serve_requests(
     return out
 
 
-def _load_llama_serving(export_dir: str, device: str):
+def _load_llama_serving(export_dir: str, device: str, int8: bool = False):
     """(params, cfg) of a published llama export held in ``cfg.dtype``
-    on ``device``, or (None, errmsg)."""
+    on ``device``, or (None, errmsg). ``int8`` quantizes the weights as
+    stored (the reference quantizes the loaded export) into the
+    weight-only records on the device, then casts the dense leaves."""
     from edl_tpu_torch.models import llama
     from edl_tpu_torch.runtime.export import export_status, load_export
 
@@ -94,12 +96,24 @@ def _load_llama_serving(export_dir: str, device: str):
         cfg = llama.LlamaConfig.from_meta(model)
     except ValueError as e:
         return None, str(e)
-    params, _ = load_export(export_dir, device=device, dtype=cfg.dtype)
+    if not int8:
+        params, _ = load_export(export_dir, device=device, dtype=cfg.dtype)
+        return params, cfg
+    params, _ = load_export(export_dir, device=device)
+    params = llama.quantize_params_int8(params)
+    params["embed"] = params["embed"].to(cfg.dtype)
+    params["ln_f"] = params["ln_f"].to(cfg.dtype)
+    for k in ("ln1", "ln2"):
+        params["layers"][k] = params["layers"][k].to(cfg.dtype)
     return params, cfg
 
 
 def run_serve(args) -> int:
     """Continuous-batching serving from a published export."""
+    if args.int8 and args.mesh:
+        # the reference's check (its int8 records carry no pspecs)
+        print("--int8 and --mesh are mutually exclusive", file=sys.stderr)
+        return 1
     for attr, (flag, off) in _NOT_PORTED_FLAGS.items():
         if getattr(args, attr) != off:
             print(f"{flag} is not ported yet (ROADMAP Queue A)",
@@ -166,7 +180,8 @@ def run_serve(args) -> int:
     except RuntimeError as e:
         print(str(e), file=sys.stderr)
         return 1
-    params, cfg_or_err = _load_llama_serving(args.export_dir, device)
+    params, cfg_or_err = _load_llama_serving(args.export_dir, device,
+                                             args.int8)
     if params is None:
         print(cfg_or_err, file=sys.stderr)
         return 1
@@ -312,9 +327,14 @@ def build_parser() -> argparse.ArgumentParser:
         help="per-request acceptance floor below which a request stops "
         "drafting after warm-up (0 = always draft)",
     )
-    # the reference verb's flags for serving paths not ported yet:
+    sv.add_argument(
+        "--int8", action="store_true",
+        help="weight-only int8: quantize the projection weights and "
+        "lm_head per output column on load (halves the weight bytes a "
+        "decode step streams)",
+    )
+    # the reference verb's flag for a serving path not ported yet:
     # accepted so a reference command line fails with a clear message
-    sv.add_argument("--int8", action="store_true")
     sv.add_argument("--mesh", default="")
     sv.set_defaults(fn=run_serve)
     return p

@@ -7,7 +7,11 @@ per-layer remat, ``make_loss_fn``, ``synthetic_tokens``,
 
 Params are a dict-of-tensors tree with the reference's keys and its
 scan-stacked layout (every per-layer weight carries a leading
-[n_layers] axis). Serving holds the weights in ``cfg.dtype``: the
+[n_layers] axis). A serving tree may hold weight-only int8 records
+``{"q8", "s8"}`` in place of the projection weights and ``lm_head``
+(:func:`quantize_params_int8`); every path takes them. Training can run
+the projection products on the int8 path (``LlamaConfig.int8_mxu``,
+``ops/int8_matmul.py``). Serving holds the weights in ``cfg.dtype``: the
 reference casts every f32 master to ``cfg.dtype`` at its use
 (``_matw``, ``_rmsnorm``, the embedding), so holding them cast is
 numerically the same and halves the memory (16.1 GB for Llama-3-8B in
@@ -37,9 +41,9 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import functools
 import math
-from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +56,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from edl_tpu_torch.models.losses import row_mean
 from edl_tpu_torch.obs import costmodel
 from edl_tpu_torch.ops.flash_attention import attention_auto, flash_supported
+from edl_tpu_torch.ops.int8_matmul import absmax_quant, int8_matmul
 from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
                                         resolve_device)
 
@@ -59,7 +64,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 
-@dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     vocab: int = 128256
     d_model: int = 4096
@@ -84,6 +89,15 @@ class LlamaConfig:
     #   "dots" — every weight product (aten.mm), as the reference's
     #            dots_with_no_batch_dims_saveable
     remat_policy: str = "full"
+    # run the seven per-layer projection products on the int8 path
+    # (ops/int8_matmul.py: dynamic absmax quantization of both operands,
+    # STE gradients, forward + dgrad + wgrad int8). Masters, optimizer,
+    # attention and lm_head stay as they are. Training-only: never rides
+    # to_meta, and generate turns it off.
+    int8_mxu: bool = False
+    # with int8_mxu: wgrad (a^T @ g) on bf16-rounded operands with an
+    # f32 product, while the forward and dgrad stay int8
+    int8_wgrad_bf16: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -188,7 +202,11 @@ def init_params(
 
 
 def _layer_params(params: Dict, i: int) -> Dict:
-    return {k: v[i] for k, v in params["layers"].items()}
+    """Layer ``i`` of the stacked leaves; an int8 record ``{"q8" [L,
+    din, dout], "s8" [L, dout]}`` gives the layer's record."""
+    return {k: ({n: x[i] for n, x in v.items()} if isinstance(v, dict)
+                else v[i])
+            for k, v in params["layers"].items()}
 
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig):
@@ -250,23 +268,59 @@ def attention(
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
-def _matw(a: torch.Tensor, w) -> torch.Tensor:
-    """``a @ W`` for a dense weight. The reference's weight-only int8
-    record ``{"q8", "s8"}`` is not ported yet."""
+_INT8_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+
+
+def _matw(a: torch.Tensor, w, int8_mxu: bool = False,
+          wgrad_bf16: bool = False) -> torch.Tensor:
+    """``a @ W`` where ``W`` is a dense weight or a weight-only int8
+    record ``{"q8", "s8"}`` from :func:`quantize_params_int8`.
+
+    The record computes ``(a @ q8) * s8``, equal to ``a @ (q8 * s8)``
+    because ``s8`` is constant along the contraction; the column-scale
+    multiply stays f32 (a bf16 ``s8`` would truncate each scale to an
+    8-bit mantissa). Eager PyTorch materializes ``q8`` in ``a.dtype``
+    for the product, where XLA fuses the convert into the operand read.
+
+    ``int8_mxu`` (training) runs the dense product on the int8 path
+    instead (:func:`int8_matmul`): both operands quantized in flight,
+    the weight read as its f32 master with no bf16 pre-cast."""
+    dt = a.dtype
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 weight records are not ported yet (ROADMAP Queue A "
-            "item 8: ops/int8_matmul and serve --int8)"
-        )
-    return a @ w.to(a.dtype)
+        # bf16 x f32 promotes: the product is read as f32 and scaled
+        return ((a @ w["q8"].to(dt)) * w["s8"]).to(dt)
+    if int8_mxu:
+        return int8_matmul(a, w, wgrad_bf16)
+    return a @ w.to(dt)
+
+
+def quantize_params_int8(params: Dict) -> Dict:
+    """Weight-only int8 for serving: the seven per-layer projection
+    weights and ``lm_head`` become ``{"q8": int8 [..., din, dout], "s8":
+    f32 [..., dout]}`` with symmetric per-output-column absmax scales
+    (the error per element is at most colmax/254). The embedding and
+    the norm scales stay dense. The records equal the reference's bit
+    for bit. The tree feeds ``forward``, ``generate`` and the engine
+    unchanged: :func:`_matw` dispatches on the record."""
+
+    def q(w):
+        q8, s = absmax_quant(w, -2)  # absmax over din: per output column
+        return {"q8": q8, "s8": s[..., 0, :]}
+
+    out = dict(params)
+    out["layers"] = {k: (q(v) if k in _INT8_WEIGHTS else v)
+                     for k, v in params["layers"].items()}
+    out["lm_head"] = q(params["lm_head"])
+    return out
 
 
 def _qkv(cfg: LlamaConfig, a: torch.Tensor, lp: Dict, rope):
     b, t, _ = a.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _matw(a, lp["wq"]).reshape(b, t, h, hd)
-    k = _matw(a, lp["wk"]).reshape(b, t, kv, hd)
-    v = _matw(a, lp["wv"]).reshape(b, t, kv, hd)
+    i8, wb = cfg.int8_mxu, cfg.int8_wgrad_bf16
+    q = _matw(a, lp["wq"], i8, wb).reshape(b, t, h, hd)
+    k = _matw(a, lp["wk"], i8, wb).reshape(b, t, kv, hd)
+    v = _matw(a, lp["wv"], i8, wb).reshape(b, t, kv, hd)
     q = _rope(q, rope)
     k = _rope(k, rope)
     return q, k, v
@@ -291,10 +345,11 @@ def _mlp(cfg: LlamaConfig, x: torch.Tensor, lp: Dict) -> torch.Tensor:
     """Post-attention SwiGLU block, residual included. The w1 and w3
     products run under the site name ``"mlp"``, which the ``"mlp"``
     remat policy saves."""
+    i8, wb = cfg.int8_mxu, cfg.int8_wgrad_bf16
     m = _rmsnorm(x, lp["ln2"], cfg.norm_eps)
     with _site("mlp"):
-        gate, up = _matw(m, lp["w1"]), _matw(m, lp["w3"])
-    return x + _matw(torch.nn.functional.silu(gate) * up, lp["w2"])
+        gate, up = _matw(m, lp["w1"], i8, wb), _matw(m, lp["w3"], i8, wb)
+    return x + _matw(torch.nn.functional.silu(gate) * up, lp["w2"], i8, wb)
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
@@ -303,12 +358,15 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
     a = _rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, a, lp, rope)
     o = attention(q, k, v, cfg).reshape(b, t, -1)
-    x = x + _matw(o, lp["wo"])
+    x = x + _matw(o, lp["wo"], cfg.int8_mxu, cfg.int8_wgrad_bf16)
     return _mlp(cfg, x, lp), k, v
 
 
 _MM = torch.ops.aten.mm.default
 _FLASH_FWD = torch.ops.edl_tpu_torch.flash_fwd.default
+# a weight product: the dense one, or the registered int8 op under
+# int8_mxu (whose int32 and f32 intermediates stay inside it)
+_PRODUCTS = (_MM, torch.ops.edl_tpu_torch.int8_matmul.default)
 
 
 def _policy(save: Callable[[object], bool]):
@@ -349,9 +407,13 @@ def _remat_policy(cfg: LlamaConfig) -> Callable:
     - ``"dots"``: no product (every ``aten.mm``, the weight products
       with no batch dims, is saved; the attention's batched products and
       the flash op are not), and the flash forward.
+
+    Under ``int8_mxu`` the weight products are ``edl_tpu_torch::
+    int8_matmul`` ops, which the policies treat as ``aten.mm``: "mlp"
+    and "dots" save their outputs, never their int32 intermediates.
     """
     if cfg.remat_policy == "mlp":
-        return _policy(lambda op: op == _MM and _SITE.get() == "mlp")
+        return _policy(lambda op: op in _PRODUCTS and _SITE.get() == "mlp")
     if cfg.remat_policy == "attn":
         if not cfg.use_flash:
             raise ValueError(
@@ -362,7 +424,7 @@ def _remat_policy(cfg: LlamaConfig) -> Callable:
             )
         return _policy(lambda op: op == _FLASH_FWD)
     if cfg.remat_policy == "dots":
-        return _policy(lambda op: op == _MM)
+        return _policy(lambda op: op in _PRODUCTS)
     if cfg.remat_policy == "full":
         return noop_context_fn
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
@@ -374,8 +436,17 @@ def _unbind_layers(params: Dict) -> List[Dict]:
     gradients once, where L separate ``[i]`` indexings would each add a
     full-size [L, ...] zero gradient."""
     keys = list(params["layers"])
-    cols = [params["layers"][k].unbind(0) for k in keys]
+    cols = [_unbind(params["layers"][k]) for k in keys]
     return [dict(zip(keys, vals)) for vals in zip(*cols)]
+
+
+def _unbind(leaf):
+    """One ``unbind`` per tensor; an int8 record unbinds into per-layer
+    records."""
+    if isinstance(leaf, dict):
+        parts = {n: x.unbind(0) for n, x in leaf.items()}
+        return [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+    return leaf.unbind(0)
 
 
 def _layer_out(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
@@ -1122,6 +1193,11 @@ def generate(
         raise ValueError(f"top_k must be in [0, vocab], got {top_k}")
     if not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if cfg.int8_mxu:
+        # the training-only flag would quantize some decode products
+        # (_qkv, _mlp) and not others; serving quantizes with
+        # quantize_params_int8 instead
+        cfg = dataclasses.replace(cfg, int8_mxu=False, int8_wgrad_bf16=False)
     b, t0 = tokens.shape
     dev = tokens.device
     logits, ks, vs = prefill_padded(params, tokens, t0 - 1, cfg)

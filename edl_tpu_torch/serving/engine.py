@@ -43,9 +43,12 @@ state is rebuilt and every live slot re-prefilled from
 per-request ``max_recoveries`` bound. Temperature sampling draws from
 the engine's own seeded ``torch.Generator``.
 
+Params are a dense tree or the weight-only int8 tree of
+``llama.quantize_params_int8`` (``serve --int8``); every path takes
+either, since the model's products dispatch on the record.
+
 Not ported yet: the reference's observability hooks (compile watch,
-cost model, memory ledger, flight recorder, tracing, fault points) and
-weight-only int8 params (``serve --int8``).
+cost model, memory ledger, flight recorder, tracing, fault points).
 """
 
 from __future__ import annotations
@@ -169,7 +172,8 @@ class _Block:
 
 class ContinuousBatchingEngine:
     """In-process continuous-batching server over a llama param tree
-    (dense, in ``cfg.dtype``, on ``device``). The KV cache is either
+    (dense in ``cfg.dtype``, or with int8 weight records, on
+    ``device``). The KV cache is either
     [L, max_slots, KV, max_len, hd] (contiguous) or, with
     ``block_size > 0``, a pool [L, pool_blocks, KV, block_size, hd]
     (both head-major, see ``models/llama.py``) addressed through per-slot block tables (int8 with hd packed, plus

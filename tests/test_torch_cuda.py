@@ -313,3 +313,82 @@ def test_cuda_serving_modes_match_cpu(mode):
     assert got == want
     assert all(outcome == "done" for _, outcome in got.values())
     assert tfa.launch_counts()["flash_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,wgrad_bf16", [(24, False), (24, True),
+                                          (336, False), (336, True),
+                                          (333, True)])
+def test_cuda_int8_matmul_matches_cpu_at_a_ragged_m(m, wgrad_bf16):
+    """``torch._int_mm`` and the absmax quantizer on the card against the
+    same op sequence on the CPU, K64 N40, at M that are not multiples of
+    the card GEMM's tile (the GEMM takes M > 16 and K, N multiples of 8;
+    the int8 wgrad contracts over M, so the ragged M=333 runs with the
+    bf16 wgrad): q, s and the int32 accumulator equal; the outputs and
+    STE gradients of ``int8_matmul`` equal but for one rounding of the
+    scale products (2^-8 relative in bf16, 2^-22 in f32; the bf16 wgrad
+    1e-5 of its largest entry)."""
+    _need_card()
+    from edl_tpu_torch.ops import int8_matmul as im
+
+    k, n = 64, 40
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    a = _randn(gen, m, k)
+    w = torch.randn(k, n, generator=gen, device="cuda")
+    g = _randn(gen, m, n)
+    for x, axis in ((a, 1), (a, 0), (w, 0), (w, 1)):
+        q, s = im.absmax_quant(x, axis)
+        qc, sc = im.absmax_quant(x.cpu(), axis)
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    qa, _ = im.absmax_quant(a, 1)
+    qw, _ = im.absmax_quant(w, 0)
+    acc = im._dot8(qa, im._k_inner(qw))
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc.cpu(), im._dot8(qa.cpu(), qw.cpu()))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        ad = a.to(dev).requires_grad_()
+        wd = w.to(dev).requires_grad_()
+        y = im.int8_matmul(ad, wd, wgrad_bf16)
+        outs.append((y, *torch.autograd.grad(y, (ad, wd), g.to(dev))))
+    # the bf16 wgrad is an f32 product, summed in another order on the
+    # card: within 1e-5 of its largest entry
+    of_max = (0, 0, 1e-5 if wgrad_bf16 else 0)
+    for got, want, rel, om in zip(outs[0], outs[1], (2 ** -8, 2 ** -8,
+                                                     2 ** -22), of_max):
+        want = want.float()
+        diff = (got.cpu().float() - want).abs()
+        tol = rel * want.abs() + om * want.abs().max()
+        assert bool((diff <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,where", [(5, 64, 40, "forward"),
+                                         (40, 60, 36, "forward"),
+                                         (333, 64, 40, "wgrad")])
+def test_cuda_int8_matmul_raises_where_the_card_gemm_refuses(m, k, n,
+                                                            where):
+    """Where the card's int8 GEMM refuses a product (M <= 16, or a
+    contraction or output width not a multiple of 8) the op raises:
+    nothing pads it or falls back to bf16. At M=333 the forward and
+    dgrad run and the int8 wgrad, which contracts over M, raises; the
+    bf16 wgrad takes that shape."""
+    _need_card()
+    from edl_tpu_torch.ops import int8_matmul as im
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    a = _randn(gen, m, k).requires_grad_()
+    w = torch.randn(k, n, generator=gen, device="cuda").requires_grad_()
+    g = _randn(gen, m, n)
+    if where == "forward":
+        with pytest.raises(RuntimeError):
+            im.int8_matmul(a, w)
+        return
+    y = im.int8_matmul(a, w)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(y, (a, w), g)
+    y = im.int8_matmul(a, w, True)
+    da, dw = torch.autograd.grad(y, (a, w), g)
+    assert bool(torch.isfinite(da).all() and torch.isfinite(dw).all())

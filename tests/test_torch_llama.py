@@ -178,10 +178,14 @@ def test_generate_sampling_deterministic_per_seed():
 
 
 def test_int8_records_not_ported_yet():
-    qp = dict(TP)
-    qp["lm_head"] = {"q8": TP["lm_head"], "s8": TP["ln_f"]}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tl.forward(qp, _t(_tokens(8, 1, 4)), TCFG)
+    """The weight-only int8 records are ported: ``forward`` on
+    ``quantize_params_int8``'s tree against the reference's on its own
+    (the name is kept from when records raised)."""
+    toks = _tokens(8, 2, 16)
+    want = np.asarray(jl.forward(jl.quantize_params_int8(JP),
+                                 jnp.asarray(toks), JCFG))
+    got = tl.forward(tl.quantize_params_int8(TP), _t(toks), TCFG).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_params_from_numpy_bf16_bit_exact_and_cast():

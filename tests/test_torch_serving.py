@@ -342,6 +342,27 @@ def test_cli_serve_cpu_matches_reference_engine(tmp_path):
     assert '"tokens_out": 9.0' in out.stderr
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cli_serve_int8_matches_reference_engine(tmp_path, dtype):
+    """``serve --int8`` quantizes the export as stored (the reference
+    quantizes what ``load_export`` returns) and serves the records: the
+    reference engine's greedy tokens on the reference's records."""
+    jexport.export_params(str(tmp_path), JP, step=1, dtype=dtype,
+                          model_meta=JCFG.to_meta())
+    feed = '{"id": "a", "prompt": [1, 2, 3, 4], "max_new": 6}\n'
+    out = _cli("serve", str(tmp_path), "--int8", "--max-slots", "2",
+               "--max-len", "32", "--horizon", "4", "--device", "cpu",
+               stdin=feed)
+    assert out.returncode == 0, out.stderr
+    rec = json.loads(out.stdout.strip().splitlines()[0])
+    jp, _ = jexport.load_export(str(tmp_path))
+    ref = JEngine(jl.quantize_params_int8(jp), JCFG, max_slots=2, max_len=32,
+                  horizon=4)
+    ref.submit("a", [1, 2, 3, 4], 6)
+    assert rec["outcome"] == "done"
+    assert rec["tokens"] == ref.run()["a"].tokens
+
+
 def test_cli_serve_flag_validation(tmp_path):
     bad = _cli("serve", str(tmp_path), "--requests",
                str(tmp_path / "missing"), "--device", "cpu")
@@ -361,11 +382,14 @@ def test_cli_serve_flag_validation(tmp_path):
         out = _cli("serve", str(tmp_path), "--device", "cpu", *flags,
                    stdin='{"prompt": [1]}\n')
         assert out.returncode == 1 and msg in out.stderr, flags
-    # weight-only int8 and sharded loading are still to port
-    for flags in (["--int8"], ["--mesh", "tp=2"]):
+    # sharded loading is still to port; --int8 with --mesh is the
+    # reference's error, checked first
+    for flags, msg in ((["--mesh", "tp=2"], "not ported yet"),
+                       (["--int8", "--mesh", "tp=2"],
+                        "--int8 and --mesh are mutually exclusive")):
         out = _cli("serve", str(tmp_path), "--device", "cpu", *flags,
                    stdin='{"prompt": [1]}\n')
-        assert out.returncode == 1 and "not ported yet" in out.stderr, flags
+        assert out.returncode == 1 and msg in out.stderr, flags
 
 
 # -- package rules -------------------------------------------------------------
