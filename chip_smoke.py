@@ -210,8 +210,10 @@ import time
 
 import numpy as np
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
-PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
+# the card's dense bf16 and HBM peaks: set in main() from the port's one
+# peak table (edl_tpu_torch/obs/costmodel.py detect_peak; H100 SXM 989
+# TF/s and 3.35 TB/s), which raises on a card it does not name
+PEAK_BF16_FLOPS = PEAK_HBM_BYTES = None
 TEACHER_EPS = 0.1  # chosen logit within EPS x row std of the row max
 # primal forward: (B, T, H, KV, causal, head dim); Llama-3-8B's
 # attention (the slice's prefills) at d=128, and d=64 so that every
@@ -686,6 +688,226 @@ def slice_phase(card):
     return launches, params, cfg, row["tokens_per_s"]
 
 
+OBS_FAULT_PLAN = "serve.dispatch:raise@n=2;serve.drain:raise@n=5"
+OBS_EFF_MAX = 1.05  # every efficiency gauge in (0, OBS_EFF_MAX]
+OBS_LEDGER_RTOL = 0.02  # ledger kv + slot_state vs the allocator's growth
+
+
+def _obs_serve(params, cfg, metrics, prefix, plan=None):
+    """The slice's feed (8 requests, half after the first step) on a
+    fresh engine of the slice's shape; returns (engine, {i: tokens},
+    fault counts)."""
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.utils import faults
+
+    eng = ContinuousBatchingEngine(params, cfg, max_slots=8, max_len=2048,
+                                   horizon=8, metrics=metrics, device="cuda")
+    prompts, max_new = _slice_requests(cfg.vocab)
+    if plan:
+        faults.arm(plan, seed=0)
+    try:
+        for i in range(4):
+            eng.submit(f"{prefix}{i}", prompts[i], max_new)
+        eng.step()
+        for i in range(4, 8):
+            eng.submit(f"{prefix}{i}", prompts[i], max_new)
+        res = eng.run()
+        counts = faults.counts()
+    finally:
+        faults.disarm()
+    for i in range(8):
+        r = res[f"{prefix}{i}"]
+        if r.outcome != "done" or len(r.tokens) != max_new:
+            raise AssertionError(f"obs {prefix}{i}: outcome {r.outcome}, "
+                                 f"{len(r.tokens)} tokens")
+    return eng, {i: res[f"{prefix}{i}"].tokens for i in range(8)}, counts
+
+
+def obs_phase(card, params, cfg, slice_tps):
+    """The engine's observability on the slice's model (Llama-3-8B, 32
+    layers, bf16, flash; 8 slots x 2048, horizon 8): warm an engine on a
+    private registry with the slice's requests, ``mark_warm``, then
+    replay them on a fresh engine publishing into the default registry
+    behind the HTTP exporter, and a third time under a fault plan.
+    Gates: zero ``obs.recompile`` in the replay; ``edl_mfu`` and
+    ``edl_bw_util_ratio`` for prefill and decode in (0, 1.05]; the
+    ledger's ``params`` equal to the tree's bytes and its ``kv`` +
+    ``slot_state`` within 2% of ``torch.cuda.memory_allocated``'s growth
+    across an engine's construction; the replay's tokens equal the warm
+    run's; both faults fire, and the faulted run's tokens keep the
+    slice's teacher-forced margin (each request's first divergence from
+    the replay is printed: bf16 recovery is not bit-exact); the scrape
+    of ``/metrics``
+    parses and declares every core family, ``/trace`` holds the
+    ``serving.*`` spans and ``/events?rid=`` that request's events.
+    Returns the replay's flash launches."""
+    import torch
+
+    from edl_tpu_torch import obs
+    from edl_tpu_torch.obs import compilewatch, costmodel, memledger
+    from edl_tpu_torch.obs import events as flight
+    from edl_tpu_torch.obs import metrics as om
+    from edl_tpu_torch.obs import profile
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.serving.metrics import ServingMetrics
+    from edl_tpu_torch.utils import tracing
+    from edl_tpu_torch.utils.tree import leaves
+
+    t_phase = time.perf_counter()
+    rec = flight.reset_default_recorder()
+    tracing.tracer().clear()
+    reg = om.default_registry()
+    ledger = memledger.default_ledger()
+    # warm: every program key of the feed meets its first call here (or
+    # met it in the slice phase)
+    warm, warm_tokens, _ = _obs_serve(params, cfg, ServingMetrics(
+        registry=om.MetricsRegistry()), "w")
+    del warm
+    compilewatch.mark_warm()
+    # the ledger against the allocator, across one engine's construction
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    probe = ContinuousBatchingEngine(
+        params, cfg, max_slots=8, max_len=2048, horizon=8,
+        metrics=ServingMetrics(registry=om.MetricsRegistry()),
+        device="cuda")
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - alloc0
+    owned = {c: ledger.owner_total(probe._ledger_owner, c)
+             for c in ("params", "kv", "slot_state")}
+    del probe
+    tree_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    if owned["params"] != tree_bytes:
+        raise AssertionError(f"ledger params {owned['params']} != the "
+                             f"tree's {tree_bytes} bytes")
+    held = owned["kv"] + owned["slot_state"]
+    if abs(grown - held) > OBS_LEDGER_RTOL * held:
+        raise AssertionError(
+            f"ledger kv + slot_state {held} vs the allocator's growth "
+            f"{grown} across construction (> {OBS_LEDGER_RTOL:.0%})")
+    listener = obs.bridge_tracer()
+    exporter = obs.start_exporter(port=0)
+    try:
+        rec0 = rec.counts().get("obs.recompile", 0)
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng, want, _ = _obs_serve(params, cfg, ServingMetrics(registry=reg),
+                                  "o")
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        launches = fa.launch_counts()["flash_fwd"]
+        prefills = eng.metrics.dispatches["prefill"]
+        recompiles = rec.counts().get("obs.recompile", 0) - rec0
+        if recompiles:
+            raise AssertionError(f"{recompiles} obs.recompile events in the "
+                                 "warm replay")
+        if want != warm_tokens:  # the engine is deterministic run to run
+            raise AssertionError("the replay's tokens differ from the warm "
+                                 "run's")
+        if launches != prefills * cfg.n_layers:
+            raise AssertionError(f"replay flash launches {launches} != "
+                                 f"{prefills} prefills x {cfg.n_layers}")
+        gauges = {}
+        for metric in ("edl_mfu", "edl_bw_util_ratio"):
+            for phase in ("prefill", "decode"):
+                v = reg.get(metric).value(phase=phase)
+                gauges[f"{metric}{{{phase}}}"] = v
+                if not 0.0 < v <= OBS_EFF_MAX:
+                    raise AssertionError(f"{metric}{{phase={phase}}} = {v} "
+                                         f"outside (0, {OBS_EFF_MAX}]")
+        step_bytes = costmodel.decode_step_bytes(
+            cfg, eng._cost.param_bytes, 8, 2048)
+        slice_share = slice_tps / 8 * step_bytes / PEAK_HBM_BYTES
+        crosscheck = ledger.crosscheck()
+        # the scrape, while the replay engine still holds its entries
+        text = obs.scrape(exporter.url)
+        fams = om.parse_prometheus_text(text)
+        typed = {ln.split()[2] for ln in text.splitlines()
+                 if ln.startswith("# TYPE ")}
+        core = {f.name for f in om.ensure_core_series(
+            om.MetricsRegistry()).families()}
+        if not core <= typed or not fams:
+            raise AssertionError(f"/metrics lacks {sorted(core - typed)}")
+        report = profile.report_from_fams(fams, source=exporter.url)
+        doc = json.loads(obs.scrape(exporter.url, "/trace"))
+        span_counts = {}
+        for e in doc["traceEvents"]:
+            if e.get("ph") == "X" and e["name"].startswith("serving."):
+                span_counts[e["name"]] = span_counts.get(e["name"], 0) + 1
+        for name in ("serving.dispatch", "serving.drain", "serving.prefill"):
+            if not span_counts.get(name):
+                raise AssertionError(f"/trace has no {name} span")
+        recs = [json.loads(x) for x in
+                obs.scrape(exporter.url, "/events?rid=o3").splitlines()]
+        kinds = [r["kind"] for r in recs]
+        if (any(r["corr"].get("rid") != "o3" for r in recs)
+                or kinds[:1] != ["serve.submit"]
+                or kinds[-1:] != ["serve.finish"]):
+            raise AssertionError(f"/events?rid=o3 gave {kinds}")
+        del eng
+    finally:
+        exporter.stop()
+        tracing.tracer().remove_listener(listener)
+    # the fault plan: recovery re-prefills from prompt + generated
+    fault_eng, got, counts = _obs_serve(params, cfg, ServingMetrics(
+        registry=om.MetricsRegistry()), "o", plan=OBS_FAULT_PLAN)
+    recoveries = fault_eng.recoveries
+    del fault_eng
+    if counts != {"serve.dispatch": 1, "serve.drain": 1} or not recoveries:
+        raise AssertionError(f"fault plan fired {counts}, {recoveries} "
+                             "recoveries")
+    # a recovery re-prefills in one pass what the decode steps built one
+    # position at a time; bf16 rounds the two differently, so after a
+    # recovery a near-tie may resolve the other way. Each request's first
+    # divergence is recorded, and the faulted tokens are held to the
+    # slice's bf16 criterion: every chosen token within TEACHER_EPS row
+    # std of its row's maximum on the dense forward over its own prefix
+    # (exact identity is held in f32: the card test
+    # test_cuda_fault_plan_recovery_gives_the_same_tokens, and the CPU
+    # tests against the JAX engine)
+    diverged = {i: next(j for j, (a, b) in enumerate(zip(got[i], want[i]))
+                        if a != b) for i in range(8) if got[i] != want[i]}
+    prompts = _slice_requests(cfg.vocab)[0]
+    fault_margin = max(_teacher_margin(params, cfg, prompts[i], got[i],
+                                       "cuda") for i in range(8))
+    if fault_margin > TEACHER_EPS:
+        raise AssertionError(f"faulted run's teacher-forced margin "
+                             f"{fault_margin:.4f} row std > {TEACHER_EPS}")
+    cs = reg.get("edl_compile_seconds")
+    compiles = {}
+    for (program,), _ in reg.get("edl_compiles_total").samples():
+        st = cs.stats(program=program)
+        compiles[program] = {"programs": st["count"], "seconds": st["sum"]}
+    print("# " + profile.render_report(report).replace("\n", "\n# "),
+          flush=True)
+    row = {
+        "phase": "obs", "model": "llama3_8b", "layers": cfg.n_layers,
+        "requests": 8, "replay_s": replay_s,
+        "replay_tokens_per_s": 8 * _slice_requests(cfg.vocab)[1] / replay_s,
+        "recompiles_after_warm": recompiles, "compiles": compiles,
+        "efficiency": gauges, "efficiency_max": OBS_EFF_MAX,
+        "slice_decode_bw_share": slice_share,
+        "decode_step_bytes": step_bytes,
+        "ledger": {**owned, "tree_bytes": tree_bytes,
+                   "alloc_growth_bytes": grown,
+                   "held_over_growth_minus_1": held / grown - 1.0},
+        "crosscheck": crosscheck, "fault_plan": OBS_FAULT_PLAN,
+        "faults": counts, "recoveries": recoveries,
+        "replay_equals_warm": True,
+        "faulted_tokens_equal": not diverged,
+        "faulted_first_divergence": diverged,
+        "faulted_teacher_forced_worst_margin_std": fault_margin,
+        "teacher_forced_eps_std": TEACHER_EPS, "flash_launches": launches,
+        "prefills": prefills, "trace_spans": span_counts,
+        "scrape_families": len(typed), "events_o3": kinds,
+        "phase_s": time.perf_counter() - t_phase, "card": card,
+    }
+    print(json.dumps(row), flush=True)
+    return launches
+
+
 def _teacher_margin(params, cfg, prompt, tokens, device):
     """Worst (row max - chosen logit) / row std over the generated
     tokens, on the dense (non-flash) forward over prompt + generated;
@@ -720,28 +942,23 @@ def _serve_modes_part(params, cfg, kv_quant, device, reqs, waves=None,
     prompt, max_new)] submitted in ``waves`` (lists of rids, each run to
     completion before the next), on the paged engine with ``kw``.
     Returns (engine, results, wall seconds, the rids preempted, in
-    order)."""
+    order: the run's ``serve.preempt`` flight events)."""
     import torch
 
+    from edl_tpu_torch.obs import events as flight
     from edl_tpu_torch.obs.metrics import MetricsRegistry
-    from edl_tpu_torch.serving import engine as teng
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
     from edl_tpu_torch.serving.metrics import ServingMetrics
 
-    preempted = []
-
-    class Engine(teng.ContinuousBatchingEngine):
-        # the reference reports preemptions only as a flight event
-        def _pg_preempt(self, exclude):
-            live = {sl.rid for sl in self._slots if sl is not None}
-            done = super()._pg_preempt(exclude)
-            preempted.extend(sorted(live - {sl.rid for sl in self._slots
-                                            if sl is not None}))
-            return done
-
-    eng = Engine(params, cfg, max_slots=8, max_len=SM_MAX_LEN, horizon=8,
-                 block_size=SM_BLOCK, kv_quant=kv_quant,
-                 metrics=ServingMetrics(registry=MetricsRegistry()),
-                 device=device, **kw)
+    rec = flight.default_recorder()
+    seen = rec.events()
+    seq0 = seen[-1].seq if seen else 0
+    n0 = rec.counts().get("serve.preempt", 0)
+    eng = ContinuousBatchingEngine(
+        params, cfg, max_slots=8, max_len=SM_MAX_LEN, horizon=8,
+        block_size=SM_BLOCK, kv_quant=kv_quant,
+        metrics=ServingMetrics(registry=MetricsRegistry()), device=device,
+        **kw)
     prompts = {rid: (p, n) for rid, p, n in reqs}
     res = {}
     if device != "cpu":
@@ -754,6 +971,10 @@ def _serve_modes_part(params, cfg, kv_quant, device, reqs, waves=None,
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    preempted = [e.corr["rid"] for e in rec.events(kind="serve.preempt")
+                 if e.seq > seq0]
+    if len(preempted) != rec.counts().get("serve.preempt", 0) - n0:
+        raise AssertionError("the flight ring dropped serve.preempt events")
     if eng.recoveries:
         raise AssertionError(f"{kv_quant}: engine recovered "
                              f"{eng.recoveries} times")
@@ -2318,13 +2539,19 @@ def main() -> int:
               "needs a card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from edl_tpu_torch.obs import costmodel
     from edl_tpu_torch.ops import _build
     from edl_tpu_torch.ops import flash_attention as fa
 
+    global PEAK_BF16_FLOPS, PEAK_HBM_BYTES
+    peak = costmodel.detect_peak("cuda")
+    PEAK_BF16_FLOPS, PEAK_HBM_BYTES = peak.flops, peak.hbm_bytes_s
     card = _smi()
     print(f"# card {card}", flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
+    print(f"# peak {peak.kind}: {PEAK_BF16_FLOPS / 1e12:g} TF/s bf16, "
+          f"{PEAK_HBM_BYTES / 1e12:g} TB/s", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2359,6 +2586,7 @@ def main() -> int:
     train_rows = timed("train_kernels", train_kernel_phase, card)
     timed("int8_products", int8_products_phase, card)
     launches, params, cfg, float_tps = timed("slice", slice_phase, card)
+    obs_launches = timed("obs", obs_phase, card, params, cfg, float_tps)
     timed("serving_modes", serving_modes_phase, card, params, cfg)
     if profile:
         _profile_serving(card, params, cfg)
@@ -2443,6 +2671,7 @@ def main() -> int:
     # int8 generates); launches of every serving path beside them
     primal_paths = {
         "slice (bf16)": launches,
+        "obs (bf16, warm replay)": obs_launches,
         **{f"int8_serving {k}": n for k, n in int8_serve.items()},
         **{f"decode_ladder {w} b{b}": n
            for (w, b), n in decode_launches.items()}}

@@ -8,7 +8,10 @@ reference verb and prints the same per-request JSON records on stdout
 (submit order): ``id``, ``tokens``, ``outcome``, ``ttft_s``,
 ``tokens_per_s``, or ``outcome: rejected:<reason>`` with ``error``. The
 final serving metrics snapshot goes to stderr as one JSON line. Runs on
-CUDA unless ``--device cpu``.
+CUDA unless ``--device cpu``. ``--metrics-port P`` serves ``/metrics``,
+``/trace``, ``/events`` and ``/healthz`` on loopback while serving (0 =
+ephemeral; the bound URL prints on stderr as ``# metrics endpoint
+URL/metrics``).
 """
 
 from __future__ import annotations
@@ -223,6 +226,17 @@ def run_serve(args) -> int:
         spec_min_accept=args.spec_min_accept,
         device=device,
     )
+    exporter = None
+    if args.metrics_port is not None:
+        # the obs endpoint: /metrics (Prometheus text incl. the TTFT/ITL
+        # histograms this engine records), /trace (the engine's dispatch
+        # / drain / prefill spans), /events, /healthz
+        from edl_tpu_torch import obs
+
+        obs.bridge_tracer()
+        exporter = obs.start_exporter(port=args.metrics_port)
+        print(f"# metrics endpoint {exporter.url}/metrics", file=sys.stderr,
+              flush=True)
     rejected = {}
     for r in requests:
         try:
@@ -256,6 +270,8 @@ def run_serve(args) -> int:
             }
         print(json.dumps(rec))
     print("# serving " + json.dumps(metrics.snapshot()), file=sys.stderr)
+    if exporter is not None:
+        exporter.stop()
     return 0
 
 
@@ -288,6 +304,13 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--temperature", type=float, default=0.0)
     sv.add_argument("--seed", type=int, default=0)
     sv.add_argument("--metrics-every", type=int, default=0)
+    sv.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="expose /metrics (Prometheus: TTFT/ITL histograms, "
+        "dispatch counters, queue gauge), /trace (chrome-trace JSON), "
+        "/events and /healthz on this port while serving (0 = "
+        "ephemeral; the bound URL prints on stderr)",
+    )
     sv.add_argument(
         "--block-size", type=int, default=0,
         help="paged KV cache: tokens per KV block (0 = contiguous "

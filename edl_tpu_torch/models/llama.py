@@ -44,6 +44,7 @@ import contextvars
 import dataclasses
 import functools
 import math
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,7 +55,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from edl_tpu_torch.models.losses import row_mean
-from edl_tpu_torch.obs import costmodel
+from edl_tpu_torch.obs import compilewatch, costmodel
 from edl_tpu_torch.ops.flash_attention import attention_auto, flash_supported
 from edl_tpu_torch.ops.int8_matmul import absmax_quant, int8_matmul
 from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
@@ -1198,6 +1199,40 @@ def generate(
         # (_qkv, _mlp) and not others; serving quantizes with
         # quantize_params_int8 instead
         cfg = dataclasses.replace(cfg, int8_mxu=False, int8_wgrad_bf16=False)
+    b, t0 = tokens.shape
+    run = _generate_program(cfg, b, t0, int(max_new), temperature > 0,
+                            int(top_k), top_p < 1.0)
+    return run(_generate, params, tokens, cfg, max_new, temperature,
+               generator, top_k, top_p)
+
+
+_generate_programs: "OrderedDict" = OrderedDict()
+_GENERATE_PROGRAM_CAP = 64
+
+
+def _generate_program(cfg: LlamaConfig, b: int, t0: int, max_new: int,
+                      sampling: bool, top_k: int, use_top_p: bool):
+    """The compile watch's handle on the reference's generate program of
+    this key (cfg, shapes, greedy-vs-sampling, top_k, top_p-active):
+    ``run(fn, *args)`` calls ``fn(*args)``, and its first call per key
+    lands in ``edl_compile_seconds{program="llama.generate"}``. An LRU
+    with the reference's cap."""
+    key = (cfg, b, t0, max_new, sampling, top_k, use_top_p)
+    run = _generate_programs.get(key)
+    if run is not None:
+        _generate_programs.move_to_end(key)
+        return run
+    while len(_generate_programs) >= _GENERATE_PROGRAM_CAP:
+        _generate_programs.popitem(last=False)  # evict least-recent
+    run = _generate_programs[key] = compilewatch.wrap(
+        lambda fn, *a: fn(*a), "llama.generate")
+    return run
+
+
+def _generate(params, tokens, cfg, max_new, temperature, generator, top_k,
+              top_p) -> torch.Tensor:
+    """The body of :func:`generate`: the prompt's prefill, then one
+    cached decode step a new token."""
     b, t0 = tokens.shape
     dev = tokens.device
     logits, ks, vs = prefill_padded(params, tokens, t0 - 1, cfg)

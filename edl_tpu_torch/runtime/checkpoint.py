@@ -23,10 +23,15 @@ so every function here returns a state whose optimizer is a new
 instance bound to the new params (:func:`trainer.rebind_state`); moments
 are found by membership in the optimizer's state, never by position.
 
+The reference's hooks are here: the ``ckpt.commit`` fault site (the
+dense save is its own commit), the ``ckpt.commit`` / ``ckpt.load``
+flight events keyed by step, and the I/O telemetry
+(``edl_checkpoint_save_seconds`` / ``edl_checkpoint_restore_seconds``
+by kind, ``edl_checkpoint_bytes_total`` by op).
+
 Not ported yet: the multi-process sharded format (``snapshot_local``,
 ``save_shards``, ``write_manifest``, ``load_sharded``; ROADMAP Queue A
-item 2b), and the reference's obs and fault hooks (``_obs_io``,
-``_emit_ckpt``, ``faults.fault_point``; Queue A item 4).
+item 2b).
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ from __future__ import annotations
 import json
 import os
 import tempfile
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.ops import quant
 from edl_tpu_torch.parallel import sharding as shd
 from edl_tpu_torch.train.trainer import (TrainState, leaves,
@@ -46,7 +53,37 @@ from edl_tpu_torch.train.trainer import (TrainState, leaves,
                                          replace_leaves, shard_state)
 from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
                                         resolve_device)
+from edl_tpu_torch.utils import faults
 from edl_tpu_torch.utils.logging import kv_logger
+
+
+def _obs_io(direction: str, kind: str, dt_s: float, nbytes: int) -> None:
+    """Checkpoint I/O telemetry: duration histograms by format kind
+    (``dense``) + a bytes counter."""
+    r = obs_metrics.default_registry()
+    name = (
+        "edl_checkpoint_save_seconds"
+        if direction == "write"
+        else "edl_checkpoint_restore_seconds"
+    )
+    help = (
+        "checkpoint write time" if direction == "write"
+        else "checkpoint read/restore time"
+    )
+    r.histogram(name, help, ("kind",)).observe(dt_s, kind=kind)
+    if nbytes:
+        r.counter(
+            "edl_checkpoint_bytes_total", "checkpoint bytes moved", ("op",)
+        ).inc(nbytes, op=direction)
+
+
+def _emit_ckpt(event: str, step: int, **attrs) -> None:
+    """Flight-recorder entry (ckpt.commit / ckpt.load) keyed by step —
+    the restore points a postmortem needs when explaining which state a
+    recovery rolled back to. ``attrs`` carries the format (``fmt``)."""
+    from edl_tpu_torch.obs import events
+
+    events.emit(event, step=step, **attrs)
 
 
 def snapshot(state: TrainState) -> TrainState:
@@ -215,6 +252,9 @@ def save(path: str, state: TrainState,
     """Atomic npz checkpoint: params + optimizer tensors + step +
     metadata in ONE file, published by a single rename (no torn
     meta/state pair). A device state is snapshotted first."""
+    # chaos site: the dense save IS its own commit (single rename)
+    faults.fault_point("ckpt.commit")
+    t0 = time.perf_counter()
     os.makedirs(path, exist_ok=True)
     host = state if _on_host(state) else snapshot(state)
     keys = _leaf_keys(host.params)
@@ -231,6 +271,12 @@ def save(path: str, state: TrainState,
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
     os.replace(tmp, os.path.join(path, "state.npz"))
+    _obs_io(
+        "write", "dense", time.perf_counter() - t0,
+        sum(int(v.nbytes) for v in payload.values()),
+    )
+    # the dense save is the commit (single rename): one timeline entry
+    _emit_ckpt("ckpt.commit", int(host.step), fmt="dense")
 
 
 def _read(path: str) -> Dict[str, np.ndarray]:
@@ -261,7 +307,13 @@ def load(path: str, like: TrainState) -> TrainState:
     ``like`` (a template state, e.g. freshly created): a host state
     whose optimizer, of ``like``'s class and hyperparameters, holds the
     stored moments and steps. Place it with :func:`restore`."""
+    t0 = time.perf_counter()
     data = _read(path)
+    _obs_io(
+        "read", "dense", time.perf_counter() - t0,
+        sum(int(v.nbytes) for v in data.values()),
+    )
+    _emit_ckpt("ckpt.load", int(data["step"]), fmt="dense")
     params = _fill_params(data, like.params)
     index = {key: i for i, (key, _) in enumerate(_leaf_keys(like.params))}
     tensors = {}

@@ -25,13 +25,20 @@ How the reference's JAX mechanics map onto PyTorch:
   waits on that event only. Host arrays bound for the card (block
   tables, draft matrices, prompt chunks) go through pinned memory too:
   a pageable copy would stall the host behind every queued kernel.
-* **Programs need no memo.** PyTorch runs eagerly; block tables, chunk
-  starts and lengths are plain arguments. The prefill still pads
-  prompts into power-of-two buckets (``_bucket``), which keeps the
-  contiguous path's attention on the flash kernel's supported lengths
-  exactly as the reference does. The paged path never calls the flash
-  kernel: its prefill and decode attend through the block table with a
-  masked dense einsum, as the reference's do.
+* **Programs become memo keys.** PyTorch runs eagerly; block tables,
+  chunk starts and lengths are plain arguments, and nothing compiles.
+  The engine still keeps the reference's module-level LRU of program
+  keys (``_program``): each key's first dispatch goes through the
+  compile watch under the reference's program name (``serve.block``,
+  ``serve.prefill``, ``serve.verify``, ``serve.block_copy``), so
+  ``edl_compiles_total{program}`` counts what the reference's does for
+  the same request stream, and ``edl_compile_seconds`` times what a
+  first call costs here. The prefill pads prompts into power-of-two
+  buckets (``_bucket``), which keeps the contiguous path's attention on
+  the flash kernel's supported lengths exactly as the reference does.
+  The paged path never calls the flash kernel: its prefill and decode
+  attend through the block table with a masked dense einsum, as the
+  reference's do.
 
 Greedy decode is token-identical to sequential ``llama.generate`` at
 every horizon, with mid-stream joins, EOS inside a block, deadline
@@ -47,14 +54,28 @@ Params are a dense tree or the weight-only int8 tree of
 ``llama.quantize_params_int8`` (``serve --int8``); every path takes
 either, since the model's products dispatch on the record.
 
-Not ported yet: the reference's observability hooks (compile watch,
-cost model, memory ledger, flight recorder, tracing, fault points).
+**Observability**, at the reference's points and with its names:
+every request-lifecycle decision (submit / reject / admit / prefill /
+prefill_chunk / prefix_hit / block / verify / preempt / kv_cow /
+finish) and every recovery pass lands in the flight recorder
+(``obs/events.py``) keyed by ``rid``, and ``_recover`` dumps the ring to
+``$EDL_BLACKBOX_DIR`` before rebuilding. Spans ``serving.dispatch`` /
+``serving.drain`` / ``serving.prefill`` / ``serving.recover`` go to the
+process tracer, each request's prefill under the trace root derived
+from its rid. Fault sites ``serve.dispatch``, ``serve.drain`` and
+``serve.prefill`` (``utils/faults.py``) sit where a raise loses the same
+work as in the reference. The analytic cost model prices each dispatch
+and the efficiency meter turns busy time into ``edl_mfu{phase}`` /
+``edl_bw_util_ratio{phase}``; the memory ledger holds the engine's
+``params`` / ``kv`` / ``slot_state`` bytes until it is collected.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from collections import deque
+import weakref
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, List, Optional
 
@@ -62,6 +83,11 @@ import numpy as np
 import torch
 
 from edl_tpu_torch.models import llama
+from edl_tpu_torch.obs import compilewatch
+from edl_tpu_torch.obs import costmodel as _cm
+from edl_tpu_torch.obs import disttrace
+from edl_tpu_torch.obs import events as flight
+from edl_tpu_torch.obs import memledger
 from edl_tpu_torch.serving import paged as _paged
 from edl_tpu_torch.serving import spec as _spec
 from edl_tpu_torch.serving.metrics import ServingMetrics
@@ -71,10 +97,38 @@ from edl_tpu_torch.serving.scheduler import (
     Request,
     RequestQueue,
 )
+from edl_tpu_torch.utils import faults, tracing
 from edl_tpu_torch.utils.device import DeviceLike, resolve_device, tree_device
 from edl_tpu_torch.utils.logging import kv_logger
 
 log = kv_logger("serving")
+
+_programs: "OrderedDict" = OrderedDict()
+_PROGRAM_CAP = 128
+
+
+def _invoke(fn, *args, **kw):
+    return fn(*args, **kw)
+
+
+def _program(key, name: str):
+    """The compile watch's handle on one of the reference's programs:
+    ``key`` is the reference's memo key (``("block", cfg, b, s, horizon,
+    sampling)``, ``("prefill", cfg, tb, sampling)``, the paged, verify
+    and block-copy keys), ``name`` its program name. Returns a callable
+    ``prog(fn, *args)`` that runs ``fn(*args)``; the first call of each
+    key is timed into ``edl_compile_seconds{program}`` and counted in
+    ``edl_compiles_total{program}`` (an ``obs.recompile`` event after
+    ``compilewatch.mark_warm``). An LRU like the reference's: hits move
+    to the end, inserts past the cap evict the least recently used."""
+    fn = _programs.get(key)
+    if fn is not None:
+        _programs.move_to_end(key)
+        return fn
+    while len(_programs) >= _PROGRAM_CAP:
+        _programs.popitem(last=False)
+    fn = _programs[key] = compilewatch.wrap(_invoke, name)
+    return fn
 
 
 class SpecAcceptGuard:
@@ -85,8 +139,8 @@ class SpecAcceptGuard:
     ``warmup`` verify blocks, then freezes it and flags DEGRADED when
     the acceptance EMA drops more than ``tol`` (absolute rate points)
     below it. Publishes ``edl_kv_quant_quality_ok`` (1 healthy / 0
-    degraded) and logs each transition — an operator alarm, not a
-    fallback."""
+    degraded) and emits a ``serve.kv_quant_quality`` flight event once
+    per transition — an operator alarm, not a fallback."""
 
     def __init__(self, registry, *, warmup: int = 20, tol: float = 0.05,
                  alpha: float = 0.1):
@@ -125,8 +179,10 @@ class SpecAcceptGuard:
         if degraded == self.ok:  # transition either way
             self.ok = not degraded
             self._g_ok.set(1.0 if self.ok else 0.0)
-            (log.warn if degraded else log.info)(
-                "kv_quant quality", ok=self.ok, ema=round(self.ema, 4),
+            flight.emit(
+                "serve.kv_quant_quality",
+                severity="warn" if degraded else "info",
+                ok=self.ok, ema=round(self.ema, 4),
                 baseline=round(self.baseline, 4), tol=self.tol,
             )
 
@@ -167,6 +223,7 @@ class _Block:
     ready: Optional[torch.cuda.Event]  # None on the CPU
     t_dispatch: float
     members: Dict[int, str]  # lane -> rid of its occupant at dispatch
+    cost: _cm.Cost  # the block's analytic bill (decode or verify)
     drafted: Optional[Dict[int, int]] = None  # verify: lane -> drafts
 
 
@@ -323,6 +380,37 @@ class ContinuousBatchingEngine:
             SpecAcceptGuard(self.metrics.registry)
             if self.kv_quant != "off" and self.spec_k > 0 else None
         )
+        # hardware-efficiency observability: the analytic cost model
+        # prices each dispatch, the efficiency meter turns busy wall time
+        # into edl_mfu{phase} / edl_bw_util_ratio{phase}, and the memory
+        # ledger holds this engine's long-lived bytes (params / kv /
+        # slot_state) under an owner key released when the engine is
+        # garbage-collected
+        self._ledger = memledger.default_ledger()
+        self._ledger_owner = f"engine-{id(self)}"
+        pbytes = memledger.tree_nbytes(params)
+        self._cost = _cm.CostModel(
+            cfg, peak=_cm.detect_peak(self.device),
+            param_bytes_total=pbytes or None,
+            kv_bytes_per_el=_cm.kv_quant_bytes_per_el(self.kv_quant),
+            kv_block_size=(
+                self.block_size if self.kv_quant != "off" else 0
+            ),
+        )
+        self._eff = _cm.EfficiencyMeter(
+            self._cost.peak, registry=self.metrics.registry
+        )
+        # constant per engine: every block runs max_slots rows for
+        # `horizon` steps over the full padded cache (the work as run)
+        self._block_cost = self._cost.decode_block(
+            max_slots, horizon, max_len
+        )
+        self._verify_cost = (
+            self._cost.verify_block(max_slots, self.spec_k + 1, max_len)
+            if self.spec_k > 0 else None
+        )
+        self._ledger.register(self._ledger_owner, "params", pbytes, "params")
+        weakref.finalize(self, self._ledger.release_owner, self._ledger_owner)
         self._slots: List[Optional[_Slot]] = [None] * max_slots
         # popped from the queue but not yet slotted — requeued at the
         # head if the admission prefill raises
@@ -333,6 +421,26 @@ class ContinuousBatchingEngine:
         self._ks: Optional[torch.Tensor] = None
         self._vs: Optional[torch.Tensor] = None
         self._alloc_device_state()
+        # the reference's program keys, looked up once here as the
+        # reference builds its block and block-copy programs here
+        nb, m, bs = self.pool_blocks, self._m, self.block_size
+        if self._paged and self.kv_quant != "off":
+            self._decode = _program(
+                ("block-paged-q", self.kv_quant, cfg, max_slots, nb, m, bs,
+                 horizon, self._sampling), "serve.block")
+            self._copyblk = _program(
+                ("blockcopy-q", self.kv_quant, cfg, nb, bs),
+                "serve.block_copy")
+        elif self._paged:
+            self._decode = _program(
+                ("block-paged", cfg, max_slots, nb, m, bs, horizon,
+                 self._sampling), "serve.block")
+            self._copyblk = _program(("blockcopy", cfg, nb, bs),
+                                     "serve.block_copy")
+        else:
+            self._decode = _program(
+                ("block", cfg, max_slots, max_len, horizon, self._sampling),
+                "serve.block")
         log.info(
             "engine ready", slots=max_slots, max_len=max_len,
             horizon=horizon, device=str(self.device),
@@ -404,6 +512,24 @@ class ContinuousBatchingEngine:
         # tokens there, so the lane is reused only after they drain
         self._stale: set = set()
         self._inflight: Deque[_Block] = deque()
+        # ledger re-registration under the SAME keys: a recovery's
+        # realloc REPLACES the entries (the gauge cannot drift across
+        # crash/recover cycles), and the efficiency busy clock resets so
+        # discarded in-flight time is not charged
+        self._ledger.register(self._ledger_owner, "kv", self.kv_nbytes, "kv")
+        if self._paged:
+            # pool bytes (values + scales) over the pool's token capacity
+            self._ledger.set_kv_bytes_per_token(
+                self._ledger_owner, self.kv_nbytes,
+                self.pool_blocks * self.block_size,
+            )
+        self._ledger.register(
+            self._ledger_owner, "slot_state",
+            sum(t.nbytes for t in (self._dtok, self._dpos, self._dact,
+                                   self._drem, self._deos)),
+            "slot_state",
+        )
+        self._t_eff_last = self.clock()
 
     # -- request intake -----------------------------------------------------
 
@@ -421,6 +547,13 @@ class ContinuousBatchingEngine:
         """Queue a request; raises :class:`AdmissionError` (and counts
         the rejection) when admission control refuses it."""
         self.metrics.on_submit(rid, tenant=tenant, slo_class=slo_class)
+        labels = {}
+        if tenant is not None:
+            labels["tenant"] = tenant
+        if slo_class is not None:
+            labels["slo_class"] = slo_class
+        flight.emit("serve.submit", rid=rid, prompt_len=len(prompt),
+                    max_new=int(max_new), **labels)
         if rid in self.results or any(
             s is not None and s.rid == rid for s in self._slots
         ):
@@ -445,10 +578,13 @@ class ContinuousBatchingEngine:
             )
         except AdmissionError as e:
             self.metrics.on_reject(rid, e.reason)
+            flight.emit("serve.reject", severity="warn", rid=rid,
+                        reason=e.reason)
             raise
 
     def _reject(self, rid: str, reason: str, msg: str) -> None:
         self.metrics.on_reject(rid, reason)
+        flight.emit("serve.reject", severity="warn", rid=rid, reason=reason)
         raise AdmissionError(reason, msg)
 
     # -- the engine loop ----------------------------------------------------
@@ -496,6 +632,27 @@ class ContinuousBatchingEngine:
             emitted += self._advance_prefills()
         self.metrics.on_step(self.active_slots, self.max_slots,
                              self.queue.depth)
+        if self._paged:
+            # allocated blocks over the usable pool (scratch excluded),
+            # and the free-block headroom admission gates on
+            self._ledger.set_kv_usage(
+                self._ledger_owner, self._balloc.allocated_blocks,
+                self.pool_blocks - 1,
+            )
+            self._ledger.set_kv_blocks_free(
+                self._ledger_owner, self._balloc.free_blocks
+            )
+        else:
+            # resident tokens (prompt + committed generation, capped at
+            # the slot length) over the allocated capacity
+            used = sum(
+                min(len(s.prompt) + len(s.generated), self.max_len)
+                for s in self._slots
+                if s is not None
+            )
+            self._ledger.set_kv_usage(
+                self._ledger_owner, used, self.max_slots * self.max_len
+            )
         # slots still mid-chunked-prefill have no decode state yet
         decoding = sum(
             1 for s in self._slots if s is not None and s.pf_next is None
@@ -553,8 +710,15 @@ class ContinuousBatchingEngine:
     # -- graceful drain (half-close) ----------------------------------------
 
     def half_close(self) -> None:
-        """Stop admitting queued requests; in-flight slots finish."""
+        """Stop admitting queued requests; in-flight slots finish.
+        Idempotent."""
+        if self._draining:
+            return
         self._draining = True
+        flight.emit(
+            "serve.halfclose",
+            queued=self.queue.depth, active=self.active_slots,
+        )
 
     def reopen(self) -> None:
         self._draining = False
@@ -565,8 +729,13 @@ class ContinuousBatchingEngine:
         while True:
             req = self.queue.pop()
             if req is None:
-                return residual
+                break
             residual.append(req)
+        flight.emit(
+            "serve.drained",
+            residual=len(residual), served=len(self.results),
+        )
+        return residual
 
     def drain(self, max_steps: Optional[int] = None) -> List[Request]:
         """Half-close, run in-flight slots to completion, return the
@@ -625,7 +794,7 @@ class ContinuousBatchingEngine:
                 tbl[i] = self._tables[i]
         return self._upload(tbl)
 
-    def _push_block(self, toks: torch.Tensor,
+    def _push_block(self, toks: torch.Tensor, cost: _cm.Cost,
                     drafted: Optional[Dict[int, int]] = None) -> None:
         host, ev = self._to_host(toks)
         # lane i's tokens belong to slot i's occupant AT DISPATCH; a
@@ -635,31 +804,46 @@ class ContinuousBatchingEngine:
             if s is not None and s.pf_next is None
         }
         self._inflight.append(
-            _Block(host, ev, self.clock(), members, drafted))
+            _Block(host, ev, self.clock(), members, cost, drafted))
 
     def _dispatch_block(self) -> None:
-        if self._paged:
-            table = self._dispatch_table()
-            (toks, self._dtok, self._dpos, self._dact,
-             self._drem) = llama.decode_horizon_slots_paged(
-                self.params, self._dtok, self._dpos, self._dact,
-                self._drem, self._deos, table, self._kc, self._vc,
-                self.cfg, block_size=self.block_size, horizon=self.horizon,
-                generator=self._gen,
-                temperature=self.temperature if self._sampling else 1.0,
-                sampling=self._sampling, **self._kv_kwargs(),
-            )[:5]
-        else:
-            (toks, self._dtok, self._dpos, self._dact, self._drem,
-             self._kc, self._vc) = llama.decode_horizon_slots(
-                self.params, self._dtok, self._dpos, self._dact, self._drem,
-                self._deos, self._kc, self._vc, self.cfg,
-                horizon=self.horizon, generator=self._gen,
-                temperature=self.temperature if self._sampling else 1.0,
-                sampling=self._sampling,
-            )
+        table = self._dispatch_table() if self._paged else None
+        temperature = self.temperature if self._sampling else 1.0
+        # the span measures the ENQUEUE (the kernels run asynchronously;
+        # the block's device time shows up in the serving.drain that
+        # waits for it). ``rids`` lists the slots riding the block, so
+        # /trace filters on the same key as /events?rid=
+        rids = [s.rid for s in self._slots if s is not None]
+        with tracing.span("serving.dispatch", horizon=self.horizon,
+                          rids=rids):
+            if self._paged:
+                (toks, self._dtok, self._dpos, self._dact,
+                 self._drem) = self._decode(
+                    llama.decode_horizon_slots_paged,
+                    self.params, self._dtok, self._dpos, self._dact,
+                    self._drem, self._deos, table, self._kc, self._vc,
+                    self.cfg, block_size=self.block_size,
+                    horizon=self.horizon, generator=self._gen,
+                    temperature=temperature, sampling=self._sampling,
+                    **self._kv_kwargs(),
+                )[:5]
+            else:
+                (toks, self._dtok, self._dpos, self._dact, self._drem,
+                 self._kc, self._vc) = self._decode(
+                    llama.decode_horizon_slots,
+                    self.params, self._dtok, self._dpos, self._dact,
+                    self._drem, self._deos, self._kc, self._vc, self.cfg,
+                    horizon=self.horizon, generator=self._gen,
+                    temperature=temperature, sampling=self._sampling,
+                )
         self.metrics.on_dispatch("decode")
-        self._push_block(toks)
+        flight.emit("serve.block", active=self.active_slots,
+                    horizon=self.horizon)
+        # chaos site: a crash HERE is the worst case — the cache was
+        # written in place, the carries are rebound, and the block's
+        # token matrix is about to be lost (its host copy not queued)
+        faults.fault_point("serve.dispatch")
+        self._push_block(toks, self._block_cost)
 
     def _dispatch_verify(self, drafts: Dict[int, List[int]]) -> None:
         """One speculative verify dispatch over every slot: the [B, D]
@@ -672,35 +856,71 @@ class ContinuousBatchingEngine:
             row = row[:d]
             dm[i, :len(row)] = row
             drafted[i] = len(row)
-        if self._paged:
-            # _ensure_cover maps max(horizon, K) positions ahead, so
-            # every position an accepted run can commit is private
-            table = self._dispatch_table()
-            (toks, self._dtok, self._dpos, self._dact,
-             self._drem) = llama.verify_step_slots_paged(
-                self.params, self._dtok, self._upload(dm), self._dpos,
-                self._dact, self._drem, self._deos, table, self._kc,
-                self._vc, self.cfg, block_size=self.block_size,
-                **self._kv_kwargs(),
-            )[:5]
-        else:
-            (toks, self._dtok, self._dpos, self._dact,
-             self._drem) = llama.verify_step_slots(
-                self.params, self._dtok, self._upload(dm), self._dpos,
-                self._dact, self._drem, self._deos, self._kc, self._vc,
-                self.cfg,
-            )[:5]
+        # _ensure_cover maps max(horizon, K) positions ahead, so every
+        # position an accepted run can commit is private
+        table = self._dispatch_table() if self._paged else None
+        rids = [s.rid for s in self._slots if s is not None]
+        with tracing.span("serving.dispatch", horizon=self.horizon,
+                          rids=rids, spec_k=d):
+            if self._paged:
+                key = (self.max_slots, self.pool_blocks, self._m,
+                       self.block_size, d)
+                prog = _program(
+                    ("verify-paged-q", self.kv_quant, self.cfg, *key)
+                    if self._ks is not None
+                    else ("verify-paged", self.cfg, *key), "serve.verify")
+                (toks, self._dtok, self._dpos, self._dact,
+                 self._drem) = prog(
+                    llama.verify_step_slots_paged,
+                    self.params, self._dtok, self._upload(dm), self._dpos,
+                    self._dact, self._drem, self._deos, table, self._kc,
+                    self._vc, self.cfg, block_size=self.block_size,
+                    **self._kv_kwargs(),
+                )[:5]
+            else:
+                prog = _program(
+                    ("verify", self.cfg, self.max_slots, self.max_len, d),
+                    "serve.verify")
+                (toks, self._dtok, self._dpos, self._dact,
+                 self._drem) = prog(
+                    llama.verify_step_slots,
+                    self.params, self._dtok, self._upload(dm), self._dpos,
+                    self._dact, self._drem, self._deos, self._kc, self._vc,
+                    self.cfg,
+                )[:5]
         self.metrics.on_dispatch("verify")
-        self._push_block(toks, drafted)
+        flight.emit("serve.block", active=self.active_slots,
+                    horizon=self.horizon, spec_k=d)
+        # chaos site: same worst case as the block dispatch
+        faults.fault_point("serve.dispatch")
+        self._push_block(toks, self._verify_cost, drafted)
 
     def _drain_one(self) -> int:
         """Read the OLDEST in-flight block's [B, H] token matrix and
         replay it into the host bookkeeping. Frozen lanes read -1."""
-        blk = self._inflight.popleft()
-        if blk.ready is not None:
-            blk.ready.synchronize()
-        out = blk.host.numpy()
-        self.metrics.on_block(self.clock() - blk.t_dispatch)
+        with tracing.span(
+            "serving.drain",
+            rids=[s.rid for s in self._slots if s is not None],
+        ):
+            blk = self._inflight.popleft()
+            # chaos site: the popped block is lost on a crash here — its
+            # tokens are still on the card (or in flight to the pinned
+            # copy), and recovery must regenerate them
+            faults.fault_point("serve.drain")
+            if blk.ready is not None:
+                blk.ready.synchronize()
+            out = blk.host.numpy()
+        # dispatch -> drained wall time: the decode granule of the
+        # latency decomposition
+        now = self.clock()
+        self.metrics.on_block(now - blk.t_dispatch)
+        # roofline accounting: the block's analytic cost over its busy
+        # window, clipped against the previous drain so the double
+        # buffer cannot charge overlapped time twice
+        self._eff.observe(
+            "decode", blk.cost, now - max(self._t_eff_last, blk.t_dispatch)
+        )
+        self._t_eff_last = now
         emitted = 0
         spec_drafted = spec_accepted = 0
         for i in range(self.max_slots):
@@ -732,6 +952,8 @@ class ContinuousBatchingEngine:
                 spec_drafted += nd
                 spec_accepted += acc
                 self._spec_policy.observe(sl.rid, nd, acc)
+                flight.emit("serve.verify", rid=sl.rid, drafted=nd,
+                            accepted=acc, emitted=n)
             if outcome:
                 self._finish(i, outcome)
         if blk.drafted is not None:
@@ -768,6 +990,9 @@ class ContinuousBatchingEngine:
         if dl is None or self.clock() <= dl:
             return False
         self.metrics.on_reject(req.rid, "timeout")
+        flight.emit("serve.reject", severity="warn", rid=req.rid,
+                    reason="timeout", shed=True,
+                    queued_s=round(self.clock() - req.submit_s, 6))
         self.results[req.rid] = RequestResult(
             rid=req.rid, tokens=[], outcome="timeout"
         )
@@ -797,7 +1022,8 @@ class ContinuousBatchingEngine:
                 emitted += self._drain_all()
             self._stale.discard(slot)
             if self._paged:
-                start = self._pg_setup_table(slot, req.prompt)
+                start = self._pg_setup_table(slot, req.prompt,
+                                             rid=req.rid)
                 if self.prefill_chunk and (
                     len(req.prompt) - start > self.prefill_chunk
                 ):
@@ -813,14 +1039,22 @@ class ContinuousBatchingEngine:
                     self._admit_seq += 1
                     self._admitting = None
                     self.metrics.on_admit(req.rid, len(req.prompt))
+                    flight.emit("serve.admit", rid=req.rid, slot=slot,
+                                prompt_len=len(req.prompt), chunked=True)
                     continue
-                tok0 = self._pg_prefill(slot, req.prompt, start,
-                                        req.max_new, req.eos_id)
+                tok0 = self._pg_prefill(
+                    slot, req.prompt, start, req.max_new, req.eos_id,
+                    site="serve.prefill", rid=req.rid,
+                )
                 self._pg_cache_insert(slot, req.prompt)
             else:
-                tok0 = self._prefill_into(slot, req.prompt, req.max_new,
-                                          req.eos_id)
+                tok0 = self._prefill_into(
+                    slot, req.prompt, req.max_new, req.eos_id,
+                    site="serve.prefill", rid=req.rid,
+                )
             self.metrics.on_admit(req.rid, len(req.prompt))
+            flight.emit("serve.admit", rid=req.rid, slot=slot,
+                        prompt_len=len(req.prompt))
             sl = _Slot(
                 rid=req.rid, prompt=list(req.prompt), max_new=req.max_new,
                 eos_id=req.eos_id, generated=[tok0],
@@ -841,17 +1075,20 @@ class ContinuousBatchingEngine:
 
     def _prefill_into(
         self, slot: int, seq: List[int], max_new: int,
-        eos_id: Optional[int], replay: bool = False,
+        eos_id: Optional[int], site: Optional[str] = None,
+        rid: Optional[str] = None, replay: bool = False,
     ) -> int:
         """Prefill ``seq`` into slot ``slot`` and return the first token
         (a host sync by design: the first token IS the TTFT sample).
         Contiguous: ``seq`` in its power-of-two bucket, K/V written into
         the slot's cache row. Paged: table set up (prefix hits mapped),
-        the rest prefilled through the pool. Shared by admission and
-        crash recovery (``seq`` = prompt + generated, ``replay``)."""
+        the rest prefilled through the pool. Shared by admission (the
+        ``site`` fault point armed) and crash recovery (``seq`` = prompt
+        + generated, ``replay``)."""
         if self._paged:
-            start = self._pg_setup_table(slot, seq)
-            tok0 = self._pg_prefill(slot, seq, start, max_new, eos_id)
+            start = self._pg_setup_table(slot, seq, rid=rid)
+            tok0 = self._pg_prefill(slot, seq, start, max_new, eos_id,
+                                    site=site, rid=rid, replay=replay)
             if not replay:
                 self._pg_cache_insert(slot, seq)
             return tok0
@@ -860,6 +1097,34 @@ class ContinuousBatchingEngine:
         toks = torch.zeros((1, tb), dtype=torch.long)
         toks[0, :t0] = torch.as_tensor(seq, dtype=torch.long)
         toks = toks.to(self.device)
+        t_pf = self.clock()
+        prefill = _program(("prefill", self.cfg, tb, self._sampling),
+                           "serve.prefill")
+        # request trace root DERIVED from the rid: the prefill span and
+        # the serve.prefill event share derived_trace_id("rid", rid)
+        # with the reference's, without any id exchange
+        rid_root = (
+            disttrace.root("rid", rid) if rid is not None
+            else contextlib.nullcontext()
+        )
+        with rid_root, tracing.span("serving.prefill", bucket=tb, rid=rid):
+            first = prefill(self._prefill_slot, slot, toks, t0, max_new,
+                            eos_id)
+            self.metrics.on_dispatch("prefill")
+            flight.emit("serve.prefill", rid=rid, slot=slot, bucket=tb,
+                        replay=replay)
+            if site is not None:
+                # chaos site (admission only — recovery replays are not
+                # re-faulted here, the dispatch sites cover them)
+                faults.fault_point(site)
+            return self._first_token(first, t_pf, tb)
+
+    def _prefill_slot(self, slot: int, toks: torch.Tensor, t0: int,
+                      max_new: int, eos_id: Optional[int]) -> torch.Tensor:
+        """The contiguous prefill program: ``toks`` [1, Tb] through the
+        model, its K/V into the slot's cache row, the first token
+        sampled (a device scalar) and the slot's decode state reset."""
+        tb = toks.shape[1]
         logits, ks, vs = llama.prefill_padded(
             self.params, toks, t0 - 1, self.cfg
         )
@@ -867,11 +1132,26 @@ class ContinuousBatchingEngine:
         self._vc[:, slot, :, :tb] = vs[:, 0].transpose(1, 2)
         return self._start_slot(slot, logits, t0, max_new, eos_id)
 
+    def _first_token(self, first: torch.Tensor, t_pf: float,
+                     tokens: int) -> int:
+        """Read a prefill's first token (the admission's sync point) and
+        charge the prefill of ``tokens`` positions to the efficiency
+        meter over its busy window since ``t_pf``."""
+        tok = int(first)
+        now = self.clock()
+        self._eff.observe(
+            "prefill", self._cost.prefill(tokens),
+            now - max(self._t_eff_last, t_pf),
+        )
+        self._t_eff_last = now
+        return tok
+
     def _start_slot(self, slot: int, logits: torch.Tensor, pos: int,
-                    max_new: int, eos_id: Optional[int]) -> int:
+                    max_new: int, eos_id: Optional[int]) -> torch.Tensor:
         """Sample the first token from a prefill's last-row ``logits``,
         reset the slot's device decode state (next write at ``pos``, a
-        ``max_new`` budget) and return the token."""
+        ``max_new`` budget) and return the token, still on the
+        device."""
         if self._sampling:
             first = llama._categorical(logits / self.temperature, self._gen)
         else:
@@ -885,8 +1165,7 @@ class ContinuousBatchingEngine:
         self._dact[slot] = ~hit & (max_new > 1)
         self._drem[slot] = max(max_new - 1, 0)
         self._deos[slot] = eos
-        self.metrics.on_dispatch("prefill")
-        return int(first)
+        return first
 
     # -- paged KV management ------------------------------------------------
     #
@@ -920,7 +1199,8 @@ class ContinuousBatchingEngine:
             avail += self._prefix.evictable()
         return avail >= needed
 
-    def _pg_setup_table(self, slot: int, seq: List[int]) -> int:
+    def _pg_setup_table(self, slot: int, seq: List[int],
+                        rid: Optional[str] = None) -> int:
         """Build slot ``slot``'s block table for ``seq``: map prefix-cache
         hits as SHARED entries (one ref each), allocate private blocks
         for the rest, and return the position prefill starts at. A FULL
@@ -946,10 +1226,16 @@ class ContinuousBatchingEngine:
             tbl[j] = self._pg_alloc_or_preempt(slot)
         if full:
             self._pg_make_writable(slot, nb - 1)
+        if hits:
+            self._ledger.count_prefix_hits(len(hits))
+            flight.emit("serve.prefix_hit", rid=rid,
+                        blocks=len(hits), full=full)
         return start
 
     def _pg_prefill(self, slot: int, seq: List[int], start: int,
-                    max_new: int, eos_id: Optional[int]) -> int:
+                    max_new: int, eos_id: Optional[int],
+                    site: Optional[str] = None, rid: Optional[str] = None,
+                    replay: bool = False) -> int:
         """Prefill positions ``start..len(seq)-1`` into the slot's mapped
         blocks and return the first generated token. With
         ``prefill_chunk`` the leading pieces run as chunk dispatches
@@ -958,28 +1244,50 @@ class ContinuousBatchingEngine:
         chunk = self.prefill_chunk
         if chunk:
             while len(seq) - start > chunk:
-                self._dispatch_prefill_chunk(slot, seq, start)
+                self._dispatch_prefill_chunk(slot, seq, start,
+                                             rid=rid, site=site)
                 start += chunk
-        return self._dispatch_prefill_final(slot, seq, start, max_new,
-                                            eos_id)
+        return self._dispatch_prefill_final(
+            slot, seq, start, max_new, eos_id,
+            site=site, rid=rid, replay=replay,
+        )
 
     def _dispatch_prefill_chunk(self, slot: int, seq: List[int],
-                                start: int) -> None:
+                                start: int, rid: Optional[str] = None,
+                                site: Optional[str] = None) -> None:
         """One non-final prefill chunk: K/V of ``prefill_chunk`` prompt
         tokens written into the slot's blocks; no logits used, no slot
         state touched."""
         c = self.prefill_chunk
         toks = self._upload(np.asarray(seq[start:start + c])[None, :])
+        t_pf = self.clock()
         table = self._upload(np.asarray(self._tables[slot]))
-        llama.prefill_paged(
-            self.params, toks, start, c - 1, table, self._kc, self._vc,
-            self.cfg, self.block_size, **self._kv_kwargs(),
-        )
-        self.metrics.on_dispatch("prefill")
+        prog = _program(
+            ("prefill-chunk-q", self.kv_quant, self.cfg, c, self.block_size)
+            if self._ks is not None
+            else ("prefill-chunk", self.cfg, c, self.block_size),
+            "serve.prefill")
+        with tracing.span("serving.prefill", bucket=c, rid=rid,
+                          chunk=True):
+            prog(llama.prefill_paged, self.params, toks, start, c - 1,
+                 table, self._kc, self._vc, self.cfg, self.block_size,
+                 **self._kv_kwargs())
+            self.metrics.on_dispatch("prefill")
+            flight.emit("serve.prefill_chunk", rid=rid, slot=slot,
+                        start=start, chunk=c)
+            if site is not None:
+                faults.fault_point(site)
+            now = self.clock()
+            self._eff.observe(
+                "prefill", self._cost.prefill(c),
+                now - max(self._t_eff_last, t_pf),
+            )
+            self._t_eff_last = now
 
     def _dispatch_prefill_final(
         self, slot: int, seq: List[int], start: int, max_new: int,
-        eos_id: Optional[int],
+        eos_id: Optional[int], site: Optional[str] = None,
+        rid: Optional[str] = None, replay: bool = False,
     ) -> int:
         """The bucketed TAIL of ``seq`` (positions ``start..``): prefill,
         sample the first token, reset the slot's decode state. Earlier
@@ -988,10 +1296,39 @@ class ContinuousBatchingEngine:
         tb = self._bucket(n)
         toks = np.zeros((1, tb), np.int64)
         toks[0, :n] = seq[start:]
+        t_pf = self.clock()
+        toks = self._upload(toks)
+        table = self._upload(np.asarray(self._tables[slot]))
+        prefill = _program(
+            ("prefill-paged-q", self.kv_quant, self.cfg, tb,
+             self.block_size, self._sampling)
+            if self._ks is not None
+            else ("prefill-paged", self.cfg, tb, self.block_size,
+                  self._sampling), "serve.prefill")
+        rid_root = (
+            disttrace.root("rid", rid) if rid is not None
+            else contextlib.nullcontext()
+        )
+        with rid_root, tracing.span("serving.prefill", bucket=tb, rid=rid):
+            first = prefill(self._prefill_paged_slot, slot, toks, start, n,
+                            table, max_new, eos_id)
+            self.metrics.on_dispatch("prefill")
+            flight.emit("serve.prefill", rid=rid, slot=slot, bucket=tb,
+                        replay=replay, start=start)
+            if site is not None:
+                faults.fault_point(site)
+            return self._first_token(first, t_pf, tb)
+
+    def _prefill_paged_slot(self, slot: int, toks: torch.Tensor,
+                            start: int, n: int, table: torch.Tensor,
+                            max_new: int, eos_id: Optional[int]
+                            ) -> torch.Tensor:
+        """The paged final-piece program: positions ``start..start+n-1``
+        through the model into the pool, the first token sampled (a
+        device scalar) and the slot's decode state reset."""
         logits = llama.prefill_paged(
-            self.params, self._upload(toks), start, n - 1,
-            self._upload(np.asarray(self._tables[slot])), self._kc,
-            self._vc, self.cfg, self.block_size, **self._kv_kwargs(),
+            self.params, toks, start, n - 1, table, self._kc, self._vc,
+            self.cfg, self.block_size, **self._kv_kwargs(),
         )[0]
         return self._start_slot(slot, logits, start + n, max_new, eos_id)
 
@@ -1006,12 +1343,15 @@ class ContinuousBatchingEngine:
                 continue
             start = sl.pf_next
             if len(sl.prompt) - start > self.prefill_chunk:
-                self._dispatch_prefill_chunk(i, sl.prompt, start)
+                self._dispatch_prefill_chunk(
+                    i, sl.prompt, start, rid=sl.rid, site="serve.prefill"
+                )
                 sl.pf_next = start + self.prefill_chunk
                 continue
             sl.pf_next = None
             tok0 = self._dispatch_prefill_final(
-                i, sl.prompt, start, sl.max_new, sl.eos_id
+                i, sl.prompt, start, sl.max_new, sl.eos_id,
+                site="serve.prefill", rid=sl.rid,
             )
             self._pg_cache_insert(i, sl.prompt)
             sl.generated.append(tok0)
@@ -1085,7 +1425,8 @@ class ContinuousBatchingEngine:
             return False
         _, i = max(victims)
         sl = self._slots[i]
-        log.warn("preempt", rid=sl.rid, slot=i, generated=len(sl.generated))
+        flight.emit("serve.preempt", severity="warn", rid=sl.rid,
+                    slot=i, generated=len(sl.generated))
         self._pg_free_slot(i)
         self._slots[i] = None
         self._stale.add(i)
@@ -1117,11 +1458,17 @@ class ContinuousBatchingEngine:
         if self._balloc.refcount(bid) <= 1:
             return
         dst = self._pg_alloc_or_preempt(slot)
-        for plane in (self._kc, self._vc, self._ks, self._vs):
-            if plane is not None:
-                plane[:, dst] = plane[:, bid]
+        self._copyblk(self._copy_block, bid, dst)
         tbl[j] = dst
         self._balloc.free(bid)
+        flight.emit("serve.kv_cow", slot=slot, block=j)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """The block-copy program: physical block ``src`` into ``dst``
+        across every layer, scales with values under quantization."""
+        for plane in (self._kc, self._vc, self._ks, self._vs):
+            if plane is not None:
+                plane[:, dst] = plane[:, src]
 
     def _finish(self, slot: int, outcome: str) -> None:
         sl = self._slots[slot]
@@ -1131,6 +1478,23 @@ class ContinuousBatchingEngine:
             rid=sl.rid, tokens=list(sl.generated), outcome=outcome
         )
         self.metrics.on_finish(sl.rid, outcome)
+        # the finish event carries the phase decomposition (and the
+        # tenant/SLO labels): a timeline shows WHERE the time went
+        phases = {
+            k: round(v, 6)
+            for k, v in self.metrics.phase_breakdown(sl.rid).items()
+        }
+        labels = {}
+        if sl.tenant is not None:
+            labels["tenant"] = sl.tenant
+        if sl.slo_class is not None:
+            labels["slo_class"] = sl.slo_class
+        flight.emit(
+            "serve.finish",
+            severity="info" if outcome in ("done", "eos") else "warn",
+            rid=sl.rid, outcome=outcome, tokens=len(sl.generated),
+            **labels, **phases,
+        )
         # bookkeeping only: the device row already froze (or is stale);
         # paged mode returns the slot's block references to the pool
         if self._paged:
@@ -1146,42 +1510,58 @@ class ContinuousBatchingEngine:
         finishes "failed"), drop in-flight blocks, reallocate the device
         state (pool, tables and prefix cache included), and re-prefill
         each surviving slot from ``prompt + generated``. A fault during
-        recovery recurses; the per-request bound makes it terminate."""
+        recovery recurses; the per-request bound makes it terminate. The
+        ``serve.recover`` event names every request replayed, and the
+        black box (``$EDL_BLACKBOX_DIR``) snapshots the ring before the
+        rebuild."""
         log.warn(
             "engine fault; recovering",
             error=f"{type(err).__name__}: {err}",
             inflight=len(self._inflight),
             live=self.active_slots,
         )
-        if self._admitting is not None:
-            req = self._admitting
-            self._admitting = None
-            req.recoveries += 1
-            if req.recoveries > self.max_recoveries:
-                self.results[req.rid] = RequestResult(
-                    rid=req.rid, tokens=[], outcome="failed"
-                )
-                self.metrics.on_finish(req.rid, "failed")
-            else:
-                self.queue.requeue_front(req)
-        live = []
-        for i, sl in enumerate(self._slots):
-            if sl is None:
-                continue
-            sl.recoveries += 1
-            if sl.recoveries > self.max_recoveries:
-                self._finish(i, "failed")
-            else:
-                live.append(i)
-        self.recoveries += 1
-        self.metrics.on_recovery(len(live))
-        self._alloc_device_state()
-        for i in live:
-            try:
-                self._replay_slot(i)
-            except Exception as e2:  # recovery is itself a boundary
-                self._recover(e2)
-                return
+        with tracing.span("serving.recover"):
+            requeued = None
+            if self._admitting is not None:
+                req = self._admitting
+                self._admitting = None
+                req.recoveries += 1
+                if req.recoveries > self.max_recoveries:
+                    self.results[req.rid] = RequestResult(
+                        rid=req.rid, tokens=[], outcome="failed"
+                    )
+                    self.metrics.on_finish(req.rid, "failed")
+                    flight.emit("serve.finish", severity="warn",
+                                rid=req.rid, outcome="failed", tokens=0)
+                else:
+                    self.queue.requeue_front(req)
+                    requeued = req.rid
+            live = []
+            for i, sl in enumerate(self._slots):
+                if sl is None:
+                    continue
+                sl.recoveries += 1
+                if sl.recoveries > self.max_recoveries:
+                    self._finish(i, "failed")
+                else:
+                    live.append(i)
+            self.recoveries += 1
+            self.metrics.on_recovery(len(live))
+            flight.emit(
+                "serve.recover", severity="warn",
+                error=f"{type(err).__name__}: {err}",
+                rids=[self._slots[i].rid for i in live],
+                requeued=requeued,
+                recovery_n=self.recoveries,
+            )
+            flight.crash_dump("serving", err)
+            self._alloc_device_state()
+            for i in live:
+                try:
+                    self._replay_slot(i)
+                except Exception as e2:  # recovery is itself a boundary
+                    self._recover(e2)
+                    return
 
     def _replay_slot(self, slot: int) -> None:
         """Re-prefill one live slot from ``prompt + generated``; the
@@ -1193,7 +1573,7 @@ class ContinuousBatchingEngine:
         seq = sl.prompt + sl.generated
         remaining = sl.max_new - len(sl.generated)
         tok = self._prefill_into(slot, seq, remaining, sl.eos_id,
-                                 replay=True)
+                                 rid=sl.rid, replay=True)
         sl.generated.append(tok)
         self.metrics.on_token(sl.rid)
         if sl.eos_id is not None and tok == sl.eos_id:

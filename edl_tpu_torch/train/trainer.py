@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from edl_tpu_torch.obs import compilewatch
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
                                         resolve_device)
@@ -286,12 +287,16 @@ def make_train_step(
     """Build ``step(state, batch) -> (state, {"loss"})``. The loss stays
     on the device (no host sync). ``tx`` built the state's optimizer
     (:meth:`TrainState.create`) and is not read again; a sharding
-    ``plan``/``mesh`` raises. The update is in place."""
+    ``plan``/``mesh`` raises. The update is in place. The factory's first
+    step lands in ``edl_compile_seconds{program="train.step"}`` (the
+    compile watch: what a first call costs, where the reference times
+    its jit)."""
     require_unsharded(plan, mesh, "make_train_step")
+    update = compilewatch.wrap(_apply_update, "train.step")
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         t = time.perf_counter()
-        state, loss = _apply_update(loss_fn, state, batch)
+        state, loss = update(loss_fn, state, batch)
         _record_dispatch(time.perf_counter() - t)
         return state, {"loss": loss}
 
@@ -308,18 +313,24 @@ def make_train_multistep(
     steps over a leading steps axis of ``batches`` (every leaf
     [K, ...]) in one call. ``metrics["losses"]`` holds all K per-step
     losses, ``"loss"`` the last. Semantically K calls of
-    :func:`make_train_step`."""
+    :func:`make_train_step`. The factory's first call lands in
+    ``edl_compile_seconds{program="train.multistep"}``."""
     require_unsharded(plan, mesh, "make_train_multistep")
 
-    def multi(state: TrainState, batches) -> Tuple[TrainState, Dict]:
-        t = time.perf_counter()
-        k = leaves(batches)[0].shape[0]
+    def run(state: TrainState, batches, k: int):
         losses = []
         for i in range(k):
             batch = {name: x[i] for name, x in batches.items()}
             state, loss = _apply_update(loss_fn, state, batch)
             losses.append(loss)
-        losses = torch.stack(losses)
+        return state, torch.stack(losses)
+
+    run = compilewatch.wrap(run, "train.multistep")
+
+    def multi(state: TrainState, batches) -> Tuple[TrainState, Dict]:
+        t = time.perf_counter()
+        k = leaves(batches)[0].shape[0]
+        state, losses = run(state, batches, k)
         _record_dispatch(time.perf_counter() - t, n_steps=k)
         return state, {"loss": losses[-1], "losses": losses}
 

@@ -3,14 +3,26 @@
 
 ``kv_logger("serving").info("engine ready", slots=8)`` renders
 ``msg key=value ...`` lines under the ``edl_tpu_torch`` logger tree.
-The reference's flight-recorder sink is not carried over: the port has
-no flight recorder yet.
+Warn and error lines also go to the flight-recorder sink when one is
+installed (``obs/events.py`` installs it at import), so they land on
+the same event timeline as the decisions around them.
 """
 
 from __future__ import annotations
 
 import logging
 from typing import Any
+
+# flight-recorder bridge: warn/error lines mirror into the process
+# event timeline when a recorder is installed (None = bridge off)
+_event_sink = None
+
+
+def set_event_sink(fn) -> None:
+    """Install ``fn(level, logger_name, msg, kv)`` as the warn/error
+    mirror, or None to detach."""
+    global _event_sink
+    _event_sink = fn
 
 
 class KVLogger:
@@ -32,9 +44,13 @@ class KVLogger:
 
     def warn(self, msg: str, **kv: Any) -> None:
         self._log.warning(self._render(msg, kv))
+        if _event_sink is not None:
+            _event_sink("warn", self._log.name, msg, kv)
 
     def error(self, msg: str, **kv: Any) -> None:
         self._log.error(self._render(msg, kv))
+        if _event_sink is not None:
+            _event_sink("error", self._log.name, msg, kv)
 
 
 def kv_logger(name: str) -> KVLogger:

@@ -392,3 +392,102 @@ def test_cuda_int8_matmul_raises_where_the_card_gemm_refuses(m, k, n,
     y = im.int8_matmul(a, w, True)
     da, dw = torch.autograd.grad(y, (a, w), g)
     assert bool(torch.isfinite(da).all() and torch.isfinite(dw).all())
+
+
+# -- observability on the card ------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_detect_peak_names_the_card(monkeypatch):
+    """``detect_peak`` reads the card's name: the H100 rows of the table,
+    or a raise for a card it does not name — unless both overrides are
+    set, which then give the peak."""
+    _need_card()
+    from edl_tpu_torch.obs import costmodel
+
+    monkeypatch.delenv("EDL_PEAK_TFLOPS", raising=False)
+    monkeypatch.delenv("EDL_PEAK_HBM_GBS", raising=False)
+    name = torch.cuda.get_device_name(0)
+    try:
+        want = costmodel.peak_for_kind(name)
+    except KeyError:
+        with pytest.raises(ValueError, match="EDL_PEAK_TFLOPS"):
+            costmodel.detect_peak("cuda")
+        monkeypatch.setenv("EDL_PEAK_TFLOPS", "100")
+        monkeypatch.setenv("EDL_PEAK_HBM_GBS", "1000")
+        p = costmodel.detect_peak("cuda")
+        assert (p.kind, p.flops, p.hbm_bytes_s) == (name + "+env", 1e14,
+                                                    1e12)
+        return
+    assert "H100" in name
+    assert costmodel.detect_peak("cuda") == want
+    assert costmodel.detect_peak() == want  # the current card by default
+    # a name the table does not hold raises on the card too
+    monkeypatch.setattr(torch.cuda, "get_device_name",
+                        lambda d=None: "NVIDIA B200")
+    with pytest.raises(ValueError, match="EDL_PEAK_HBM_GBS"):
+        costmodel.detect_peak("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_memledger_crosscheck_reads_the_allocator():
+    """On the card the cross-check returns numbers: the allocator's live
+    bytes hold at least the engine's registered kv + slot state."""
+    _need_card()
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.obs import memledger
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    eng = ContinuousBatchingEngine(params, cfg, max_slots=2, max_len=64,
+                                   device="cuda")
+    xc = memledger.default_ledger().crosscheck()
+    assert xc is not None
+    assert xc["live_bytes"] == float(torch.cuda.memory_allocated())
+    own = sum(memledger.default_ledger().owner_total(eng._ledger_owner, c)
+              for c in ("params", "kv", "slot_state"))
+    assert xc["ledger_bytes"] >= own > 0
+    assert xc["live_bytes"] >= own
+    assert xc["unaccounted_bytes"] == xc["live_bytes"] - xc["ledger_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["contiguous", "paged"])
+def test_cuda_fault_plan_recovery_gives_the_same_tokens(mode):
+    """Under ``serve.dispatch:raise@n=2;serve.drain:raise@n=5`` the card
+    recovers to the unfaulted card run's greedy tokens, and both
+    planned faults fired."""
+    _need_card()
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.utils import faults
+
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(cfg, seed=0, device="cuda")
+    kw = {"max_slots": 3, "max_len": 64, "horizon": 4, "max_recoveries": 3}
+    if mode == "paged":
+        kw.update(block_size=8, prefix_cache=True)
+
+    def run(plan):
+        eng = ContinuousBatchingEngine(params, cfg, device="cuda", **kw)
+        if plan:
+            faults.arm(plan, seed=0)
+        try:
+            for i, (prompt, max_new) in enumerate(_MODE_REQS[:3]):
+                eng.submit(f"r{i}", prompt, max_new)
+            eng.step()
+            for i, (prompt, max_new) in enumerate(_MODE_REQS[3:], start=3):
+                eng.submit(f"r{i}", prompt, max_new)
+            res = eng.run()
+            counts = faults.counts()
+        finally:
+            faults.disarm()
+        return ({rid: r.tokens for rid, r in res.items()}, eng.recoveries,
+                counts)
+
+    want, rec0, _ = run(None)
+    got, rec, counts = run("serve.dispatch:raise@n=2;serve.drain:raise@n=5")
+    assert rec0 == 0 and rec >= 1
+    assert counts == {"serve.dispatch": 1, "serve.drain": 1}
+    assert got == want
