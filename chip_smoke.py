@@ -185,16 +185,51 @@
    device-busy share and launches a step (``torch.profiler``), and with
    ``--profile`` its top kernels and their families.
 
+10. small_workloads phase: the small workloads trained on the card,
+   exported and scored through ``runtime/predict.predict_batch``.
+   fit_a_line: ``synthetic_dataset(4096, seed=0)``, batch 256 in order,
+   ``adam(1e-2)``, 500 steps through ``make_train_multistep`` (20 a
+   call); the final loss must be below 10 x noise^2 = 0.1, and 20 f32
+   steps on the card within 1e-5 of each leaf's largest entry of the
+   CPU's. ResNet-50 (``ResNetConfig.resnet50()``: widths 256-2048,
+   blocks 3/4/6/3, stem 128, GroupNorm 32, bf16 over f32 masters, ~340 M
+   params) on ``synthetic_batch`` at its own 32 x 32, batch 128, and
+   BERT-base (``BertConfig.base()``, B32 T512), each ``adam(1e-3)`` on
+   one batch: 2 warm-up steps, 3 timed loops of 6 steps (examples/s or
+   tokens/s, best and median), one profiled step (launches), and the
+   share of 989 TF/s from an analytic FLOP count (ResNet: 3 x the convs
+   and head; BERT: 6 x matmul params + attention a token); losses finite
+   and falling. Each model's gates at ``tiny()`` in f32, TF32 off: the
+   forward against this script's NumPy float64 forward of the
+   reference's math (``_np_resnet`` at 32 and 33 pixels, XLA's SAME
+   padding; ``_np_bert``, tanh GELU) within 1e-4 / 2e-5 of the largest
+   logit, and one Adam step on the card within 1e-4 of each leaf's
+   largest entry of the CPU's (loss, params, first moments). Then each
+   trained state is exported in bf16 (``export_params``), read back with
+   ``load_export`` and held to the params cast to bf16 bit for bit, and
+   256 rows are scored: ResNet's ``class`` and BERT's ``pred`` and
+   ``masked_acc`` equal to a direct chunked forward on the loaded
+   params. Last the flagship llama (bench.py:69, ``use_flash``, random
+   bf16 weights) is exported and 64 rows x 512 tokens scored through
+   ``lm_scan``: ``ppl`` finite, ``next_token`` equal to a direct
+   forward's, ``ln ppl`` within LOSS_RTOL (relative) of the dense
+   (``use_flash=False``) forward's, and exactly 16 primal flash
+   launches (one chunk x 16 layers), which the kernels line lists
+   under the primal forward's row at PREDICT_SHAPE (B64 T512 H16 KV8,
+   held to its plain version in the kernel phase). Prints export,
+   load and predict seconds.
+
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
 shape, and its launches on the main path; the three training kernels
 three times, at B4 T2048 with the train phase's launches and at each
 ladder rung's shape (the batch that fit) with that rung's launches,
 each with its launches on every training path, the int8 rungs' too;
-the primal forward four times, at B1 T1024 H32 with the slice's
-launches and at each decode rung's prefill shape with that rung's bf16
-and int8 launches, each with its launches on the slice, the int8
-serving runs and every decode rung), then the
+the primal forward five times, at B1 T1024 H32 with the slice's
+launches, at each decode rung's prefill shape with that rung's bf16
+and int8 launches and at the llama predict's B64 T512 with its
+launches, each with its launches on the slice, the int8 serving runs,
+every decode rung and the llama predict), then the
 card's name and power limit, then ``{"ok": true, "device": ...}`` as
 the last line. Any failure raises (non-zero exit); without CUDA it
 exits 1 before printing any result. Needs one card.
@@ -333,6 +368,10 @@ INT8_TREE_MOST = 0.55
 # at the rung's batch and prompt, held to its plain version in the
 # kernel phase
 DECODE_SHAPES = tuple((b, t0) + TRAIN_MAIN[2:] for b, t0, _ in DECODE_LADDER)
+# the llama predict's forward: one chunk of LM_PREDICT's 64 rows x 512
+# tokens through the flagship's attention, held to its plain version in
+# the kernel phase
+PREDICT_SHAPE = (64, 512) + TRAIN_MAIN[2:]
 
 
 def _smi() -> str:
@@ -396,11 +435,11 @@ def _check_out(got, want, what):
 
 
 def kernel_phase(card):
-    """The primal forward against its plain version at KERNEL_SHAPES and
-    DECODE_SHAPES (:func:`primal_kernel_row`); returns the rows by
-    shape."""
+    """The primal forward against its plain version at KERNEL_SHAPES,
+    DECODE_SHAPES and PREDICT_SHAPE (:func:`primal_kernel_row`); returns
+    the rows by shape."""
     return {shape: primal_kernel_row(shape, card)
-            for shape in (*KERNEL_SHAPES, *DECODE_SHAPES)}
+            for shape in (*KERNEL_SHAPES, *DECODE_SHAPES, PREDICT_SHAPE)}
 
 
 def primal_kernel_row(shape, card):
@@ -2528,6 +2567,580 @@ def _ctr_family(name):
     return "elementwise/other"
 
 
+# -- small_workloads phase -----------------------------------------------------
+
+# the card's f32 forward against _np_resnet / _np_bert (float64), of the
+# logits' largest magnitude: cuBLAS and cuDNN in f32 (TF32 off) sum in
+# other orders than NumPy (~1e-6 measured on the CPU); cuDNN's conv
+# algorithms are given 1e-4. An erf GELU moves the tiny BERT's logits
+# by ~2e-4 of their largest, a symmetric SAME pad the ResNet's by ~0.1.
+SMALL_REF_OF_MAX = {"resnet": 1e-4, "bert": 2e-5}
+# one f32 step (fit_a_line: 20) on the card against the CPU: the loss,
+# every param and Adam's first moment within these of each leaf's
+# largest entry
+SMALL_STEP_OF_MAX = {"fit_a_line": 1e-5, "resnet": 1e-4, "bert": 1e-4}
+FAL = {"n": 4096, "batch": 256, "steps": 500, "chunk": 20, "lr": 1e-2,
+       "noise": 0.1}
+RESNET = {"batch": 128, "size": 32, "warmup": 2, "steps": 6, "loops": 3}
+BERT = {"batch": 32, "seq": 512, "warmup": 2, "steps": 6, "loops": 3}
+PREDICT_ROWS = 256
+LM_PREDICT = (64, 512)  # rows x tokens of the flagship llama predict
+
+
+class _no_tf32:
+    """TF32 off in cuBLAS and cuDNN for an f32 agreement check (cuDNN's
+    default is on), restored after."""
+
+    def __enter__(self):
+        import torch
+
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def _np_conv(x, w, stride=1):
+    """NHWC x HWIO in float64 with XLA's SAME padding: (ceil(n/s) - 1) *
+    s + k - n in all, the low side the floor of half."""
+    n, h, wd, _ = x.shape
+    kh, kw, _, co = w.shape
+
+    def pads(size, k):
+        out = -(-size // stride)
+        total = max((out - 1) * stride + k - size, 0)
+        return (total // 2, total - total // 2), out
+
+    ph, oh = pads(h, kh)
+    pw, ow = pads(wd, kw)
+    xp = np.pad(x, ((0, 0), ph, pw, (0, 0)))
+    y = np.zeros((n, oh, ow, co))
+    for i in range(kh):
+        for j in range(kw):
+            y += xp[:, i:i + stride * (oh - 1) + 1:stride,
+                    j:j + stride * (ow - 1) + 1:stride, :] @ w[i, j]
+    return y
+
+
+def _np_gn(x, gn, groups, eps=1e-5):
+    n, h, w, c = x.shape
+    xg = x.reshape(n, h, w, groups, c // groups)
+    mu = xg.mean(axis=(1, 2, 4), keepdims=True)
+    var = ((xg - mu) ** 2).mean(axis=(1, 2, 4), keepdims=True)
+    y = ((xg - mu) / np.sqrt(var + eps)).reshape(n, h, w, c)
+    return y * gn["g"] + gn["b"]
+
+
+def _np_resnet(p, images, groups):
+    """The reference's ResNet forward (edl_tpu/models/resnet.py:153) in
+    NumPy float64: logits [B, classes]."""
+    p = _np64(p)
+    x = np.maximum(_np_gn(_np_conv(np.float64(images), p["stem"]),
+                          p["stem_gn"], groups), 0)
+    for si, stage in enumerate(p["stages"]):
+        for bi, blk in enumerate(stage):
+            s = 2 if bi == 0 and si > 0 else 1
+            y = np.maximum(_np_gn(_np_conv(x, blk["conv1"], s), blk["gn1"],
+                                  groups), 0)
+            y = _np_gn(_np_conv(y, blk["conv2"]), blk["gn2"], groups)
+            sc = (_np_conv(x, blk["proj"], s) if "proj" in blk
+                  else x[:, ::s, ::s])
+            x = np.maximum(y + sc, 0)
+    return x.mean(axis=(1, 2)) @ p["head"]["w"] + p["head"]["b"]
+
+
+def _np_ln(x, g, b, eps):
+    mu = x.mean(-1, keepdims=True)
+    var = ((x - mu) ** 2).mean(-1, keepdims=True)
+    return (x - mu) / np.sqrt(var + eps) * g + b
+
+
+def _np_bert(p, tokens, n_heads, eps):
+    """The reference's BERT forward (edl_tpu/models/bert.py:155) in
+    NumPy float64, tanh GELU: logits [B, T, vocab]."""
+    p = _np64(p)
+    b, t = tokens.shape
+    x = p["embed"][tokens] + p["pos_embed"][None, :t]
+    layers = p["layers"]
+    for i in range(layers["wqkv"].shape[0]):
+        lp = {k: v[i] for k, v in layers.items()}
+        d = x.shape[-1]
+        hd = d // n_heads
+        a = _np_ln(x, lp["ln1_g"], lp["ln1_b"], eps)
+        qkv = (a @ lp["wqkv"]).reshape(b, t, 3, n_heads, hd)
+        s = np.einsum("bthd,bshd->bhts", qkv[:, :, 0], qkv[:, :, 1])
+        s = np.exp(s / np.sqrt(hd) - (s / np.sqrt(hd)).max(-1, keepdims=True))
+        probs = s / s.sum(-1, keepdims=True)
+        o = np.einsum("bhts,bshd->bthd", probs, qkv[:, :, 2])
+        x = x + o.reshape(b, t, d) @ lp["wo"]
+        u = _np_ln(x, lp["ln2_g"], lp["ln2_b"], eps) @ lp["w_up"] + lp["b_up"]
+        u = 0.5 * u * (1 + np.tanh(np.sqrt(2 / np.pi) * (u + 0.044715 * u ** 3)))
+        x = x + u @ lp["w_down"] + lp["b_down"]
+    return _np_ln(x, p["ln_f_g"], p["ln_f_b"], eps) @ p["mlm_head"]
+
+
+def _np64(tree):
+    if isinstance(tree, dict):
+        return {k: _np64(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np64(v) for v in tree]
+    if hasattr(tree, "detach"):
+        tree = tree.detach().cpu().numpy()
+    return np.asarray(tree, np.float64)
+
+
+def _small_reference_check(model, device):
+    """The port's tiny ``model`` in f32 on ``device`` against the
+    reference's math in NumPy float64 (``_np_resnet`` at 32 x 32 and 33
+    x 33, ``_np_bert`` at B3 T24): the logits within
+    SMALL_REF_OF_MAX[model] of their largest magnitude. Returns the
+    errors; raises AssertionError naming the model."""
+    import torch
+
+    from edl_tpu_torch.models import bert, resnet
+
+    gen = torch.Generator().manual_seed(7)
+    errs = {}
+    with _no_tf32(), torch.no_grad():
+        if model == "resnet":
+            cfg = resnet.ResNetConfig.tiny()
+            params = resnet.init_params(gen, cfg, device="cpu")
+            dev_params = _to(params, device)
+            for size in (32, 33):
+                x = resnet.synthetic_batch(np.random.RandomState(size), 3,
+                                           size=size)["images"]
+                got = resnet.forward(dev_params, torch.from_numpy(x).to(device),
+                                     cfg).cpu().numpy()
+                want = _np_resnet(params, x, cfg.groups)
+                errs[f"size{size}"] = float(np.abs(got - want).max()
+                                            / np.abs(want).max())
+        else:
+            cfg = bert.BertConfig.tiny()
+            params = bert.init_params(gen, cfg, device="cpu")
+            toks = bert.synthetic_mlm_batch(np.random.RandomState(0), 3, 24,
+                                            cfg.vocab)["tokens"]
+            got = bert.forward(_to(params, device),
+                               torch.from_numpy(toks).to(device),
+                               cfg).cpu().numpy()
+            want = _np_bert(params, toks, cfg.n_heads, cfg.norm_eps)
+            errs["logits"] = float(np.abs(got - want).max()
+                                   / np.abs(want).max())
+    if not max(errs.values()) <= SMALL_REF_OF_MAX[model]:
+        raise AssertionError(
+            f"{model} tiny f32 on {device} vs the NumPy reference: {errs} "
+            f"of the largest logit (limit {SMALL_REF_OF_MAX[model]})")
+    return errs
+
+
+def _to(tree, device):
+    from edl_tpu_torch.utils.tree import leaves, replace_leaves
+
+    return replace_leaves(tree, [p.to(device, copy=True)
+                                 for p in leaves(tree)])
+
+
+def _small_model(model, device):
+    """(params on the CPU, loss_fn, host batch) of a small f32 case:
+    fit_a_line's first 256 rows, or tiny ResNet / BERT."""
+    import torch
+
+    from edl_tpu_torch.models import bert, linreg, resnet
+
+    gen = torch.Generator().manual_seed(3)
+    if model == "fit_a_line":
+        x, y = linreg.synthetic_dataset(256, seed=3)
+        return (linreg.init_params(gen, device="cpu"), linreg.loss_fn,
+                {"x": x, "y": y})
+    if model == "resnet":
+        cfg = resnet.ResNetConfig.tiny()
+        return (resnet.init_params(gen, cfg, device="cpu"),
+                resnet.make_loss_fn(cfg),
+                resnet.synthetic_batch(np.random.RandomState(3), 8))
+    cfg = bert.BertConfig.tiny()
+    return (bert.init_params(gen, cfg, device="cpu"), bert.make_loss_fn(cfg),
+            bert.synthetic_mlm_batch(np.random.RandomState(3), 4, 32,
+                                     cfg.vocab))
+
+
+def _small_step_agreement(model, device):
+    """f32 Adam steps of a small ``model`` case on ``device`` and on the
+    CPU (fit_a_line: 20 at adam(1e-2); ResNet and BERT tiny: one at
+    adam(1e-3)): the worst difference of the loss, every param and
+    every first moment, of each leaf's largest entry. Raises beyond
+    SMALL_STEP_OF_MAX[model]."""
+    import torch
+
+    from edl_tpu_torch.train import trainer
+
+    host, loss_fn, nb = _small_model(model, device)
+    steps, lr = (20, FAL["lr"]) if model == "fit_a_line" else (1, 1e-3)
+    out = []
+    with _no_tf32():
+        for dev in ("cpu", device):
+            tx = trainer.adam(lr)
+            st = trainer.TrainState.create(_to(host, dev), tx)
+            step = trainer.make_train_step(loss_fn, tx)
+            batch = trainer.global_batch(nb, device=dev)
+            for _ in range(steps):
+                st, m = step(st, batch)
+            out.append(([m["loss"].detach().reshape(1).cpu()]
+                        + [p.detach().cpu() for p in trainer.leaves(st.params)]
+                        + [t.cpu() for _, n, t, _ in
+                           trainer.optimizer_tensors(st) if n == "exp_avg"]))
+    worst = max(float((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                for a, b in zip(*out))
+    if not worst <= SMALL_STEP_OF_MAX[model]:
+        raise AssertionError(
+            f"{model}: {steps} f32 step(s) on {device} vs the CPU differ by "
+            f"{worst} of a leaf's largest entry (limit "
+            f"{SMALL_STEP_OF_MAX[model]})")
+    return worst
+
+
+def _fit_a_line(device, steps=FAL["steps"]):
+    """The fit_a_line recipe: ``synthetic_dataset(4096, seed=0)``, batch
+    256 in order (step i takes rows 256 (i mod 16) onward), ``adam(1e-2)``
+    through ``make_train_multistep``, FAL["chunk"] steps a call."""
+    import torch
+
+    from edl_tpu_torch.models import linreg
+    from edl_tpu_torch.train import trainer
+
+    x, y = linreg.synthetic_dataset(FAL["n"], seed=0, noise=FAL["noise"])
+    nb = FAL["n"] // FAL["batch"]
+    batches = [{"x": x[(i % nb) * FAL["batch"]:(i % nb + 1) * FAL["batch"]],
+                "y": y[(i % nb) * FAL["batch"]:(i % nb + 1) * FAL["batch"]]}
+               for i in range(steps)]
+    stacked = trainer.stack_batches(batches, device=device)
+    tx = trainer.adam(FAL["lr"])
+    state = trainer.TrainState.create(
+        linreg.init_params(torch.Generator().manual_seed(0), device=device),
+        tx)
+    multi = trainer.make_train_multistep(linreg.loss_fn, tx)
+    losses = []
+    t0 = time.perf_counter()
+    for s in range(0, steps, FAL["chunk"]):
+        state, m = multi(state, {k: v[s:s + FAL["chunk"]]
+                                 for k, v in stacked.items()})
+        losses.append(m["losses"])
+    losses = [float(v) for v in torch.cat(losses)]
+    wall = time.perf_counter() - t0
+    return {"losses": losses[::50] + [losses[-1]], "final_loss": losses[-1],
+            "steps": steps, "steps_per_s": steps / wall}
+
+
+def _small_train(loss_fn, params, batch, spec, per_step, unit):
+    """``adam(1e-3)`` through ``make_train_step`` on one batch (the loss
+    must fall on it): spec["warmup"] steps, then spec["loops"] timed
+    loops of spec["steps"] steps, then one step under torch.profiler.
+    Returns the state, every loss, ``unit``/s (``per_step`` a step; best,
+    median and each loop) and launches a step."""
+    import torch
+
+    from edl_tpu_torch.train import trainer
+
+    tx = trainer.adam(1e-3)
+    state = trainer.TrainState.create(params, tx)
+    step = trainer.make_train_step(loss_fn, tx)
+    losses = []
+    for _ in range(spec["warmup"]):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(spec["loops"]):
+        t0 = time.perf_counter()
+        for _ in range(spec["steps"]):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        rates.append(per_step * spec["steps"] / (time.perf_counter() - t0))
+    holder = {}
+
+    def one():
+        holder["state"], holder["m"] = step(state, batch)
+
+    kernels, launches = _device_kernels(_profiled(one))
+    state = holder["state"]
+    losses = [float(v) for v in losses + [holder["m"]["loss"]]]
+    _falling(losses)
+    families = {}
+    for name, ms in kernels.items():
+        fam = _small_family(name)
+        families[fam] = families.get(fam, 0.0) + ms
+    step_ms = 1e3 * per_step / float(np.median(rates))
+    device_ms = sum(kernels.values())
+    return state, {"losses": losses, f"{unit}_per_s_best": max(rates),
+                   f"{unit}_per_s_median": float(np.median(rates)),
+                   f"{unit}_per_s_loops": rates,
+                   "launches_per_step": launches, "step_ms": step_ms,
+                   # the profiled step's kernel time over the median
+                   # step's wall time
+                   "device_ms_per_step": device_ms,
+                   "busy_share": device_ms / step_ms,
+                   "device_ms_by_family": families,
+                   "top_kernels": _top(kernels, 5, 60)}
+
+
+def _small_family(name):
+    """The train profile's kernel families, with the small models' own:
+    norms (Group/LayerNorm, their moments) and softmax (BERT's attention
+    beside the loss's)."""
+    n = name.lower()
+    if "norm" in n or "moments" in n:
+        return "norm"
+    if "softmax" in n:
+        return "softmax"
+    return _kernel_family(name)
+
+
+def _falling(losses):
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+
+
+def _export_roundtrip(root, params, meta):
+    """Export ``params`` as bf16 with ``export_params``, read the latest
+    export back with ``load_export`` onto the card and hold it to the
+    trained params cast to bf16, bit for bit. Returns (the loaded
+    params, manifest, export seconds, load seconds)."""
+    import torch
+
+    from edl_tpu_torch.runtime import checkpoint, export
+    from edl_tpu_torch.utils.device import tree_device
+
+    t0 = time.perf_counter()
+    export.export_params(root, params, step=7, dtype="bfloat16",
+                         model_meta=meta)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        loaded, doc = export.load_export(root, device=tree_device(params))
+    except Exception as e:  # a missing, torn or unreadable export
+        raise AssertionError(f"export under {root} does not load: {e!r}")
+    t_load = time.perf_counter() - t0
+    want = dict(checkpoint._leaf_keys(params))
+    got = dict(checkpoint._leaf_keys(loaded))
+    if got.keys() != want.keys() or doc.get("model") != meta:
+        raise AssertionError(f"export keys or record differ: "
+                             f"{sorted(set(got) ^ set(want))}, {doc.get('model')}")
+    for k, w in want.items():
+        w = w.detach().to(torch.bfloat16)
+        if got[k].dtype != torch.bfloat16 or not torch.equal(got[k], w):
+            raise AssertionError(f"export leaf {k} is not the bf16 params")
+    return loaded, doc, t_export, t_load
+
+
+def _chunked(fn, x):
+    """``fn`` over CHUNK-row slices of host rows ``x``, on the card,
+    with grad off: the outputs concatenated on the host."""
+    import torch
+
+    from edl_tpu_torch.models.evals import CHUNK
+
+    with torch.no_grad():
+        return np.concatenate([
+            fn(torch.from_numpy(x[s:s + CHUNK]).cuda()).cpu().numpy()
+            for s in range(0, len(x), CHUNK)])
+
+
+def small_workloads_phase(card):
+    """fit_a_line, ResNet-50 and BERT-base trained on the card, each
+    exported and scored through ``predict_batch``, and the flagship llama
+    exported and scored through ``lm_scan``. Returns the flash launches
+    of the llama predict."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch.models import bert, evals, llama, resnet
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.runtime import export, predict
+    from edl_tpu_torch.utils.tree import leaves
+
+    t_phase = time.perf_counter()
+    rows = []
+
+    # fit_a_line
+    t_part = time.perf_counter()
+    fal = _fit_a_line("cuda")
+    if not fal["final_loss"] < 10 * FAL["noise"] ** 2:
+        raise AssertionError(f"fit_a_line final loss {fal['final_loss']} "
+                             f">= {10 * FAL['noise'] ** 2}")
+    rows.append({"phase": "small_workloads", "model": "fit_a_line",
+                 "recipe": "synthetic_dataset(4096), batch 256, adam(1e-2)",
+                 **fal, "loss_gate": 10 * FAL["noise"] ** 2,
+                 "card_vs_cpu_20_steps_of_max": _small_step_agreement(
+                     "fit_a_line", "cuda"),
+                 "part_s": time.perf_counter() - t_part, "card": card})
+    print(json.dumps(rows[-1]), flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="edl_small_") as tmp:
+        # ResNet-50 at full width
+        t_part = time.perf_counter()
+        ref_err = _small_reference_check("resnet", "cuda")
+        agree = _small_step_agreement("resnet", "cuda")
+        cfg = resnet.ResNetConfig.resnet50()
+        params = resnet.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                    cfg, device="cuda")
+        nparams = sum(p.numel() for p in leaves(params))
+        nb = resnet.synthetic_batch(np.random.RandomState(0), RESNET["batch"],
+                                    size=RESNET["size"])
+        batch = {k: torch.from_numpy(v).cuda() for k, v in nb.items()}
+        state, run = _small_train(resnet.make_loss_fn(cfg), params, batch,
+                                  RESNET, RESNET["batch"], "examples")
+        flops = 3 * resnet.forward_flops(cfg, RESNET["size"])
+        del batch
+        loaded, doc, t_exp, t_load = _export_roundtrip(
+            os.path.join(tmp, "resnet"), state.params, cfg.to_meta())
+        del state, params
+        torch.cuda.empty_cache()
+        pr = resnet.synthetic_batch(np.random.RandomState(1), PREDICT_ROWS,
+                                    size=RESNET["size"])
+        t0 = time.perf_counter()
+        out = predict.predict_batch(loaded, doc, pr)
+        t_pred = time.perf_counter() - t0
+        direct = _chunked(lambda x: resnet.forward(loaded, x, cfg).argmax(-1),
+                          pr["images"])
+        if not np.array_equal(out["class"], direct):
+            raise AssertionError("resnet predict class != a direct forward's")
+        del loaded
+        rows.append({
+            "phase": "small_workloads", "model": "resnet50 (ResNetConfig."
+            "resnet50)", "params": nparams, "batch": RESNET["batch"],
+            "image": RESNET["size"], "dtype": "bfloat16 over f32 masters",
+            "optimizer": "adam(1e-3)", **run,
+            "train_flops_per_example": flops,
+            "conv_flop_share": (flops * run["examples_per_s_best"]
+                                / PEAK_BF16_FLOPS),
+            "tiny_vs_numpy_of_max": ref_err,
+            "tiny_card_vs_cpu_step_of_max": agree,
+            "export_s": t_exp, "load_export_s": t_load,
+            "predict_s": t_pred, "predict_rows": PREDICT_ROWS,
+            "predict_acc": out["acc"],
+            "part_s": time.perf_counter() - t_part, "card": card})
+        print(json.dumps(rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+
+        # BERT-base at full width
+        t_part = time.perf_counter()
+        ref_err = _small_reference_check("bert", "cuda")
+        agree = _small_step_agreement("bert", "cuda")
+        cfg = bert.BertConfig.base()
+        params = bert.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                  cfg, device="cuda")
+        nparams = sum(p.numel() for p in leaves(params))
+        nb = bert.synthetic_mlm_batch(np.random.RandomState(0), BERT["batch"],
+                                      BERT["seq"], cfg.vocab)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in nb.items()}
+        tokens = BERT["batch"] * BERT["seq"]
+        state, run = _small_train(bert.make_loss_fn(cfg), params, batch, BERT,
+                                  tokens, "tokens")
+        flops_tok = bert.train_flops_per_token(cfg, BERT["seq"])
+        del batch
+        loaded, doc, t_exp, t_load = _export_roundtrip(
+            os.path.join(tmp, "bert"), state.params, cfg.to_meta())
+        del state, params
+        torch.cuda.empty_cache()
+        pr = bert.synthetic_mlm_batch(np.random.RandomState(1), PREDICT_ROWS,
+                                      BERT["seq"], cfg.vocab)
+        t0 = time.perf_counter()
+        out = predict.predict_batch(loaded, doc, pr)
+        t_pred = time.perf_counter() - t0
+        direct = _chunked(lambda x: bert.forward(loaded, x, cfg).argmax(-1)
+                          .to(torch.int32), pr["tokens"])
+        mask = pr["mask"] > 0
+        acc = float((direct[mask] == pr["targets"][mask]).sum() / mask.sum())
+        if not (np.array_equal(out["pred"], direct)
+                and out["masked_acc"] == acc):
+            raise AssertionError(
+                f"bert predict != a direct forward's (masked_acc "
+                f"{out['masked_acc']} vs {acc})")
+        del loaded
+        rows.append({
+            "phase": "small_workloads", "model": "bert_base (BertConfig.base)",
+            "params": nparams, "batch": BERT["batch"], "seq": BERT["seq"],
+            "dtype": "bfloat16 over f32 masters", "optimizer": "adam(1e-3)",
+            **run, "train_flops_per_token": flops_tok,
+            "mfu": flops_tok * run["tokens_per_s_best"] / PEAK_BF16_FLOPS,
+            "tiny_vs_numpy_of_max": ref_err,
+            "tiny_card_vs_cpu_step_of_max": agree,
+            "export_s": t_exp, "load_export_s": t_load,
+            "predict_s": t_pred, "predict_rows": PREDICT_ROWS,
+            "predict_masked_acc": out["masked_acc"],
+            "part_s": time.perf_counter() - t_part, "card": card})
+        print(json.dumps(rows[-1]), flush=True)
+        torch.cuda.empty_cache()
+
+        # the flagship llama: exported with random weights, scored
+        t_part = time.perf_counter()
+        cfg = dataclasses.replace(_flagship_train_config(), remat=False)
+        params = llama.init_params(cfg, seed=0, device="cuda")
+        root = os.path.join(tmp, "llama")
+        t0 = time.perf_counter()
+        export.export_params(root, params, step=1, model_meta=cfg.to_meta())
+        t_exp = time.perf_counter() - t0
+        del params
+        t0 = time.perf_counter()
+        loaded, doc = predict.load_params_for_predict(root, device="cuda")
+        t_load = time.perf_counter() - t0
+        n, t = LM_PREDICT
+        toks = llama.synthetic_tokens(np.random.RandomState(2), n, t - 1,
+                                      cfg.vocab)["tokens"]
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        out = predict.predict_batch(loaded, doc, {"tokens": toks})
+        t_pred = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        want = {k: 0 for k in counts}
+        want["flash_fwd"] = cfg.n_layers * -(-n // predict._CHUNK)
+        if counts != want:
+            raise AssertionError(f"llama predict launches {counts}, want "
+                                 f"{want}")
+        lcfg = llama.LlamaConfig.from_meta(doc["model"])
+        direct = _chunked(lambda x: llama.forward(loaded, x, lcfg)
+                          [:, -1].argmax(-1).to(torch.int32), toks)
+        # the same CE through plain attention: the one check of this
+        # path that does not run the flash kernel on both sides
+        dense = dataclasses.replace(lcfg, use_flash=False)
+        with torch.no_grad():
+            dense_ppl = evals.lm_ppl(
+                lambda p, x: llama.forward(p, x, dense), loaded, toks)
+        rel = abs(math.log(out["ppl"]) - math.log(dense_ppl)) / abs(
+            math.log(dense_ppl))
+        if not (math.isfinite(out["ppl"]) and rel <= LOSS_RTOL
+                and np.array_equal(out["next_token"], direct)):
+            raise AssertionError(
+                f"llama predict: ppl {out['ppl']} vs dense {dense_ppl} "
+                f"(ln rel {rel:.3g} > {LOSS_RTOL}?), next_token equal to "
+                f"a direct forward's: "
+                f"{np.array_equal(out['next_token'], direct)}")
+        del loaded
+        rows.append({
+            "phase": "small_workloads", "model": "llama flagship (bench.py:69,"
+            " use_flash)", "export": "bfloat16", "rows": n, "tokens": t,
+            "export_s": t_exp, "load_export_s": t_load, "predict_s": t_pred,
+            "ppl": out["ppl"], "dense_ppl": dense_ppl,
+            "ln_ppl_rel_diff": rel, "ln_ppl_rtol": LOSS_RTOL,
+            "flash_launches": counts,
+            "part_s": time.perf_counter() - t_part, "card": card})
+        print(json.dumps(rows[-1]), flush=True)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "small_workloads_summary",
+                      "seconds": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return counts["flash_fwd"]
+
+
 def main() -> int:
     try:
         import torch
@@ -2607,6 +3220,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     decode_launches = timed("decode_ladder", decode_ladder_phase, card)
     timed("ctr", ctr_phase, card, profile)
+    predict_launches = timed("small_workloads", small_workloads_phase, card)
     print(json.dumps({"phase": "seconds", **seconds,
                       "total": time.perf_counter() - t0}), flush=True)
 
@@ -2666,19 +3280,22 @@ def main() -> int:
             trainers.append(e)
 
     # the primal forward: at the slice's largest prefill (the
-    # 1000-token prompt's bucket; launches: the slice's requests) and at
+    # 1000-token prompt's bucket; launches: the slice's requests), at
     # each decode rung's prefill shape (launches: that rung's bf16 and
-    # int8 generates); launches of every serving path beside them
+    # int8 generates) and at the llama predict's chunk (launches: its
+    # 16 layers); launches of every serving path beside them
     primal_paths = {
         "slice (bf16)": launches,
         "obs (bf16, warm replay)": obs_launches,
         **{f"int8_serving {k}": n for k, n in int8_serve.items()},
         **{f"decode_ladder {w} b{b}": n
-           for (w, b), n in decode_launches.items()}}
+           for (w, b), n in decode_launches.items()},
+        "predict llama (flagship export, 64 x 512)": predict_launches}
     primals = []
-    for shape in (SLICE_MAIN, *DECODE_SHAPES):
+    for shape in (SLICE_MAIN, *DECODE_SHAPES, PREDICT_SHAPE):
         r = rows[shape]
         launched = (launches if shape == SLICE_MAIN else
+                    predict_launches if shape == PREDICT_SHAPE else
                     sum(n for (_, b), n in decode_launches.items()
                         if b == shape[0]))
         err = (max(rows[k]["max_abs_err"] for k in KERNEL_SHAPES)

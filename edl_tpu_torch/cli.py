@@ -1,9 +1,18 @@
-"""``python -m edl_tpu_torch serve`` — the port of ``edl serve``
-(``edl_tpu/cli/main.py``): the contiguous and paged KV caches, the
-prefix cache, chunked prefill, quantized KV, speculative decoding and
-weight-only int8 params (``--int8``).
+"""``python -m edl_tpu_torch serve`` and ``predict`` — the ports of
+``edl serve`` and ``edl predict`` (``edl_tpu/cli/main.py``).
 
-Reads the same JSONL request feed and the same export directory as the
+``serve``: the contiguous and paged KV caches, the prefix cache, chunked
+prefill, quantized KV, speculative decoding and weight-only int8 params
+(``--int8``). ``--mesh`` is not ported yet.
+
+``predict``: scores an ``.npz`` of rows against a published export of
+any ported family (ctr, resnet, bert, llama) and prints the reference
+verb's summary line (``predicted N rows (family=F, step=S) metric=v
+...``); ``--out`` writes the per-row outputs to an ``.npz``. Not ported
+yet: ``--mesh``, ``--data-dir`` and the moe family, each exit 1 with
+"not ported yet".
+
+``serve`` reads the same JSONL request feed and the same export directory as the
 reference verb and prints the same per-request JSON records on stdout
 (submit order): ``id``, ``tokens``, ``outcome``, ``ttft_s``,
 ``tokens_per_s``, or ``outcome: rejected:<reason>`` with ``error``. The
@@ -275,10 +284,65 @@ def run_serve(args) -> int:
     return 0
 
 
+def run_predict(args) -> int:
+    """Score a batch of rows against a published export — the serving
+    consumer for every family. Family dispatch, input decoding and the
+    chunked forwards live in runtime/predict.py; this verb is argument
+    plumbing, with the reference verb's messages and return codes."""
+    import numpy as np
+
+    from edl_tpu_torch.runtime.predict import (load_params_for_predict,
+                                               load_rows, predict_batch)
+    from edl_tpu_torch.utils.device import resolve_device
+
+    if args.mesh:
+        print("--mesh is not ported yet (ROADMAP Queue A)", file=sys.stderr)
+        return 1
+    try:
+        rows = load_rows(args.input, args.data_dir, n_rows=args.rows)
+    except (ValueError, FileNotFoundError) as e:
+        print(f"bad input: {e}", file=sys.stderr)
+        return 1
+    except NotImplementedError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    try:
+        device = resolve_device(args.device)
+        params, doc = load_params_for_predict(args.export_dir, device=device)
+    except (FileNotFoundError, RuntimeError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    except ValueError as e:
+        print(f"predict failed: {e}", file=sys.stderr)
+        return 1
+    try:
+        out = predict_batch(params, doc, rows)
+    except (ValueError, NotImplementedError) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    family = (doc.get("model") or {}).get("family")
+    arrays = {k: v for k, v in out.items() if isinstance(v, np.ndarray)}
+    metrics = {k: v for k, v in out.items() if not isinstance(v, np.ndarray)}
+    n = len(next(iter(arrays.values()))) if arrays else 0
+    summary = " ".join(f"{k}={v:.6g}" for k, v in sorted(metrics.items()))
+    print(
+        f"predicted {n} rows (family={family}, step={doc['step']})"
+        + (f" {summary}" if summary else "")
+    )
+    if args.out:
+        np.savez(args.out, **arrays)
+        print(f"outputs -> {args.out}")
+    else:
+        for k, v in sorted(arrays.items()):
+            head = np.asarray(v).reshape(len(v), -1)[:8, 0]
+            print(f"{k}[:8] = {head.tolist()}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m edl_tpu_torch",
-        description="PyTorch/CUDA port of the edl serving path",
+        description="PyTorch/CUDA port of the edl serving verbs",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     sv = sub.add_parser(
@@ -360,6 +424,32 @@ def build_parser() -> argparse.ArgumentParser:
     # accepted so a reference command line fails with a clear message
     sv.add_argument("--mesh", default="")
     sv.set_defaults(fn=run_serve)
+
+    pr = sub.add_parser(
+        "predict",
+        help="score a batch of rows against a published export "
+        "(families ctr/resnet/bert/llama)",
+    )
+    pr.add_argument("export_dir")
+    pr.add_argument(
+        "--input", default=None,
+        help=".npz of input rows (family keys: ctr dense/sparse[/label], "
+        "resnet images[/label], bert/llama tokens)",
+    )
+    pr.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    pr.add_argument(
+        "--rows", type=int, default=256,
+        help="row count when reading --data-dir",
+    )
+    pr.add_argument(
+        "--out", default=None,
+        help="write per-row outputs to this .npz (default: summary only)",
+    )
+    # the reference verb's flags for paths not ported yet: accepted so
+    # a reference command line fails with a clear message
+    pr.add_argument("--data-dir", default=None)
+    pr.add_argument("--mesh", default="")
+    pr.set_defaults(fn=run_predict)
     return p
 
 

@@ -24,6 +24,7 @@ a ``plan``/``mesh`` that shards anything raises.
 
 from __future__ import annotations
 
+import inspect
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -361,6 +362,16 @@ def optimizer_tensors(state: TrainState) -> List[Tuple[int, str,
     return out
 
 
+def _init_kwargs(opt: torch.optim.Optimizer) -> Dict[str, Any]:
+    """The entries of ``opt.defaults`` that its class's ``__init__``
+    takes. ``defaults`` may hold more: torch 2.13's ``AdamW`` lists
+    ``decoupled_weight_decay``, which its ``__init__`` sets itself and
+    rejects as an argument. The groups carry every entry either way."""
+    params = inspect.signature(type(opt).__init__).parameters
+    return {k: v for k, v in opt.defaults.items()
+            if k in params and k not in ("self", "params")}
+
+
 def rebind_state(state: TrainState, new_params: Sequence[torch.Tensor],
                  new_tensors: Dict[Tuple[int, str], torch.Tensor]
                  ) -> TrainState:
@@ -380,7 +391,7 @@ def rebind_state(state: TrainState, new_params: Sequence[torch.Tensor],
     groups = [{**{k: v for k, v in g.items() if k != "params"},
                "params": [new_params[index[id(p)]] for p in g["params"]]}
               for g in opt.param_groups]
-    new_opt = type(opt)(groups, **opt.defaults)
+    new_opt = type(opt)(groups, **_init_kwargs(opt))
     for p, st in opt.state.items():
         new_opt.state[new_params[index[id(p)]]] = dict(st)
     for (i, name), t in new_tensors.items():

@@ -491,3 +491,53 @@ def test_cuda_fault_plan_recovery_gives_the_same_tokens(mode):
     assert rec0 == 0 and rec >= 1
     assert counts == {"serve.dispatch": 1, "serve.drain": 1}
     assert got == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["fit_a_line", "resnet", "bert"])
+def test_cuda_small_model_step_matches_cpu(model):
+    """f32 Adam steps of fit_a_line (20), tiny ResNet and tiny BERT (one
+    each) on the card against the same steps on the CPU, TF32 off: the
+    loss, params and first moments within chip_smoke's
+    SMALL_STEP_OF_MAX of each leaf's largest entry; and the tiny
+    models' f32 forwards against chip_smoke's NumPy float64 reference."""
+    _need_card()
+    import chip_smoke
+
+    worst = chip_smoke._small_step_agreement(model, "cuda")
+    assert worst <= chip_smoke.SMALL_STEP_OF_MAX[model]
+    if model != "fit_a_line":
+        errs = chip_smoke._small_reference_check(model, "cuda")
+        assert max(errs.values()) <= chip_smoke.SMALL_REF_OF_MAX[model]
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_state_round_trip():
+    """An adamw state placed on the card by shard_state and back holds
+    every param and moment bit for bit (rebind_state rebuilds the
+    AdamW), and the placed state steps on the card."""
+    _need_card()
+    from edl_tpu_torch.models import bert
+    from edl_tpu_torch.train import trainer
+
+    cfg = bert.BertConfig.tiny()
+    params = bert.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    nb = bert.synthetic_mlm_batch(np.random.RandomState(0), 2, 16, cfg.vocab)
+    tx = trainer.adamw(1e-3)
+    state = trainer.TrainState.create(params, tx)
+    step = trainer.make_train_step(bert.make_loss_fn(cfg), tx)
+    state, _ = step(state, trainer.global_batch(nb, device="cpu"))
+
+    def tensors(st):
+        return ([p.detach().cpu() for p in trainer.leaves(st.params)]
+                + [t.cpu() for _, _, t, _ in trainer.optimizer_tensors(st)])
+
+    placed = trainer.shard_state(state, device="cuda")
+    assert type(placed.opt_state) is torch.optim.AdamW
+    assert placed.opt_state.defaults == state.opt_state.defaults
+    back = trainer.shard_state(placed, device="cpu")
+    for a, b, c in zip(tensors(state), tensors(placed), tensors(back)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    placed, m = step(placed, trainer.global_batch(nb, device="cuda"))
+    assert torch.isfinite(m["loss"]) and placed.step == 2

@@ -157,6 +157,40 @@ def _adafactor_state():
     return state, step
 
 
+@pytest.mark.parametrize("how", ["shard_state", "snapshot_restore",
+                                 "save_load"])
+def test_adamw_state_reshards_bit_for_bit(how, tmp_path):
+    """An adamw state placed by ``shard_state``, restored from a
+    snapshot and loaded from a checkpoint: each rebuilds its optimizer
+    through ``rebind_state``, which under torch 2.13 must not pass
+    ``AdamW.defaults``'s ``decoupled_weight_decay`` back to ``__init__``.
+    The next step from each equals the original's, bit for bit."""
+    tx = trainer.adamw(1e-3)
+    params = ctr_params_from_numpy(jax.tree_util.tree_map(np.asarray, JP),
+                                   "cpu")
+    state = trainer.TrainState.create(params, tx)
+    step = trainer.make_train_step(tctr.make_loss_fn(), tx)
+    state, _ = step(state, _batch(0))
+    if how == "shard_state":
+        moved = trainer.shard_state(state, device="cpu")
+    elif how == "snapshot_restore":
+        moved = ckpt.restore(ckpt.snapshot(state), device="cpu")
+    else:
+        ckpt.save(str(tmp_path), state)
+        like = trainer.TrainState.create(
+            tctr.init_params(torch.Generator().manual_seed(5), vocab=VOCAB,
+                             emb=EMB, device="cpu"), trainer.adamw(1e-3))
+        moved = ckpt.restore(ckpt.load(str(tmp_path), like), device="cpu")
+    assert type(moved.opt_state) is torch.optim.AdamW
+    assert moved.opt_state.defaults == state.opt_state.defaults
+    _assert_states_equal(moved, state)
+    b = _batch(1)
+    a, ma = step(moved, b)
+    c, mc = step(state, b)
+    assert float(ma["loss"]) == float(mc["loss"])
+    _assert_states_equal(a, c)
+
+
 @pytest.mark.parametrize("how", ["staged_f32", "snapshot_restore",
                                  "save_load"])
 def test_adafactor_state_reshards_bit_for_bit(how, tmp_path, monkeypatch):
