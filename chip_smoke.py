@@ -7,6 +7,11 @@
                                       # per KV layout, over one train
                                       # step (CUDA events per phase),
                                       # and the CTR chunk's kernels
+    python3 chip_smoke.py --serving-modes-layers 8,16,32
+                                      # only: the build, the slice and
+                                      # the serving-modes phase at each
+                                      # depth, with its gates, then each
+                                      # kv_quant's worst margin by depth
 
 1. Builds every kernel of the serving and training paths from the
    sources in this checkout (``edl_tpu_torch/ops/csrc/*.cu``, one nvcc
@@ -75,7 +80,8 @@
    == prefills x 32 layers, and teacher-forced agreement — a dense
    forward over prompt + generated puts every chosen token within
    0.1 x (row std) of its row's maximum logit.
-5. Serving-modes phase: the slice's model and weights through the
+5. Serving-modes phase: the slice's model and weights, cut to its
+   first 16 of 32 layers, through the
    PAGED engine (8 slots x 2048, horizon 8, block 16), once with float
    KV, then under ``kv_quant`` int8, then int4: (a) the prefix cache
    with chunked prefill (256) on the default pool — a cold 552-token
@@ -136,7 +142,7 @@
    call): T=2048 at batch 16, 8, 4 or 2 (4 calls a loop) and T=8192 at
    batch 4, 2 or 1 (2 calls a loop), each the first batch that fits (a
    rung steps down only on ``torch.cuda.OutOfMemoryError``), one warm-up
-   call, best of 2 loops (bench.py: 3). Prints tokens/s/chip, MFU
+   call, one timed loop (bench.py: best of 3). Prints tokens/s/chip, MFU
    (T=2048) and long MFU (T=8192) (``train_flops_per_token`` over 989
    TF/s), the batch,
    the state's GiB (``state_nbytes``) and every loss. Checks: finite
@@ -218,6 +224,44 @@
    under the primal forward's row at PREDICT_SHAPE (B64 T512 H16 KV8,
    held to its plain version in the kernel phase). Prints export,
    load and predict seconds.
+11. serving_load phase: bench.py's serving-load rungs and the serving
+   verbs under load, on the flagship decode config (bench.py:87: the
+   flagship without remat, bf16, random weights from seed 4). (a) The
+   horizon rung (bench.py:681-731): scripts/exp_serving.py's deep
+   workload (12 requests, prompts 16-63, budgets 128-191,
+   RandomState(7), step-indexed arrivals) through 8 slots x 256 at
+   horizon 1 and then 8, each after a 2-request warm-up of 8 tokens:
+   tokens/s, dispatches a token and the speedup. Gates: every request
+   yields exactly its budget; at H=8, dispatches a token <= 1/8 plus the
+   admission dispatches a token; H1 / H8 dispatches a token >= 4; primal
+   launches == prefills x 16. (b) The goodput rung (bench.py:734-797):
+   ``WorkloadSpec(seed=0, n_requests=48, rate_rps=8, arrival="burst")``
+   with ``default_classes(1.0, 0.25)`` replayed on the wall clock at
+   horizon 4 after a 2-request warm-up: goodput req/s, TTFT attainment,
+   p99 queue wait. Gates: every request has an outcome and submitted +
+   rejected == 48; queue wait + prefill + decode == total within 1e-9 s
+   for every finished record; goodput <= finished / wall; launches ==
+   prefills x 16. (c) The flagship exported; ``python -m edl_tpu_torch
+   loadgen EXPORT --json --requests 16 --metrics-port 0 --tsdb-dir D``
+   (the reference's report keys, an outcome for every request, a live
+   ``/history`` listing recorded series, the recorded goodput and
+   prefill counter in D) and ``fleet --export-dir EXPORT --replicas 2
+   --requests 12 --swap`` (``ok``, ``min_ready`` >= 1) as subprocesses
+   (the fleet verb first: the other parts start once its first replicas
+   are bound), and meanwhile in this process a ``ServingFleet`` of 2
+   replica subprocesses (8 slots x 128, 12 requests of 96 new tokens) whose
+   first replica is SIGKILLed once every request is routed and some of
+   its streams have begun: every request ends done/eos, >= 1 failover,
+   the supervisor respawns to 2 READY, every completion within 0.1 row
+   std of the dense forward (``_teacher_margin``). Primal launches of
+   the subprocesses are their own wrappers' counts
+   (``edl_kernel_launches``): each replica's from its ``/metrics`` (the
+   victim's just before the kill), the loadgen verb's measured replay's
+   from its recorded history; each equals its prefills x 16. Each
+   replica's boot is split into stages (its log's boot stamps between
+   the supervisor's spawn and ready events). The largest prefill
+   of (a) and (b), B1 T64 H16 KV8 causal, is held to its plain version
+   after the phase. Prints each part's seconds.
 
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
@@ -225,16 +269,20 @@ shape, and its launches on the main path; the three training kernels
 three times, at B4 T2048 with the train phase's launches and at each
 ladder rung's shape (the batch that fit) with that rung's launches,
 each with its launches on every training path, the int8 rungs' too;
-the primal forward five times, at B1 T1024 H32 with the slice's
+the primal forward six times, at B1 T1024 H32 with the slice's
 launches, at each decode rung's prefill shape with that rung's bf16
-and int8 launches and at the llama predict's B64 T512 with its
-launches, each with its launches on the slice, the int8 serving runs,
-every decode rung and the llama predict), then the
+and int8 launches, at the llama predict's B64 T512 with its launches
+and at the serving-load rungs' largest prefill with their launches,
+each with its launches on the slice, the int8 serving runs, every
+decode rung, the llama predict, both serving-load rungs, the loadgen
+verb and the failover fleet's replicas (the last two from their
+``serve.prefill`` events x 16)), then the
 card's name and power limit, then ``{"ok": true, "device": ...}`` as
 the last line. Any failure raises (non-zero exit); without CUDA it
 exits 1 before printing any result. Needs one card.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -279,7 +327,11 @@ TRAIN_STEPS = 5
 # scores are the coarser of the two)
 LOSS_RTOL = 1e-4
 GRAD_MIN_COS = 0.999
-# serving-modes phase: the slice's engine (8 slots, horizon 8) paged
+# serving-modes phase: the slice's engine (8 slots, horizon 8) paged, on
+# the first SM_LAYERS of the slice's 32 layers (cut to fit the script's
+# time; `--serving-modes-layers 8,16,32` prints each kv_quant's margin
+# at each depth)
+SM_LAYERS = 16
 SM_MAX_LEN = 2048
 SM_BLOCK = 16
 SM_CHUNK = 256  # prefill chunk of part (a)
@@ -323,11 +375,13 @@ REMAT_LOSS_RTOL = 1e-6
 REMAT_GRAD_OF_MAX = 1e-5
 # train_ladder phase: bench.py:_llama_measure on the port (bench.py:
 # 95-260): (T, batch ladder, multistep calls a loop), 2 steps a call.
-# bench.py takes the best of 3 loops; here the best of 2, bf16 and int8
-# rungs alike, to fit the script's time (an int8 loop is ~22 s)
+# bench.py takes the best of 3 loops; here one loop (after the warm-up
+# call), bf16 and int8 rungs alike, to fit the script's time with the
+# serving_load phase (the best of 2 until then; the loops of one rung
+# were within 1.5% of each other on the H100)
 LADDER_RUNGS = ((2048, (16, 8, 4, 2), 4), (8192, (4, 2, 1), 2))
 LADDER_STEPS = 2
-LADDER_LOOPS = 2
+LADDER_LOOPS = 1
 # three adafactor(1e-3) steps of a small f32 Llama (dense attention) on
 # the card against the CPU: losses, params and second-moment statistics
 # within AF_CPU_OF_MAX of each leaf's largest entry (f32 on both sides,
@@ -3141,6 +3195,788 @@ def small_workloads_phase(card):
     return counts["flash_fwd"]
 
 
+# serving_load phase: bench.py's serving-load rungs on the port and the
+# verbs that serve under load. bench.py's horizon rung (bench.py:681-731)
+# on its card branch: 12 deep requests, 8 slots x 256, horizon 1 then 8;
+# a run's dispatches a token at H=8 within 1/8 plus its admissions', and
+# H=1's at least SL_DISPATCH_REDUCTION times H=8's (the reference's CI
+# lane). bench.py's goodput rung (bench.py:734-797): the seeded burst
+# workload, 8 slots x 256, horizon 4, replayed on the wall clock. Cut:
+# bench.py runs one whole warm pass before each measured run (it pays
+# jit compiles); eager PyTorch compiles nothing, so a warm-up of
+# SL_WARM_REQUESTS requests (SL_WARM_NEW new tokens each in the horizon
+# rung) serves.
+SL_SLOTS = 8
+SL_MAX_LEN = 256
+SL_HORIZON_REQUESTS = 12
+SL_DISPATCH_REDUCTION = 4.0
+SL_GOODPUT = {"seed": 0, "n_requests": 48, "rate_rps": 8.0,
+              "arrival": "burst"}
+SL_GOODPUT_HORIZON = 4
+SL_SLO = (1.0, 0.25)  # default_classes(ttft, itl): bench.py:766
+SL_WARM_REQUESTS = 2
+SL_WARM_NEW = 8
+SL_PHASE_SUM_ATOL = 1e-9  # queue wait + prefill + decode == total_s
+# part (c): the verbs as subprocesses on the flagship's export, and a
+# 2-replica ServingFleet whose first replica is SIGKILLed mid-traffic
+SL_LOADGEN_REQUESTS = 16
+SL_FLEET_VERB = {"replicas": 2, "requests": 12}
+# (each replica takes its 6 requests at once; 96 new tokens keep the
+# victim streaming for 24 blocks, so the SIGKILL lands mid-stream)
+SL_KILL_FLEET = {"replicas": 2, "requests": 12, "slots": 8, "max_len": 128,
+                 "horizon": 4, "max_new": 96}
+SL_SUBPROCESS_TIMEOUT_S = 300
+# what a replica or a serving verb imports, compiled to bytecode once,
+# beside the build, into SL_BYTECODE_DIR: where Python runs with
+# PYTHONDONTWRITEBYTECODE and torch ships no .pyc (the H100 machine),
+# each replica compiled torch anew, ~7-10 s of its ~12-14 s boot; the
+# verbs and replicas read the bytecode through PYTHONPYCACHEPREFIX
+SL_BYTECODE_MODULES = (
+    "torch", "numpy", "edl_tpu_torch.cli", "edl_tpu_torch.serving.engine",
+    "edl_tpu_torch.serving.replica", "edl_tpu_torch.serving.fleet",
+    "edl_tpu_torch.serving.loadgen", "edl_tpu_torch.obs.exporter",
+    "edl_tpu_torch.obs.slo", "edl_tpu_torch.obs.tsdb",
+    "edl_tpu_torch.runtime.export")
+SL_BYTECODE_DIR = os.path.join("edl_tpu_torch", "_build", "pycache")
+# the report keys of the reference's `edl loadgen --json`
+# (edl_tpu/cli/main.py run_loadgen; held to it in
+# tests/test_torch_loadgen.py)
+LOADGEN_REPORT_KEYS = frozenset((
+    "classes", "failed", "good", "goodput_fraction", "goodput_rps",
+    "itl_slo_attainment", "phases", "requests", "served", "shed", "steps",
+    "tenants", "throughput_rps", "timeout", "tokens_out",
+    "ttft_slo_attainment", "wall_s", "workload"))
+
+
+def build_workload(n_requests, vocab, rng):
+    """scripts/exp_serving.py:64 ``build_workload`` on its card branch,
+    ``deep=True`` (the horizon rung's): short prompts, long budgets,
+    step-indexed arrivals."""
+    from edl_tpu_torch.serving import loadgen
+
+    return loadgen.step_indexed_workload(
+        n_requests, vocab, rng, prompt_range=(16, 64),
+        max_new_range=(128, 192))
+
+
+def _run_workload(params, cfg, reqs, horizon, device):
+    """scripts/exp_serving.py ``run_workload``: serve the step-indexed
+    workload (request i joins at engine iteration ``arrive``). Returns
+    (elapsed_s, tokens, metrics, engine)."""
+    import torch
+
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.serving.metrics import ServingMetrics
+
+    metrics = ServingMetrics(registry=MetricsRegistry())
+    eng = ContinuousBatchingEngine(
+        params, cfg, max_slots=SL_SLOTS, max_len=SL_MAX_LEN,
+        horizon=horizon, metrics=metrics, device=device)
+    pending = sorted(reqs, key=lambda r: r["arrive"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = i = 0
+    while i < len(pending) or eng.has_work:
+        while i < len(pending) and pending[i]["arrive"] <= step:
+            r = pending[i]
+            eng.submit(r["rid"], r["prompt"], r["max_new"])
+            i += 1
+        eng.step()
+        step += 1
+    if device == "cuda":
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    tokens = sum(len(v.tokens) for v in eng.results.values())
+    return elapsed, tokens, metrics, eng
+
+
+def _prefill_buckets(rids):
+    """The prefill buckets (padded prompt lengths) the flight recorder
+    holds for ``rids``."""
+    from edl_tpu_torch.obs import events as flight
+
+    rids = set(rids)
+    return [int(e["attrs"]["bucket"])
+            for e in flight.default_recorder().records()
+            if e["kind"] == "serve.prefill"
+            and e.get("corr", {}).get("rid") in rids]
+
+
+def _horizon_check(reqs, runs):
+    """The horizon rung's gates over ``runs`` {horizon: {"results":
+    {rid: (outcome, tokens)}, "snap": the metrics snapshot, "tokens":
+    n, "elapsed": s}}: every request yields exactly its budget (no EOS),
+    the H=8 run's dispatches a token at most 1/8 plus its admission
+    dispatches a token, and H=1's at least SL_DISPATCH_REDUCTION times
+    H=8's. Returns bench.py's five figures."""
+    for h, run in runs.items():
+        for r in reqs:
+            got = run["results"].get(r["rid"])
+            if got is None or got[0] != "done" or got[1] != r["max_new"]:
+                raise AssertionError(f"horizon {h}: {r['rid']} gave {got}, "
+                                     f"want ('done', {r['max_new']})")
+    s8 = runs[8]["snap"]
+    dpt8 = s8["dispatches_per_token"]
+    most = 1 / 8 + s8["dispatches_prefill"] / runs[8]["tokens"]
+    if not dpt8 <= most:
+        raise AssertionError(f"H=8 dispatches a token {dpt8} > 1/8 + "
+                             f"admissions a token = {most}")
+    reduction = runs[1]["snap"]["dispatches_per_token"] / dpt8
+    if not reduction >= SL_DISPATCH_REDUCTION:
+        raise AssertionError(f"H1/H8 dispatch reduction {reduction:.3f} < "
+                             f"{SL_DISPATCH_REDUCTION}")
+    rate = {h: run["tokens"] / run["elapsed"] for h, run in runs.items()}
+    out = {}
+    for h in (1, 8):
+        out[f"serving_tokens_per_sec_h{h}"] = rate[h]
+        out[f"serving_dispatches_per_token_h{h}"] = (
+            runs[h]["snap"]["dispatches_per_token"])
+    out["serving_horizon_speedup"] = rate[8] / rate[1]
+    out["serving_dispatch_reduction"] = reduction
+    out["serving_config"] = f"slots{SL_SLOTS}/req{len(reqs)}"
+    return out
+
+
+def horizon_rung(params, cfg, device="cuda"):
+    """bench.py's horizon rung on the port: the deep workload at horizon
+    1 and 8, each after a warm-up of SL_WARM_REQUESTS requests. Returns
+    bench.py's five figures, the primal launches of each measured run
+    and the largest prefill bucket they hit."""
+    from edl_tpu_torch.ops import flash_attention as fa
+
+    reqs = build_workload(SL_HORIZON_REQUESTS, cfg.vocab,
+                          np.random.RandomState(7))
+    runs, launches = {}, {}
+    for h in (1, 8):
+        warm = [dict(r, rid=f"warm-{r['rid']}", arrive=0,
+                     max_new=SL_WARM_NEW)
+                for r in reqs[:SL_WARM_REQUESTS]]
+        _run_workload(params, cfg, warm, h, device)
+        fa.reset_launches()
+        elapsed, tokens, metrics, eng = _run_workload(params, cfg, reqs, h,
+                                                      device)
+        counts = fa.launch_counts()
+        prefills = metrics.dispatches["prefill"]
+        if eng.recoveries or counts["flash_fwd"] != prefills * cfg.n_layers \
+                or any(counts[k] for k in counts if k != "flash_fwd"):
+            raise AssertionError(
+                f"horizon {h}: launches {counts}, prefills {prefills} x "
+                f"{cfg.n_layers} layers, recoveries {eng.recoveries}")
+        launches[h] = counts["flash_fwd"]
+        runs[h] = {"results": {k: (v.outcome, len(v.tokens))
+                               for k, v in eng.results.items()},
+                   "snap": metrics.snapshot(), "tokens": tokens,
+                   "elapsed": elapsed}
+    return (_horizon_check(reqs, runs), launches,
+            max(_prefill_buckets(r["rid"] for r in reqs)))
+
+
+def _goodput_check(n, replay, records, report, launches, prefills,
+                   n_layers):
+    """The goodput rung's gates: every one of the ``n`` requests has an
+    outcome and submitted + rejected == n; for every finished record,
+    queue wait + prefill + decode == total_s within SL_PHASE_SUM_ATOL;
+    goodput <= finished / wall; primal launches == prefills x layers."""
+    if replay["submitted"] + replay["rejected"] != n:
+        raise AssertionError(f"submitted {replay['submitted']} + rejected "
+                             f"{replay['rejected']} != {n}")
+    missing = [r["rid"] for r in records if not r["outcome"]]
+    if len(records) != n or missing:
+        raise AssertionError(f"{len(records)} records of {n}, without an "
+                             f"outcome: {missing}")
+    for r in records:
+        if r["outcome"] in ("done", "eos"):
+            err = abs(r["queue_wait_s"] + r["prefill_s"] + r["decode_s"]
+                      - r["total_s"])
+            if not err <= SL_PHASE_SUM_ATOL:
+                raise AssertionError(f"{r['rid']}: phases sum to total_s "
+                                     f"within {err}")
+    finished = sum(r["outcome"] in ("done", "eos") for r in records)
+    if not report["goodput_rps"] <= finished / replay["wall_s"]:
+        raise AssertionError(f"goodput {report['goodput_rps']} > finished "
+                             f"{finished} / wall {replay['wall_s']}")
+    if launches != prefills * n_layers or prefills < 1:
+        raise AssertionError(f"primal launches {launches} != prefills "
+                             f"{prefills} x {n_layers} layers")
+
+
+def goodput_rung(params, cfg, device="cuda"):
+    """bench.py's goodput rung on the port: the seeded burst workload
+    replayed on the wall clock (one warm-up of SL_WARM_REQUESTS
+    requests, then the measured pass), scored by ``obs/slo``. Returns
+    bench.py's four figures, the report, the replay's accounting, the
+    launches and the largest prefill bucket."""
+    import dataclasses
+
+    from edl_tpu_torch.obs import slo
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.serving import loadgen
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.serving.metrics import ServingMetrics
+
+    spec = loadgen.WorkloadSpec(
+        vocab=cfg.vocab, classes=slo.default_classes(*SL_SLO), **SL_GOODPUT)
+    reqs = loadgen.build(spec)
+
+    def run(rq):
+        metrics = ServingMetrics(registry=MetricsRegistry())
+        eng = ContinuousBatchingEngine(
+            params, cfg, max_slots=SL_SLOTS, max_len=SL_MAX_LEN,
+            horizon=SL_GOODPUT_HORIZON, metrics=metrics, device=device)
+        return loadgen.replay(eng, rq), metrics, eng
+
+    run([dataclasses.replace(r, rid=f"warm-{r.rid}")
+         for r in reqs[:SL_WARM_REQUESTS]])
+    fa.reset_launches()
+    replay, metrics, eng = run(reqs)
+    counts = fa.launch_counts()
+    records = slo.request_records(metrics)
+    report = slo.compute_goodput(records, spec.class_map(), replay["wall_s"])
+    prefills = metrics.dispatches["prefill"]
+    if any(counts[k] for k in counts if k != "flash_fwd") or eng.recoveries:
+        raise AssertionError(f"goodput rung: launches {counts}, recoveries "
+                             f"{eng.recoveries}")
+    _goodput_check(len(reqs), replay, records, report, counts["flash_fwd"],
+                   prefills, cfg.n_layers)
+    figures = {
+        "serving_goodput_rps": report["goodput_rps"],
+        "serving_ttft_slo_attainment": report["ttft_slo_attainment"],
+        "serving_queue_wait_p99_s": report["phases"]["queue_wait_s"]["p99"],
+        "serving_goodput_config": (
+            f"slots{SL_SLOTS}/req{spec.n_requests}/rate{spec.rate_rps:g}/"
+            f"{spec.arrival}"),
+    }
+    return (figures, report, replay, counts["flash_fwd"],
+            max(_prefill_buckets(r.rid for r in reqs)))
+
+
+def _warm_bytecode():
+    """Start the process that writes SL_BYTECODE_MODULES' bytecode under
+    SL_BYTECODE_DIR (it prints its seconds), and point every process
+    this one starts from now on at that directory."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(here, SL_BYTECODE_DIR)
+    env = dict(os.environ, PYTHONPYCACHEPREFIX=cache, PYTHONPATH=os.pathsep
+               .join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    code = ("import importlib, time; t = time.perf_counter()\n"
+            f"for m in {SL_BYTECODE_MODULES!r}: importlib.import_module(m)\n"
+            "print(time.perf_counter() - t)")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=here, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    return proc
+
+
+def _bytecode_seconds(proc):
+    """Wait for :func:`_warm_bytecode`'s process; its seconds."""
+    out, err = proc.communicate(timeout=SL_SUBPROCESS_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bytecode warm-up exited {proc.returncode}: "
+                           f"{err[-2000:]}")
+    return float(out.strip().splitlines()[-1])
+
+
+def _verb(args, env, out):
+    """Start ``python -m edl_tpu_torch ARGS`` from this checkout in a
+    session of its own (so :func:`_stop_group` also stops the replicas
+    it spawns), and a thread (``out["reader"]``) that reads its stdout
+    into ``out["stdout"]``; ``out["start"]`` and ``out["end"]`` stamp
+    the start and the close of its stdout."""
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "edl_tpu_torch", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+    out["start"] = time.perf_counter()
+
+    def read():
+        out["stdout"] = proc.stdout.read()
+        out["end"] = time.perf_counter()
+
+    out["reader"] = threading.Thread(target=read, daemon=True)
+    out["reader"].start()
+    return proc
+
+
+def _stop_group(proc):
+    """SIGKILL a verb's whole session if it is still running."""
+    import signal
+
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+
+
+def _watch_loadgen(proc, out):
+    """Reads the loadgen verb's stderr; once it prints its metrics
+    endpoint, polls ``/history`` until the endpoint lists recorded
+    series (``out["history"]``). Runs in a thread."""
+    import threading
+    import urllib.request
+
+    lines = out.setdefault("stderr", [])
+    url = {}
+
+    def poll():
+        while proc.poll() is None and "history" not in out:
+            try:
+                with urllib.request.urlopen(url["u"] + "/history",
+                                            timeout=2) as r:
+                    doc = json.loads(r.read().decode())
+                if doc.get("series"):
+                    out["history"] = doc
+                    return
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.2)
+
+    for line in proc.stderr:
+        lines.append(line)
+        m = re.match(r"# metrics endpoint (\S+)/metrics", line)
+        if m and "u" not in url:
+            url["u"] = m.group(1)
+            threading.Thread(target=poll, daemon=True).start()
+
+
+def _replica_counts(url):
+    """A replica's ``serve.prefill`` flight events, primal flash launches
+    (its wrapper's count, ``edl_kernel_launches``), emitted tokens and
+    completed requests so far, from its ``/metrics`` (read, like
+    ``/healthz``, without the engine lock)."""
+    from edl_tpu_torch.obs.exporter import scrape
+    from edl_tpu_torch.obs.metrics import parse_prometheus_text
+
+    fams = parse_prometheus_text(scrape(url, "/metrics"))
+
+    def total(name, **match):
+        return int(sum(v for labels, v in fams.get(name, ())
+                       if all(labels.get(k) == x for k, x in match.items())))
+
+    return {"prefills": total("edl_events_total", kind="serve.prefill"),
+            "launches": total("edl_kernel_launches", kernel="flash_fwd"),
+            "tokens": total("edl_serving_tokens_total"),
+            "completed": total("edl_serving_requests_total",
+                               event="completed")}
+
+
+def _recorded_launches(db):
+    """The primal launches and prefill dispatches at the last point of a
+    verb's recorded metric history (``obs/tsdb``): its own wrapper's
+    ``edl_kernel_launches`` and its engine's prefill dispatches, None
+    where a series was never recorded."""
+    out = {}
+    for key, name, labels in (
+            ("launches", "edl_kernel_launches", {"kernel": "flash_fwd"}),
+            ("prefills", "edl_serving_dispatch_total", {"kind": "prefill"})):
+        pts = db.points(name, labels)
+        out[key] = int(pts[-1][1]) if pts else None
+    return out
+
+
+def _launch_check(counted, n_layers):
+    """Each process's primal launches, as its own wrapper counted them,
+    equal its prefills x ``n_layers``: ``counted`` {process: {"launches":
+    n, "prefills": n}}."""
+    for who, c in counted.items():
+        if c["launches"] is None or c["prefills"] is None \
+                or c["launches"] != c["prefills"] * n_layers:
+            raise AssertionError(f"{who}: {c['launches']} primal launches "
+                                 f"!= {c['prefills']} prefills x "
+                                 f"{n_layers} layers")
+
+
+def _replica_boots(workdir):
+    """Each replica's boot stamps (the ``# replica ID boot {...}`` line
+    of its log), by replica id."""
+    boots = {}
+    for n in sorted(os.listdir(workdir)):
+        if n.endswith(".log"):
+            with open(os.path.join(workdir, n)) as f:
+                for line in f:
+                    m = re.match(r"# replica (\S+) boot (\{.*\})$", line)
+                    if m:
+                        boots[m.group(1)] = json.loads(m.group(2))
+    return boots
+
+
+def _boot_breakdown(workdir, records):
+    """Seconds of each replica's boot by stage: from the supervisor's
+    ``replica.spawn`` event (``records``: this process's flight events)
+    to the replica's ``main``, then its imports, device context, params
+    (the export's load), engine and bind stamps, and on to the
+    supervisor's ``replica.ready``."""
+    spawn, ready = {}, {}
+    for e in records:
+        who = e["corr"].get("worker")
+        if e["kind"] == "replica.spawn":
+            spawn[who] = e["t_wall"]
+        elif e["kind"] == "replica.ready":
+            ready[who] = e["t_wall"]
+    out = {}
+    for rid, b in _replica_boots(workdir).items():
+        if rid not in spawn or rid not in ready:
+            continue
+        stamps = [("start", spawn[rid]), *b.items(), ("ready", ready[rid])]
+        out[rid] = {f"{name}_s": t - prev for (_, prev), (name, t)
+                    in zip(stamps, stamps[1:])}
+        out[rid]["total_s"] = ready[rid] - spawn[rid]
+    return out
+
+
+def _replica_logs(workdir):
+    out = []
+    for n in sorted(os.listdir(workdir)):
+        if n.endswith(".log"):
+            with open(os.path.join(workdir, n)) as f:
+                out.append(f"--- {n}\n" + f.read()[-2000:])
+    return "\n".join(out)
+
+
+def fleet_failover(params, cfg, export_dir, workdir, device="cuda"):
+    """A ServingFleet of SL_KILL_FLEET["replicas"] replica subprocesses
+    of the export; the first is SIGKILLed while it streams. Gates: every
+    request ends done/eos, >= 1 failover, the supervisor respawns to
+    target, each completion within TEACHER_EPS row std of the dense
+    forward's row maximum, and each replica's primal launches (its own
+    wrapper's count, scraped from its ``/metrics``; the victim's just
+    before the kill) equal to its prefills x layers. Returns the row."""
+    import threading
+
+    from edl_tpu_torch.obs import events as flight
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.serving.fleet import (ReplicaSpec, ReplicaSupervisor,
+                                             ServingFleet)
+    from edl_tpu_torch.serving.router import (READY, HttpTransport,
+                                              ReplicaTable, Router)
+    from edl_tpu_torch.serving.scheduler import Request
+
+    kf = SL_KILL_FLEET
+    spec = ReplicaSpec(workdir=workdir, slots=kf["slots"],
+                       max_len=kf["max_len"], horizon=kf["horizon"],
+                       export_dir=export_dir, device=device)
+    reg = MetricsRegistry()
+    table = ReplicaTable(registry=reg)
+    sup = ReplicaSupervisor(table, spec, spawn_retries=0)
+    router = Router(table, transport=HttpTransport(), seed=0, registry=reg)
+    fleet = ServingFleet(sup, router)
+    rng = np.random.RandomState(5)
+    reqs = [Request(rid=f"f{i}",
+                    prompt=rng.randint(1, cfg.vocab, 4 + i % 5).tolist(),
+                    max_new=kf["max_new"])
+            for i in range(kf["requests"])]
+    results = {}
+    t0 = time.perf_counter()
+    try:
+        ids = fleet.start(kf["replicas"])
+        boot_s = time.perf_counter() - t0
+        victim = sup.handle(ids[0])
+        threads = [threading.Thread(
+            target=lambda r=r: results.__setitem__(r.rid, fleet.generate(r)))
+            for r in reqs]
+        for t in threads:
+            t.start()
+        fwd = reg.get("edl_fleet_forwards_total")
+        t_wait = time.perf_counter()
+        while True:
+            # every request routed, each of the victim's admitted, some
+            # streamed and some not finished: no prefill can land on it
+            # after this read, and the kill cuts live streams
+            routed = {k[0]: v[0] for k, v in fwd.samples()}
+            got = _replica_counts(victim.url)
+            if sum(routed.values()) >= len(reqs) \
+                    and got["prefills"] == routed.get(ids[0]) \
+                    and got["tokens"] > 0 \
+                    and got["completed"] < got["prefills"]:
+                break
+            if time.perf_counter() - t_wait > 60:
+                raise AssertionError(f"victim never streamed: {got}, "
+                                     f"routed {routed}")
+            time.sleep(0.005)
+        counted = {ids[0]: got}
+        victim.proc.kill()  # SIGKILL
+        victim.proc.wait()
+        t_kill = time.perf_counter()
+        for t in threads:
+            t.join(timeout=SL_SUBPROCESS_TIMEOUT_S)
+        serve_s = time.perf_counter() - t_kill
+        while True:
+            reps = table.snapshot()
+            if len(reps) == kf["replicas"] and all(
+                    r.state == READY for r in reps) \
+                    and ids[0] not in table.ids():
+                break
+            if time.perf_counter() - t_kill > SL_SUBPROCESS_TIMEOUT_S:
+                raise AssertionError(f"fleet never healed: {reps}")
+            time.sleep(0.05)
+        heal_s = time.perf_counter() - t_kill
+        for rid in table.ids():
+            counted[rid] = _replica_counts(sup.handle(rid).url)
+        boots = _boot_breakdown(workdir, flight.default_recorder().records())
+    except Exception:
+        print(_replica_logs(workdir), file=sys.stderr, flush=True)
+        raise
+    finally:
+        fleet.stop()
+    outcomes = {}
+    for res in results.values():
+        outcomes[res.outcome] = outcomes.get(res.outcome, 0) + 1
+    failovers = sum(r.failovers for r in results.values())
+    if len(results) != len(reqs) or set(outcomes) - {"done", "eos"} \
+            or failovers < 1:
+        raise AssertionError(f"fleet failover: {len(results)} results, "
+                             f"outcomes {outcomes}, failovers {failovers}")
+    worst = 0.0
+    for r in reqs:
+        worst = max(worst, _teacher_margin(params, cfg, r.prompt,
+                                           results[r.rid].tokens, device))
+    if worst > TEACHER_EPS:
+        raise AssertionError(f"fleet teacher-forced margin {worst:.4f} row "
+                             f"std > {TEACHER_EPS}")
+    _launch_check(counted, cfg.n_layers)
+    return {
+        "replicas": kf["replicas"], "requests": len(reqs),
+        "outcomes": outcomes, "failovers": failovers,
+        "failed_over": sorted(r.rid for r in results.values()
+                              if r.failovers),
+        "killed": ids[0], "after_heal": sorted(set(counted) - {ids[0]}),
+        "replica_prefills": {k: c["prefills"] for k, c in counted.items()},
+        "replica_launches": {k: c["launches"] for k, c in counted.items()},
+        "primal_launches": sum(c["launches"] for c in counted.values()),
+        "teacher_forced_worst_margin_std": worst,
+        "boot_s": boot_s, "after_kill_s": serve_s, "heal_s": heal_s,
+        "boot_stages_s": boots,
+    }
+
+def serving_verbs(params, cfg, workdir, device="cuda"):
+    """Part (c): the flagship exported; ``fleet --swap`` started as a
+    subprocess, and once its first replicas are bound, ``loadgen``
+    (``--json --metrics-port 0 --tsdb-dir``) as another and, while they
+    run, :func:`fleet_failover` in this process. Gates: the loadgen
+    report has the reference's keys and every request an outcome; its
+    live ``/history`` listed recorded series and the directory holds the
+    final ``edl_slo_goodput_rps``; the fleet report says ``ok`` with ``min_ready >= 1``; the verb's
+    primal launches in its measured replay (its own wrapper's count,
+    ``edl_kernel_launches``, which the verb resets after its warm pass;
+    read from the recorded history) equal its prefill dispatches x
+    layers. Returns the part's rows and those launches."""
+    import threading
+
+    from edl_tpu_torch.obs.tsdb import TSDB
+    from edl_tpu_torch.runtime import export
+
+    root = os.path.join(workdir, "export")
+    t0 = time.perf_counter()
+    export.export_params(root, params, step=1, model_meta=cfg.to_meta())
+    export_s = time.perf_counter() - t0
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    tsdb_dir = os.path.join(workdir, "tsdb")
+    fleet_dir = os.path.join(workdir, "fleet_verb")
+    procs, lg_out, fl_out = [], {}, {}
+    try:
+        # the fleet verb, whose three rounds of boots are the longest
+        # part, boots its first replicas before the other parts start
+        # their four processes (on an H100 80GB HBM3 machine, 700 W,
+        # five boots at once took 32 s each and one alone 4.8 s)
+        fl = _verb(["fleet", "--export-dir", root,
+                    "--replicas", str(SL_FLEET_VERB["replicas"]),
+                    "--requests", str(SL_FLEET_VERB["requests"]), "--swap",
+                    "--workdir", fleet_dir, "--device", device], env, fl_out)
+        procs.append(fl)
+        fl_err = threading.Thread(
+            target=lambda: fl_out.__setitem__("stderr", fl.stderr.read()),
+            daemon=True)
+        fl_err.start()
+        first = [os.path.join(fleet_dir, f"r{i}.port.json")
+                 for i in range(SL_FLEET_VERB["replicas"])]
+        t_wait = time.perf_counter()
+        while not all(os.path.exists(f) for f in first) \
+                and fl.poll() is None \
+                and time.perf_counter() - t_wait < SL_SUBPROCESS_TIMEOUT_S:
+            time.sleep(0.05)
+        lg = _verb(["loadgen", root, "--json", "--requests",
+                    str(SL_LOADGEN_REQUESTS), "--metrics-port", "0",
+                    "--tsdb-dir", tsdb_dir, "--device", device], env, lg_out)
+        procs.append(lg)
+        watch = threading.Thread(target=_watch_loadgen, args=(lg, lg_out),
+                                 daemon=True)
+        watch.start()
+        kill = fleet_failover(params, cfg, root,
+                              os.path.join(workdir, "fleet_kill"), device)
+        for p in procs:
+            p.wait(timeout=SL_SUBPROCESS_TIMEOUT_S)
+        for t in (watch, fl_err, lg_out["reader"], fl_out["reader"]):
+            t.join(timeout=10)
+    finally:
+        for p in procs:
+            _stop_group(p)
+    lg_s, fl_s = (out.get("end", time.perf_counter()) - out["start"]
+                  for out in (lg_out, fl_out))
+
+    # the loadgen verb
+    if lg.returncode != 0:
+        raise AssertionError(f"loadgen exited {lg.returncode}: "
+                             f"{''.join(lg_out.get('stderr', []))[-3000:]}")
+    report = json.loads(lg_out["stdout"].strip().splitlines()[-1])
+    if set(report) != LOADGEN_REPORT_KEYS:
+        raise AssertionError(f"loadgen report keys {sorted(report)} != the "
+                             f"reference's {sorted(LOADGEN_REPORT_KEYS)}")
+    decided = (report["served"] + report["shed"] + report["timeout"]
+               + report["failed"])
+    if report["requests"] != SL_LOADGEN_REQUESTS or \
+            decided != SL_LOADGEN_REQUESTS:
+        raise AssertionError(f"loadgen: {decided} of {report['requests']} "
+                             f"requests have an outcome")
+    live = lg_out.get("history")
+    db = TSDB(tsdb_dir)
+    names = db.series_names()
+    goodput_pts = db.points("edl_slo_goodput_rps")
+    prefill_pts = db.points("edl_events_total", {"kind": "serve.prefill"})
+    if not (live and live["series"] and goodput_pts and prefill_pts
+            and set(live["series"]) <= set(names)):
+        raise AssertionError(
+            f"loadgen /history: live {live and live['series'][:5]}, "
+            f"recorded {len(names)} series, goodput points "
+            f"{len(goodput_pts)}, prefill points {len(prefill_pts)}")
+    lg = _recorded_launches(db)
+    _launch_check({"loadgen": lg}, cfg.n_layers)
+    lg_launches, lg_prefills = lg["launches"], lg["prefills"]
+    lg_row = {
+        "part": "loadgen verb", "requests": report["requests"],
+        "served": report["served"], "goodput_rps": report["goodput_rps"],
+        "ttft_slo_attainment": report["ttft_slo_attainment"],
+        "queue_wait_p99_s": report["phases"]["queue_wait_s"]["p99"],
+        "wall_s": report["wall_s"], "tokens_out": report["tokens_out"],
+        "history_live_series": len(live["series"]),
+        "history_recorded_series": len(names),
+        "history_appends": len(goodput_pts),
+        "prefills_warm_and_measured": int(prefill_pts[-1][1]),
+        "prefills_measured": lg_prefills, "primal_launches": lg_launches,
+        "seconds": lg_s}
+
+    # the fleet verb
+    fl_lines = (fl_out.get("stdout") or "").strip().splitlines()
+    if fl.returncode != 0 or not fl_lines:
+        raise AssertionError(f"fleet exited {fl.returncode}: "
+                             f"{(fl_out.get('stderr') or '')[-3000:]}\n"
+                             f"{_replica_logs(fleet_dir)}")
+    fl_report = json.loads(fl_lines[-1])
+    if not (fl_report.get("ok") is True and (fl_report.get("min_ready") or 0)
+            >= 1 and fl_report.get("swapped") is True):
+        raise AssertionError(f"fleet report {fl_report}")
+    fl_row = {"part": "fleet verb (--swap)", **fl_report, "seconds": fl_s}
+    kill_row = {"part": "fleet failover (SIGKILL)", **kill}
+    return ([{"part": "export", "export_s": export_s}, lg_row, fl_row,
+             kill_row], lg_launches)
+
+
+def serving_load_phase(card):
+    """bench.py's horizon and goodput rungs and the serving verbs under
+    load, on the flagship decode config (bench.py:87
+    ``flagship_decode_config``: bench.py:69's model without remat, bf16,
+    random weights from seed 4). Returns the primal launches by path and
+    the largest prefill shape the in-process rungs ran."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.obs import events as flight
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(_flagship_train_config(), remat=False)
+    params = llama.init_params(cfg, seed=4, device="cuda")
+    flight.reset_default_recorder()
+
+    t0 = time.perf_counter()
+    h_fig, h_launches, h_bucket = horizon_rung(params, cfg)
+    print(json.dumps({"phase": "serving_load", "part": "horizon rung",
+                      **h_fig, "primal_launches": h_launches,
+                      "largest_prefill_bucket": h_bucket,
+                      "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+
+    t0 = time.perf_counter()
+    g_fig, report, replay, g_launches, g_bucket = goodput_rung(params, cfg)
+    print(json.dumps({"phase": "serving_load", "part": "goodput rung",
+                      **g_fig, "requests": report["requests"],
+                      "served": report["served"], "good": report["good"],
+                      "shed": report["shed"], "wall_s": replay["wall_s"],
+                      "submitted": replay["submitted"],
+                      "rejected": replay["rejected"],
+                      "phases_p50_p99_s": {
+                          k: (v["p50"], v["p99"])
+                          for k, v in report["phases"].items()},
+                      "primal_launches": g_launches,
+                      "largest_prefill_bucket": g_bucket,
+                      "seconds": time.perf_counter() - t0, "card": card}),
+          flush=True)
+
+    workdir = tempfile.mkdtemp(prefix="edl_serving_load_")
+    try:
+        rows, lg_launches = serving_verbs(params, cfg, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for row in rows:
+        print(json.dumps({"phase": "serving_load", **row, "card": card}),
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    launches = {
+        "serving_load horizon rung h1": h_launches[1],
+        "serving_load horizon rung h8": h_launches[8],
+        "serving_load goodput rung": g_launches,
+        "loadgen verb (measured replay)": lg_launches,
+        "fleet failover replicas": rows[-1]["primal_launches"],
+    }
+    shape = (1, max(h_bucket, g_bucket)) + TRAIN_MAIN[2:]
+    print(json.dumps({"phase": "serving_load_summary",
+                      "primal_launches": launches,
+                      "largest_prefill_shape": shape,
+                      "seconds": time.perf_counter() - t_phase,
+                      "card": card}), flush=True)
+    return launches, shape
+
+
+def serving_modes_depths(card, depths):
+    """The slice, then the serving-modes phase (every gate) on the first
+    L of its 32 layers for each L in ``depths``; prints each kv_quant's
+    teacher-forced worst margin by depth. What the phase's cut of depth
+    does to the margins it gates."""
+    import dataclasses
+
+    _, params, cfg, _ = slice_phase(card)
+    margins = {}
+    for n in depths:
+        cut = {**params, "layers": {k: v[:n] for k, v in
+                                    params["layers"].items()}}
+        t0 = time.perf_counter()
+        rows = serving_modes_phase(card, cut,
+                                   dataclasses.replace(cfg, n_layers=n))
+        margins[n] = {r["kv_quant"]: r["teacher_forced_worst_margin_std"]
+                      for r in rows}
+        margins[n]["seconds"] = time.perf_counter() - t0
+        del cut
+    print(json.dumps({"phase": "serving_modes_depths",
+                      "worst_margin_std_by_layers": margins,
+                      "eps_std": SM_TEACHER_EPS, "card": card}), flush=True)
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -3169,9 +4005,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     profile = "--profile" in sys.argv[1:]
+    argv = sys.argv[1:]
+    sm_depths = (argv[argv.index("--serving-modes-layers") + 1]
+                 if "--serving-modes-layers" in argv else None)
 
     sources = ["flash_fwd", "flash_bwd"]
     t0 = time.perf_counter()
+    bytecode = _warm_bytecode()  # one process beside the nvcc builds
     _build.build_all(sources)  # one nvcc each, all at once
     for entry in ("flash_fwd_bf16", "flash_fwd_lse_bf16", "flash_bwd_dq_bf16",
                   "flash_bwd_dkv_bf16"):
@@ -3185,6 +4025,11 @@ def main() -> int:
         "ptxas": {k: v for n in sources
                   for k, v in _build.ptxas_info(n).items()},
     }), flush=True)
+
+    if sm_depths is not None:
+        _bytecode_seconds(bytecode)
+        return serving_modes_depths(
+            card, [int(x) for x in sm_depths.split(",")])
 
     seconds = {}
 
@@ -3200,7 +4045,13 @@ def main() -> int:
     timed("int8_products", int8_products_phase, card)
     launches, params, cfg, float_tps = timed("slice", slice_phase, card)
     obs_launches = timed("obs", obs_phase, card, params, cfg, float_tps)
-    timed("serving_modes", serving_modes_phase, card, params, cfg)
+    # serving_modes at the first SM_LAYERS of the slice's 32 layers (the
+    # same weights; a cut of depth that keeps the script's time)
+    sm_params = {**params, "layers": {k: v[:SM_LAYERS] for k, v in
+                                      params["layers"].items()}}
+    timed("serving_modes", serving_modes_phase, card, sm_params,
+          dataclasses.replace(cfg, n_layers=SM_LAYERS))
+    del sm_params
     if profile:
         _profile_serving(card, params, cfg)
     int8_serve = timed("int8_serving", int8_serving_phase, card, params,
@@ -3221,6 +4072,14 @@ def main() -> int:
     decode_launches = timed("decode_ladder", decode_ladder_phase, card)
     timed("ctr", ctr_phase, card, profile)
     predict_launches = timed("small_workloads", small_workloads_phase, card)
+    print(json.dumps({"phase": "bytecode", "modules": SL_BYTECODE_MODULES,
+                      "seconds": _bytecode_seconds(bytecode)}), flush=True)
+    load_launches, load_shape = timed("serving_load", serving_load_phase,
+                                      card)
+    # the largest prefill the serving-load rungs ran, held to its plain
+    # version
+    if load_shape not in rows:
+        rows[load_shape] = primal_kernel_row(load_shape, card)
     print(json.dumps({"phase": "seconds", **seconds,
                       "total": time.perf_counter() - t0}), flush=True)
 
@@ -3290,12 +4149,18 @@ def main() -> int:
         **{f"int8_serving {k}": n for k, n in int8_serve.items()},
         **{f"decode_ladder {w} b{b}": n
            for (w, b), n in decode_launches.items()},
-        "predict llama (flagship export, 64 x 512)": predict_launches}
+        "predict llama (flagship export, 64 x 512)": predict_launches,
+        **load_launches}
+    # the serving-load rungs' in-process launches (counted by the
+    # wrapper) stand beside their largest prefill's shape
+    load_counted = sum(n for k, n in load_launches.items()
+                       if "rung" in k)
     primals = []
-    for shape in (SLICE_MAIN, *DECODE_SHAPES, PREDICT_SHAPE):
+    for shape in (SLICE_MAIN, *DECODE_SHAPES, PREDICT_SHAPE, load_shape):
         r = rows[shape]
         launched = (launches if shape == SLICE_MAIN else
                     predict_launches if shape == PREDICT_SHAPE else
+                    load_counted if shape == load_shape else
                     sum(n for (_, b), n in decode_launches.items()
                         if b == shape[0]))
         err = (max(rows[k]["max_abs_err"] for k in KERNEL_SHAPES)

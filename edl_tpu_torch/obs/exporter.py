@@ -12,9 +12,11 @@
   fetches only the delta);
 * ``/events``   — the flight recorder's event log as JSONL, filterable
   by ``?rid=``, ``?kind=``, ``?severity=`` and bounded by ``?n=``;
-* ``/history``  — 404 "no history store attached", as the reference
-  answers without its on-disk metric history (``obs/tsdb``, not ported
-  yet);
+* ``/history``  — windowed queries over the process's on-disk metric
+  history (obs/tsdb.py) when a ``history`` store is attached:
+  ``?name=&t0=&t1=&step=`` plus any label matchers; no ``name`` lists
+  the recorded series; without a store, 404 "no history store
+  attached";
 * ``/healthz``  — liveness JSON (status, uptime, pid).
 
 Pull-based on purpose (the Prometheus model): the process never blocks
@@ -50,7 +52,10 @@ class MetricsExporter:
     """Own one telemetry endpoint over ``source`` (default: the process
     registry, with the core catalog pre-registered). ``tracer`` defaults
     to the process-wide tracer so ``/trace`` always works; ``/events``
-    serves the process flight recorder."""
+    serves the process flight recorder. ``history`` is a
+    :class:`~edl_tpu_torch.obs.tsdb.TSDB` (or a string path to a history
+    directory) served on ``/history``; absent, the endpoint 404s and is
+    omitted from ``/healthz``."""
 
     def __init__(
         self,
@@ -59,7 +64,13 @@ class MetricsExporter:
         port: int = 0,
         host: str = "127.0.0.1",
         tracer=None,
+        history=None,
     ):
+        if isinstance(history, str):
+            from edl_tpu_torch.obs.tsdb import TSDB
+
+            history = TSDB(history)
+        self.history = history
         if source is None:
             from edl_tpu_torch.obs.metrics import default_registry
 
@@ -112,11 +123,20 @@ class MetricsExporter:
                         ).encode()
                         ctype = "application/x-ndjson"
                     elif path == "/history":
-                        self.send_error(404, "no history store attached")
-                        return
+                        if exporter.history is None:
+                            self.send_error(
+                                404, "no history store attached"
+                            )
+                            return
+                        body = exporter.history.render_history(
+                            parse_qs(parts.query)
+                        ).encode()
+                        ctype = "application/json"
                     elif path in ("/", "/healthz"):
-                        endpoints = ["/metrics", "/trace", "/events",
-                                     "/healthz"]
+                        endpoints = ["/metrics", "/trace", "/events"]
+                        if exporter.history is not None:
+                            endpoints.append("/history")
+                        endpoints.append("/healthz")
                         body = json.dumps(
                             {
                                 "status": "ok",
@@ -230,10 +250,11 @@ class MetricsExporter:
 
 def start_exporter(
     source=None, *, port: int = 0, host: str = "127.0.0.1", tracer=None,
+    history=None,
 ) -> MetricsExporter:
     """Convenience: construct + start (``port=0`` = ephemeral)."""
-    return MetricsExporter(source, port=port, host=host,
-                           tracer=tracer).start()
+    return MetricsExporter(source, port=port, host=host, tracer=tracer,
+                           history=history).start()
 
 
 def scrape(url: str, path: str = "/metrics", timeout_s: float = 5.0) -> str:

@@ -15,8 +15,9 @@ Design constraints, in order:
 Histograms are fixed-bucket (Prometheus-style cumulative ``le``
 edges), and p50/p95/p99 are linear interpolation inside the owning
 bucket — the same estimate a PromQL ``histogram_quantile`` would give.
-The reference's snapshot/merge (the fleet push format) waits for the
-fleet's port.
+``MetricsRegistry.snapshot()`` is a JSON-able dict: what the metric
+history (``obs/tsdb.py``) stores. The reference's ``merge_snapshot``
+(the fleet's KV aggregation) waits for the rest of ``obs/fleet``.
 """
 
 from __future__ import annotations
@@ -328,6 +329,38 @@ class MetricsRegistry:
             out.append(f"# TYPE {fam.name} {fam.kind}")
             fam.render(out)
         return "\n".join(out) + "\n"
+
+    # -- snapshot (the format the metric history stores) ------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-able full dump of every family: what the metric history
+        (obs/tsdb.py) appends."""
+        fams = []
+        for fam in self.families():
+            rec: Dict[str, Any] = {
+                "name": fam.name,
+                "kind": fam.kind,
+                "help": fam.help,
+                "labelnames": list(fam.labelnames),
+            }
+            if isinstance(fam, Histogram):
+                rec["buckets"] = list(fam.buckets)
+                rec["samples"] = [
+                    {
+                        "labels": list(key),
+                        "counts": list(s.counts),
+                        "sum": s.sum,
+                        "count": s.count,
+                    }
+                    for key, s in fam.samples()
+                ]
+            else:
+                rec["samples"] = [
+                    {"labels": list(key), "value": s[0]}
+                    for key, s in fam.samples()
+                ]
+            fams.append(rec)
+        return {"v": 1, "families": fams}
 
 
 # ---------------------------------------------------------------------------

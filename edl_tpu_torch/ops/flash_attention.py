@@ -33,7 +33,10 @@ lengths the reference does.
 
 Launch counters (plain integers, reset by callers that want to prove a
 path went through a kernel): ``launches`` (the primal forward),
-``lse_launches``, ``dq_launches``, ``dkv_launches``.
+``lse_launches``, ``dq_launches``, ``dkv_launches``. Each launch also
+sets the default registry's gauge ``edl_kernel_launches{kernel=...}``
+to its kernel's count, so a process that serves ``/metrics`` (a fleet
+replica, ``loadgen --metrics-port``) reports what it launched itself.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ import math
 from typing import Dict, Tuple
 
 import torch
+
+from edl_tpu_torch.obs.metrics import default_registry
 
 NEG_INF = -1e30
 # base-2 softmax: log2(e) is folded into the score scale, so every
@@ -71,6 +76,24 @@ def launch_counts() -> Dict[str, int]:
 def reset_launches() -> None:
     for var in _COUNTERS.values():
         globals()[var] = 0
+    gauge = default_registry().get(LAUNCH_METRIC)
+    if gauge is not None:
+        for name in KERNELS:
+            gauge.set(0, kernel=name)
+
+
+LAUNCH_METRIC = "edl_kernel_launches"
+
+
+def _launched(name: str) -> None:
+    """Count one launch of kernel ``name`` (in :data:`KERNELS`): its
+    counter and, at the same value, its ``edl_kernel_launches`` gauge."""
+    var = _COUNTERS[name]
+    globals()[var] += 1
+    default_registry().gauge(
+        LAUNCH_METRIC, "flash kernel launches of this process since it "
+        "started or its counts were last reset", ("kernel",),
+    ).set(globals()[var], kernel=name)
 
 
 def _fit_block(block: int, t: int) -> int:
@@ -354,9 +377,8 @@ def flash_attention_cuda(
     it does not take or on a refused launch. The kernel tiles 128 x 128
     (TMA-fed wgmma, one persistent CTA an SM) and masks a ragged T edge
     itself."""
-    global launches
     out, _ = _fwd_cuda(q, k, v, causal, with_lse=False)
-    launches += 1
+    _launched("flash_fwd")
     return out
 
 
@@ -364,9 +386,8 @@ def flash_attention_lse_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``flash_fwd_lse_bf16`` → ``(out, lse [B, H, T] f32)``."""
-    global lse_launches
     out, lse = _fwd_cuda(q, k, v, causal, with_lse=True)
-    lse_launches += 1
+    _launched("flash_fwd_lse")
     return out, lse
 
 
@@ -397,22 +418,20 @@ def _bwd_launch(entry, q, k, v, do, lse, delta, outs, causal):
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool = True):
     """Launch ``flash_bwd_dq_bf16`` → dq in q's dtype (bf16)."""
-    global dq_launches
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _bwd_launch("flash_bwd_dq_bf16", q, k, v, do, lse, delta, [dq], causal)
-    dq_launches += 1
+    _launched("flash_bwd_dq")
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool = True):
     """Launch ``flash_bwd_dkv_bf16`` → (dk, dv) in k/v's dtype, already
     summed over each KV head's query heads inside the kernel."""
-    global dkv_launches
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     _bwd_launch("flash_bwd_dkv_bf16", q, k, v, do, lse, delta, [dk, dv],
                 causal)
-    dkv_launches += 1
+    _launched("flash_bwd_dkv")
     return dk, dv
 
 

@@ -24,8 +24,10 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import tempfile
 import threading
+import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -182,12 +184,42 @@ def export_status(root: str) -> Optional[Dict[str, Any]]:
     return doc
 
 
+def _stored_array(path: str, zf: zipfile.ZipFile, name: str, f):
+    """Member ``name`` of the npz at ``path`` as a copy-on-write memory
+    map of its bytes in the archive, or None where it cannot be mapped
+    (compressed, or an object array). ``np.savez`` stores members
+    uncompressed, so the array is read in place: no zip read, no CRC
+    pass and no intermediate copies of the leaf."""
+    info = zf.getinfo(name)
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    f.seek(info.header_offset)
+    local = f.read(30)  # the member's local header; then its name, extra
+    name_len, extra_len = struct.unpack("<HH", local[26:30])
+    f.seek(info.header_offset + 30 + name_len + extra_len)
+    version = np.lib.format.read_magic(f)
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    shape, fortran, dtype = read_header(f)
+    if dtype.hasobject:
+        return None
+    if not int(np.prod(shape)):
+        return np.empty(shape, dtype, order="F" if fortran else "C")
+    return np.memmap(path, dtype=dtype, mode="c", offset=f.tell(),
+                     shape=shape, order="F" if fortran else "C")
+
+
 def _iter_param_leaves(doc):
     """Yield (key-parts, CPU tensor) for every leaf of an export; the
-    zip stays open across the sweep."""
-    with np.load(os.path.join(doc["_dir"], "params.npz")) as z:
+    zip stays open across the sweep. Uncompressed leaves are memory
+    maps of the archive (copy-on-write), so a load to the card copies
+    each leaf once, from the page cache."""
+    path = os.path.join(doc["_dir"], "params.npz")
+    with np.load(path) as z, open(path, "rb") as f:
         for key in z.files:
-            arr = np.array(z[key])
+            arr = _stored_array(path, z.zip, key + ".npy", f)
+            if arr is None:
+                arr = np.array(z[key])
             t = torch.from_numpy(arr)
             if doc["dtypes"].get(key) == "bfloat16":
                 t = t.view(torch.bfloat16)
@@ -223,5 +255,8 @@ def load_export(
         raise FileNotFoundError(f"no published export under {root}")
     params: Dict[str, Any] = {}
     for parts, leaf in _iter_param_leaves(doc):
-        _tree_insert(params, parts, to_device(leaf, dev, dtype))
+        out = to_device(leaf, dev, dtype)
+        if out.data_ptr() == leaf.data_ptr():
+            out = out.clone()  # the params own their memory, not the map
+        _tree_insert(params, parts, out)
     return _restore_lists(params), doc

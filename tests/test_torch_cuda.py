@@ -541,3 +541,104 @@ def test_cuda_adamw_state_round_trip():
         assert torch.equal(a, b) and torch.equal(a, c)
     placed, m = step(placed, trainer.global_batch(nb, device="cuda"))
     assert torch.isfinite(m["loss"]) and placed.step == 2
+
+
+@pytest.mark.cuda
+def test_cuda_launch_gauge_is_the_wrappers_count():
+    """Each launch sets the default registry's ``edl_kernel_launches``
+    to its kernel's count (what a replica's ``/metrics`` reports), and
+    ``reset_launches`` zeroes both."""
+    _need_card()
+    from edl_tpu_torch.obs.metrics import default_registry
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (_randn(gen, 1, 128, n, 128) for n in (16, 8, 8))
+    tfa.reset_launches()
+    for _ in range(3):
+        tfa.flash_attention(q, k, v, causal=True)
+    tfa.flash_attention_lse_cuda(q, k, v, True)
+    torch.cuda.synchronize()
+    gauge = default_registry().get(tfa.LAUNCH_METRIC)
+    for name, n in tfa.launch_counts().items():
+        assert gauge.value(kernel=name) == n
+    assert tfa.launch_counts()["flash_fwd"] == 3
+    tfa.reset_launches()
+    assert all(gauge.value(kernel=name) == 0 for name in tfa.KERNELS)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_failover_gives_a_single_engines_tokens(tmp_path,
+                                                           monkeypatch):
+    """Two replica subprocesses of the f32 tiny model (``--dryrun``, one
+    seed) on the card behind the router; the first is SIGKILLed while it
+    streams. Every request finishes, at least one fails over, and every
+    request's tokens are one in-process engine's on the card: token
+    identity across a failover holds in f32 (in bf16, near-ties flip when
+    the batch changes; chip_smoke holds the bf16 flagship to the
+    teacher-forced margin)."""
+    _need_card()
+    import threading
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.obs.exporter import scrape
+    from edl_tpu_torch.obs.metrics import (MetricsRegistry,
+                                           parse_prometheus_text)
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.serving.fleet import (ReplicaSpec, ReplicaSupervisor,
+                                             ServingFleet)
+    from edl_tpu_torch.serving.router import (HttpTransport, ReplicaTable,
+                                              Router)
+    from edl_tpu_torch.serving.scheduler import Request
+
+    # every decode dispatch of the replicas stalls 20 ms (a delay, not a
+    # failure), so the kill lands while the victim streams
+    monkeypatch.setenv("EDL_FAULTS", "serve.dispatch:delay@every=1,s=0.02")
+    vocab, seed = 256, 1
+    kw = {"max_slots": 4, "max_len": 96, "horizon": 4}
+    spec = ReplicaSpec(workdir=str(tmp_path), vocab=vocab, slots=4,
+                       max_len=96, horizon=4, seed=seed, device="cuda")
+    reg = MetricsRegistry()
+    table = ReplicaTable(registry=reg)
+    sup = ReplicaSupervisor(table, spec, spawn_retries=0)
+    fleet = ServingFleet(sup, Router(table, transport=HttpTransport(),
+                                     seed=0, registry=reg))
+    rng = np.random.RandomState(3)
+    reqs = [Request(rid=f"q{i}", prompt=rng.randint(1, vocab, 4 + i % 5)
+                    .tolist(), max_new=40) for i in range(8)]
+    results = {}
+    try:
+        ids = fleet.start(2)
+        victim = sup.handle(ids[0])
+        threads = [threading.Thread(target=lambda r=r: results.__setitem__(
+            r.rid, fleet.generate(r))) for r in reqs]
+        for t in threads:
+            t.start()
+        for _ in range(12000):
+            # /metrics (read, like /healthz, without the engine lock):
+            # streaming, and not every request finished
+            fams = parse_prometheus_text(scrape(victim.url, "/metrics"))
+            toks = sum(v for _, v in fams.get("edl_serving_tokens_total",
+                                              ()))
+            done = sum(v for lb, v in fams.get("edl_serving_requests_total",
+                                               ())
+                       if lb.get("event") == "completed")
+            if toks > 0 and done < 2:
+                break
+        victim.proc.kill()
+        victim.proc.wait()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        fleet.stop()
+    assert {r.rid: r.outcome for r in results.values()} == {
+        r.rid: "done" for r in reqs}
+    assert sum(r.failovers for r in results.values()) >= 1
+    cfg = llama.LlamaConfig.tiny(vocab=vocab)
+    eng = ContinuousBatchingEngine(
+        llama.init_params(cfg, seed=seed, device="cuda"), cfg,
+        device="cuda", **kw)
+    for r in reqs:
+        eng.submit(r.rid, r.prompt, r.max_new)
+    want = eng.run()
+    assert {rid: r.tokens for rid, r in results.items()} == {
+        r.rid: want[r.rid].tokens for r in reqs}
