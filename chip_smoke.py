@@ -23,7 +23,8 @@
    where the lse variant is held to its plain version too, so every
    instantiation of the forward template is checked; and the decode
    ladder's prefills (phase 8a), B in {1, 8, 32} at T=512, H=16, KV=8,
-   d=128, causal (the flagship's attention). Tolerance:
+   d=128, causal (the flagship's attention), the llama predict's B64
+   T512 H16 KV8 and the MoE predict's B64 T512 H8 KV4. Tolerance:
    |kernel - plain| <= 2e-2 + 2^-7 * |plain| elementwise — both round
    the output to bf16 (one ulp is 2^-8 relative) and sum in different
    orders; the plain version runs on the kernel's 128 x 128 tiles (one
@@ -47,7 +48,8 @@
    that steps down to a smaller batch has that shape checked after the
    ladder, phase 8); and d=64 at B=2 T=1024 H=16 KV=8 causal, so every
    instantiation of the three training kernels is checked (the
-   non-causal d=64 backward by ``tests/test_torch_cuda.py``). Tolerances: the
+   non-causal d=64 backward by ``tests/test_torch_cuda.py``); and the
+   MoE's attention, B=4 T=2048 H=8 KV=4 causal. Tolerances: the
    forward output as in 2; lse |kernel - plain| <= 1e-4 (f32 on both
    sides, the forward's 128 x 128 tiles, only the f32 summation order
    differs); dq/dk/dv <= 1e-2 * max|plain| + 2^-7 * |plain| (both
@@ -81,7 +83,7 @@
    forward over prompt + generated puts every chosen token within
    0.1 x (row std) of its row's maximum logit.
 5. Serving-modes phase: the slice's model and weights, cut to its
-   first 16 of 32 layers, through the
+   first 8 of 32 layers, through the
    PAGED engine (8 slots x 2048, horizon 8, block 16), once with float
    KV, then under ``kv_quant`` int8, then int4: (a) the prefix cache
    with chunked prefill (256) on the default pool — a cold 552-token
@@ -224,6 +226,45 @@
    under the primal forward's row at PREDICT_SHAPE (B64 T512 H16 KV8,
    held to its plain version in the kernel phase). Prints export,
    load and predict seconds.
+10a. moe phase: the MoE family (``edl_tpu/models/moe.py``) at
+   ``MoEConfig()``'s own width and depth (d1024/L8/H8/KV4, experts
+   ff2816 x 8, top-2, capacity factor 1.25, v32768; 461.5 M params),
+   random weights from a seeded generator on the card, bf16 over f32
+   masters, ``use_flash``, one ``synthetic_tokens`` batch [4, 2048+1]
+   (seed 0), ``adamw(1e-3)`` through ``make_train_step``: one warm-up
+   step, then 5 timed ones on the same batch (tokens/s; MFU from the
+   cost model's ``train_flops_per_token`` over 989 TF/s, which prices
+   an expert as three matrices, and the same with the MoE's two; peak
+   memory; flash launches a step; one profiled step's kernel launches
+   and device ms by family). Checks: the flash loss within 1e-4
+   (relative) of the dense (``use_flash=False``) loss on the batch with
+   the dense forward routed as the flash forward was (bf16 rounds the
+   two attentions differently, which flips near-tied router choices and
+   moves those tokens' outputs whole: the loss without that replay and
+   the choices that differ are printed); every routing of the flash
+   forward against the same router
+   probabilities routed on the CPU (experts, slots, kept choices
+   equal; the share of choices dropped a layer is printed); the first
+   2 layers in f32 (plain attention, TF32 off) on the batch's first row
+   of 512 + 1 tokens on the card and on the CPU: loss within 1e-5
+   relative, every gradient leaf's L2 difference within 1e-3 of its
+   norm (the experts' ReLU kink makes an elementwise bound meaningless;
+   see MOE_CPU_REL_L2); one
+   ``value_and_grad`` without remat and one with each layer
+   checkpointed whole: 8 ``flash_fwd_lse`` launches (16 under remat),
+   8 of each backward sweep, no primal forward, and loss and grads
+   equal (within 1e-6 / 1e-5 of the leaf's largest entry; bit-equal is
+   expected, the largest difference is printed); finite losses that
+   fall over the timed steps with 8 / 8 / 8 / 0 launches a step; the
+   trained state's ``snapshot``, ``staged_reshard(stage="f32")`` and
+   ``restore`` (each timed; the staged stall), the staged state equal
+   to the restored one bit for bit, and two further steps from it
+   giving the unresharded run's losses bit for bit; one ``int8_mxu``
+   step with 4 + 2 x 8 ``int8_matmul`` ops a layer forward and
+   backward; then the trained params exported in bf16 and 64 rows x
+   512 tokens scored through ``predict_batch`` (one chunk: exactly 8
+   primal flash launches), ``ln ppl`` within 1e-4 (relative) of the
+   dense forward's under the same replayed routing.
 11. serving_load phase: bench.py's serving-load rungs and the serving
    verbs under load, on the flagship decode config (bench.py:87: the
    flagship without remat, bf16, random weights from seed 4). (a) The
@@ -266,15 +307,18 @@
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
 shape, and its launches on the main path; the three training kernels
-three times, at B4 T2048 with the train phase's launches and at each
-ladder rung's shape (the batch that fit) with that rung's launches,
+four times, at B4 T2048 with the train phase's launches, at each
+ladder rung's shape (the batch that fit) with that rung's launches
+and at the MoE's B4 T2048 H8 KV4 with the moe phase's 5 steps,
 each with its launches on every training path, the int8 rungs' too;
-the primal forward six times, at B1 T1024 H32 with the slice's
+the primal forward seven times, at B1 T1024 H32 with the slice's
 launches, at each decode rung's prefill shape with that rung's bf16
-and int8 launches, at the llama predict's B64 T512 with its launches
-and at the serving-load rungs' largest prefill with their launches,
+and int8 launches, at the llama predict's B64 T512 and the moe
+predict's B64 T512 H8 KV4 with their launches and at the serving-load
+rungs' largest prefill with their launches,
 each with its launches on the slice, the int8 serving runs, every
-decode rung, the llama predict, both serving-load rungs, the loadgen
+decode rung, the llama and moe predicts, both serving-load rungs, the
+loadgen
 verb and the failover fleet's replicas (the last two from their
 ``serve.prefill`` events x 16)), then the
 card's name and power limit, then ``{"ok": true, "device": ...}`` as
@@ -329,9 +373,10 @@ LOSS_RTOL = 1e-4
 GRAD_MIN_COS = 0.999
 # serving-modes phase: the slice's engine (8 slots, horizon 8) paged, on
 # the first SM_LAYERS of the slice's 32 layers (cut to fit the script's
-# time; `--serving-modes-layers 8,16,32` prints each kv_quant's margin
-# at each depth)
-SM_LAYERS = 16
+# time: 16 layers took 20.6-21.1 s, 8 took 10.7 s with the same worst
+# margins; `--serving-modes-layers 8,16,32` prints each kv_quant's
+# margin at each depth)
+SM_LAYERS = 8
 SM_MAX_LEN = 2048
 SM_BLOCK = 16
 SM_CHUNK = 256  # prefill chunk of part (a)
@@ -426,6 +471,11 @@ DECODE_SHAPES = tuple((b, t0) + TRAIN_MAIN[2:] for b, t0, _ in DECODE_LADDER)
 # tokens through the flagship's attention, held to its plain version in
 # the kernel phase
 PREDICT_SHAPE = (64, 512) + TRAIN_MAIN[2:]
+# the MoE phase's attention (H8 KV4 d128, MoEConfig()'s): training at
+# MOE_BATCH and predict's one chunk of MOE_PREDICT, each held to its
+# plain versions in the kernel phases
+MOE_TRAIN_SHAPE = (4, 2048, 8, 4, True, 128)
+MOE_PREDICT_SHAPE = (64, 512, 8, 4, True, 128)
 
 
 def _smi() -> str:
@@ -490,10 +540,11 @@ def _check_out(got, want, what):
 
 def kernel_phase(card):
     """The primal forward against its plain version at KERNEL_SHAPES,
-    DECODE_SHAPES and PREDICT_SHAPE (:func:`primal_kernel_row`); returns
-    the rows by shape."""
+    DECODE_SHAPES, PREDICT_SHAPE and MOE_PREDICT_SHAPE
+    (:func:`primal_kernel_row`); returns the rows by shape."""
     return {shape: primal_kernel_row(shape, card)
-            for shape in (*KERNEL_SHAPES, *DECODE_SHAPES, PREDICT_SHAPE)}
+            for shape in (*KERNEL_SHAPES, *DECODE_SHAPES, PREDICT_SHAPE,
+                          MOE_PREDICT_SHAPE)}
 
 
 def primal_kernel_row(shape, card):
@@ -571,8 +622,9 @@ def _grad_err(got, want, name, where):
 
 def train_kernel_phase(card):
     """lse forward, dQ and dK/dV kernels against their plain versions at
-    TRAIN_SHAPES; returns the rows by shape."""
-    return {shape: train_kernel_row(shape, card) for shape in TRAIN_SHAPES}
+    TRAIN_SHAPES and MOE_TRAIN_SHAPE; returns the rows by shape."""
+    return {shape: train_kernel_row(shape, card)
+            for shape in (*TRAIN_SHAPES, MOE_TRAIN_SHAPE)}
 
 
 def train_kernel_row(shape, card):
@@ -3195,6 +3247,490 @@ def small_workloads_phase(card):
     return counts["flash_fwd"]
 
 
+# moe phase: the MoE family (edl_tpu/models/moe.py) at MoEConfig()'s own
+# defaults, the full width (d1024/L8/H8/KV4/ff2816/E8/top-2/capacity
+# 1.25/v32768, 461.5 M params), bf16 over f32 masters, flash attention,
+# B4 x T2048, adamw(1e-3), one warm-up and MOE_STEPS timed steps. The
+# card is held to the port on the CPU in f32 (TF32 off, plain attention)
+# at the first MOE_CPU_LAYERS layers on the first row's first
+# MOE_CPU_TOKENS tokens: loss within MOE_CPU_LOSS_RTOL, every gradient
+# leaf's L2 difference within MOE_CPU_REL_L2 of its norm. Not
+# elementwise: the experts' ReLU has a kink, and an f32 product summed
+# in another order can put an input near 0 on the other side of it,
+# which moves one token's whole term of a gradient. On the H100 that
+# put w_in's gradient 2.2e-3 of its largest entry off the CPU's and the
+# small ln2 leaf (2 x 1024) 1.0e-4 of its norm off, while the loss
+# agreed to 8.7e-8; the bound admits a few such flips, and a wrong
+# route, expert product or gather would move whole tokens' outputs and
+# the loss with them. The routing, fed bit-equal router probabilities
+# on both sides, is checked equal on its own. Then an export scored by
+# predict on MOE_PREDICT rows x tokens.
+MOE_BATCH = (4, 2048)
+MOE_STEPS = 5
+MOE_CPU_LAYERS = 2
+MOE_CPU_TOKENS = 512
+MOE_CPU_LOSS_RTOL = 1e-5
+MOE_CPU_REL_L2 = 1e-3
+MOE_PREDICT = (64, 512)
+
+
+def _moe_flash_per_step(n_layers, remat=False):
+    """Flash launches of one MoE training step: the lse forward once a
+    layer (twice under remat, whose recompute runs with grad on too),
+    each backward sweep once, the primal forward never."""
+    return {"flash_fwd": 0, "flash_fwd_lse": (2 if remat else 1) * n_layers,
+            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+
+
+def _moe_launch_check(counts, n_layers, steps, remat=False, what="moe"):
+    want = {k: steps * v
+            for k, v in _moe_flash_per_step(n_layers, remat).items()}
+    if counts != want:
+        raise AssertionError(f"{what}: flash launches {counts} over {steps} "
+                             f"step(s), want {want}")
+
+
+def _moe_int8_check(calls, cfg):
+    """int8 ops of one int8_mxu step: a layer's 4 attention products and
+    2 x E expert products (one op an expert), forward and backward; the
+    router, the combine and lm_head stay dense."""
+    n = (4 + 2 * cfg.n_experts) * cfg.n_layers
+    if calls != {"fwd": n, "bwd": n}:
+        raise AssertionError(f"int8_mxu step: int8 op calls {calls}, want "
+                             f"{n} forward and {n} backward")
+    return n
+
+
+class _moe_routes:
+    """Records every ``route`` call of ``parallel/moe.py`` made inside
+    the block: (probs, k, capacity, its four outputs)."""
+
+    def __enter__(self):
+        from edl_tpu_torch.parallel import moe as pm
+
+        self.pm, self.real, self.calls = pm, pm.route, []
+
+        def spy(probs, k, cap):
+            out = self.real(probs, k, cap)
+            self.calls.append((probs, k, cap, out))
+            return out
+
+        pm.route = spy
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.pm.route = self.real
+
+
+class _moe_replay:
+    """Routes the ``route`` calls made inside the block as the recorded
+    ``calls`` (of :class:`_moe_routes`) did, in order: the same experts,
+    slots and kept choices, with the choice probabilities gathered from
+    the block's own router probabilities. A forward that differs from
+    the recorded one only in rounding then differs from it in nothing
+    discrete."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        from edl_tpu_torch.parallel import moe as pm
+
+        self.pm, self.real, self.used = pm, pm.route, 0
+
+        def replay(probs, k, cap):
+            p0, k0, cap0, (_, idx, slot, keep) = self.calls[self.used]
+            if (k0, cap0, p0.shape) != (k, cap, probs.shape):
+                raise AssertionError(f"routing replay {self.used}: k, "
+                                     f"capacity or shape differ")
+            self.used += 1
+            return probs.gather(1, idx), idx, slot, keep
+
+        pm.route = replay
+
+    def __exit__(self, exc_type, *exc):
+        self.pm.route = self.real
+        if exc_type is None and self.used != len(self.calls):
+            raise AssertionError(f"routing replay used {self.used} of "
+                                 f"{len(self.calls)} recorded calls")
+
+
+def _moe_dense_agreement(flash, dense, what):
+    """``flash()`` and ``dense()`` (the same function with the flash
+    kernels and with plain attention) each give a loss-like value. In
+    bf16 the two round differently, and a choice whose router
+    probabilities nearly tie can flip between them and move its
+    token's output whole (and, through the capacity queue, later
+    tokens' slots). So the dense value is taken twice: free, and under
+    the flash forward's routing (:class:`_moe_replay`); the latter must
+    be within LOSS_RTOL (relative) of the flash value. Returns the
+    figures."""
+    with _moe_routes() as routes:
+        f = flash()
+    with _moe_routes() as d_routes:
+        d = dense()
+    with _moe_replay(routes):
+        r = dense()
+    differ = sum(int((a[3][1] != b[3][1]).sum())
+                 for a, b in zip(routes, d_routes))
+    choices = sum(a[3][1].numel() for a in routes)
+    rel_free = abs(f - d) / abs(d)
+    rel = abs(f - r) / abs(r)
+    if not (math.isfinite(f) and rel <= LOSS_RTOL):
+        raise AssertionError(
+            f"{what}: flash {f} vs dense under its routing {r} (rel "
+            f"{rel:.3g} > {LOSS_RTOL}); dense free {d} (rel "
+            f"{rel_free:.3g}), {differ} of {choices} choices differ")
+    return {"flash": f, "dense": d, "dense_flash_routing": r,
+            "rel_diff": rel, "rel_diff_free_routing": rel_free,
+            "rtol": LOSS_RTOL, "choices_differ": differ,
+            "choices": choices}, routes
+
+
+def _moe_route_check(calls):
+    """Each recorded routing against the same router probabilities
+    routed on the CPU: the experts, slots and kept choices must be
+    equal. Returns the share of choices dropped, a layer."""
+    import torch
+
+    from edl_tpu_torch.parallel import moe as pm
+
+    dropped = []
+    for i, (probs, k, cap, (_, idx, slot, keep)) in enumerate(calls):
+        _, c_idx, c_slot, c_keep = pm.route(probs.detach().cpu(), k, cap)
+        if not (torch.equal(idx.cpu(), c_idx)
+                and torch.equal(slot.cpu(), c_slot)
+                and torch.equal(keep.cpu(), c_keep)):
+            raise AssertionError(f"routing {i} differs from the CPU's on "
+                                 f"the same router probabilities")
+        dropped.append(1.0 - float(c_keep.float().mean()))
+    return dropped
+
+
+def _moe_cpu_agreement(params, cfg, tokens, device):
+    """The first MOE_CPU_LAYERS layers in f32 (plain attention) on
+    ``device`` and on the CPU, one value_and_grad on the first row's
+    first MOE_CPU_TOKENS + 1 tokens. Raises past the tolerances; returns
+    the loss's relative difference, the worst gradient leaf's relative
+    L2 difference and its name, and the largest elementwise difference
+    of any leaf as a share of that leaf's largest entry."""
+    import torch
+
+    from edl_tpu_torch.models import moe
+    from edl_tpu_torch.train import trainer
+    from edl_tpu_torch.utils.tree import replace_leaves
+
+    cut = {k: (v if k != "layers" else
+               {n: x[:MOE_CPU_LAYERS] for n, x in v.items()})
+           for k, v in params.items()}
+    cfg = dataclasses.replace(cfg, n_layers=MOE_CPU_LAYERS,
+                              dtype=torch.float32, use_flash=False,
+                              remat=False, int8_mxu=False)
+    row = tokens[:1, :MOE_CPU_TOKENS + 1]
+    out = []
+    with _no_tf32():
+        for dev in (device, "cpu"):
+            p = replace_leaves(cut, [x.detach().to(dev).clone()
+                                     for x in trainer.leaves(cut)])
+            out.append(trainer.value_and_grad(moe.make_loss_fn(cfg))(
+                trainer.trainable(p), {"tokens": row.to(dev)}))
+    (loss, grads), (c_loss, c_grads) = out
+    rel = abs(float(loss) - float(c_loss)) / abs(float(c_loss))
+    worst, worst_leaf, of_max = 0.0, None, 0.0
+    for (name, g), c in zip(_named_leaves(grads), trainer.leaves(c_grads)):
+        d = g.cpu() - c
+        l2 = float(d.norm()) / max(float(c.norm()), 1e-30)
+        if l2 >= worst:
+            worst, worst_leaf = l2, name
+        of_max = max(of_max, float(d.abs().max()) / max(
+            float(c.abs().max()), 1e-30))
+    if not (rel <= MOE_CPU_LOSS_RTOL and worst <= MOE_CPU_REL_L2):
+        raise AssertionError(
+            f"moe card vs CPU at {MOE_CPU_LAYERS} layers: loss rel diff "
+            f"{rel} (limit {MOE_CPU_LOSS_RTOL}), worst gradient leaf "
+            f"{worst_leaf} off by {worst} of its norm (limit "
+            f"{MOE_CPU_REL_L2})")
+    return rel, worst, worst_leaf, of_max
+
+
+def _moe_remat_check(params, cfg, batch):
+    """One value_and_grad without remat and one with each layer
+    checkpointed whole, each counted: the flash launches as reckoned,
+    the loss and every gradient leaf equal (within REMAT_LOSS_RTOL and
+    REMAT_GRAD_OF_MAX of the leaf's largest entry; bit-equal is
+    expected). Returns the largest differences."""
+    from edl_tpu_torch.models import moe
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.train import trainer
+
+    out = []
+    for remat in (False, True):
+        fa.reset_launches()
+        c = dataclasses.replace(cfg, remat=remat)
+        loss, grads = trainer.value_and_grad(moe.make_loss_fn(c))(params,
+                                                                  batch)
+        _moe_launch_check(fa.launch_counts(), cfg.n_layers, 1, remat,
+                          f"moe value_and_grad (remat={remat})")
+        out.append((loss, trainer.leaves(grads)))
+    (loss, grads), (r_loss, r_grads) = out
+    loss_rel = abs(float(loss) - float(r_loss)) / abs(float(loss))
+    worst = diff = 0.0
+    for g, r in zip(grads, r_grads, strict=True):
+        d = float((g - r).abs().max())
+        diff = max(diff, d)
+        worst = max(worst, d / max(float(g.abs().max()), 1e-30))
+    if not (loss_rel <= REMAT_LOSS_RTOL and worst <= REMAT_GRAD_OF_MAX):
+        raise AssertionError(
+            f"moe remat vs none: loss rel diff {loss_rel} (limit "
+            f"{REMAT_LOSS_RTOL}), worst gradient leaf {worst} of its max "
+            f"(limit {REMAT_GRAD_OF_MAX})")
+    return {"remat_loss_rel_diff": loss_rel,
+            "remat_grad_max_abs_diff": diff,
+            "remat_grad_worst_of_leaf_max": worst,
+            "remat_bit_equal": diff == 0.0 and loss_rel == 0.0}
+
+
+def _moe_reshard_check(state, step, batch, device):
+    """The one-device reshard of the trained state: ``snapshot`` (device
+    to host), ``staged_reshard(stage="f32")`` (the overlapped round
+    trip, the stall) and ``restore`` of the snapshot, each timed. The
+    staged state must equal the restored one bit for bit, and two steps
+    from it must give the losses two steps from the state itself give,
+    bit for bit. Returns the seconds and losses."""
+    import torch
+
+    from edl_tpu_torch.runtime import checkpoint as ckpt
+    from edl_tpu_torch.train import trainer
+
+    def keyed(st):
+        out = {f"p{i}": p for i, p in enumerate(trainer.leaves(st.params))}
+        out.update({f"o{i}/{n}": t
+                    for i, n, t, _ in trainer.optimizer_tensors(st)})
+        return out
+
+    def timed(fn, *args, **kw):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        _sync(device)
+        return out, time.perf_counter() - t0
+
+    host, snapshot_s = timed(ckpt.snapshot, state)
+    staged, stall_s = timed(ckpt.staged_reshard, state, stage="f32",
+                            device=device)
+    back, restore_s = timed(ckpt.restore, host, device=device)
+    del host
+    a, b = keyed(staged), keyed(back)
+    if a.keys() != b.keys() or not all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("moe: f32 staged reshard differs from "
+                             "snapshot + restore")
+    del a, b, back
+    losses = {}
+    for name, st in (("resharded", staged), ("unresharded", state)):
+        losses[name] = []
+        for _ in range(2):
+            st, m = step(st, batch)
+            losses[name].append(float(m["loss"]))
+    if losses["resharded"] != losses["unresharded"]:
+        raise AssertionError(f"moe: losses after the reshard {losses}")
+    return {"snapshot_s": snapshot_s, "reshard_stall_host_f32_s": stall_s,
+            "restore_s": restore_s,
+            "state_gb": ckpt.state_nbytes(state) / 1e9,
+            "losses_after_reshard": losses["resharded"],
+            "losses_without_reshard": losses["unresharded"]}, st
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _moe_predict(params, cfg, root, device):
+    """Export ``params`` (bf16), score MOE_PREDICT rows x tokens through
+    ``predict_batch`` (one chunk: every layer's primal flash forward
+    once) and the same CE through plain attention. Raises unless the
+    primal launches are one chunk's and ``ln ppl`` is within LOSS_RTOL
+    (relative) of the dense forward's under the same routing
+    (:func:`_moe_dense_agreement`)."""
+    import torch
+
+    from edl_tpu_torch.models import evals, moe
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.runtime import predict
+
+    loaded, doc, t_exp, t_load = _export_roundtrip(root, params,
+                                                   cfg.to_meta())
+    n, t = MOE_PREDICT
+    toks = moe.synthetic_tokens(np.random.RandomState(2), n, t - 1,
+                                cfg.vocab)["tokens"]
+    dense = dataclasses.replace(moe.MoEConfig.from_meta(doc["model"]),
+                                use_flash=False)
+    scored = {}
+
+    def flash():
+        fa.reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        scored.update(predict.predict_batch(loaded, doc, {"tokens": toks}))
+        scored["predict_s"] = time.perf_counter() - t0
+        scored["counts"] = fa.launch_counts()
+        return math.log(scored["ppl"])
+
+    def plain():
+        with torch.no_grad():
+            return math.log(evals.lm_ppl(
+                lambda p, x: moe.forward(p, x, dense)[0], loaded, toks))
+
+    agree, _ = _moe_dense_agreement(flash, plain, "moe predict ln ppl")
+    counts = scored["counts"]
+    want = {k: 0 for k in counts}
+    want["flash_fwd"] = cfg.n_layers * -(-n // predict._CHUNK)
+    if counts != want or scored["next_token"].shape != (n,):
+        raise AssertionError(f"moe predict launches {counts}, want {want}")
+    return {"rows": n, "tokens": t, "export_s": t_exp, "load_export_s":
+            t_load, "predict_s": scored["predict_s"], "ppl": scored["ppl"],
+            **{f"ln_ppl_{k}": v for k, v in agree.items()},
+            "flash_launches": counts}
+
+
+def moe_phase(card):
+    """The MoE at full width on the card (see the constants above):
+    flash vs dense loss (:func:`_moe_dense_agreement`); the routing
+    against the CPU's on the same
+    router probabilities and the share of choices dropped; the card
+    against the CPU at MOE_CPU_LAYERS layers in f32; remat's gradients
+    against none's; 1 + MOE_STEPS adamw steps (tokens/s, MFU, peak
+    memory, flash launches a step by kind, a profiled step's kernel
+    launches); the one-device reshard; one int8_mxu step; an export
+    scored by predict. Returns the flash launches by path."""
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch.models import moe
+    from edl_tpu_torch.obs import costmodel
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.ops import int8_matmul as im
+    from edl_tpu_torch.train import trainer
+    from edl_tpu_torch.utils.tree import replace_leaves
+
+    t_phase = time.perf_counter()
+    cfg = moe.MoEConfig(use_flash=True)
+    L = cfg.n_layers
+    b, t = MOE_BATCH
+    tokens = torch.from_numpy(moe.synthetic_tokens(
+        np.random.RandomState(0), b, t, cfg.vocab)["tokens"]).cuda()
+    batch = {"tokens": tokens}
+    params = trainer.trainable(moe.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"))
+    row = {"phase": "moe", "model": "MoEConfig() (edl_tpu/models/moe.py:"
+           "35-50)",
+           "n_params": sum(p.numel() for p in trainer.leaves(params)),
+           "n_params_costmodel": costmodel.n_params(cfg),
+           "batch": b, "seq": t, "card": card}
+
+    # the routing of the flash forward against the CPU's, and flash vs
+    # dense on one batch
+    dense = dataclasses.replace(cfg, use_flash=False)
+    with torch.no_grad():
+        agree, routes = _moe_dense_agreement(
+            lambda: float(moe.make_loss_fn(cfg)(params, batch)),
+            lambda: float(moe.make_loss_fn(dense)(params, batch)),
+            "moe loss")
+    dropped = _moe_route_check(routes)
+    row.update({"capacity": routes[0][2], "dropped_share_by_layer": dropped,
+                "routing_equal_cpu": True,
+                **{f"loss_{k}": v for k, v in agree.items()}})
+    del routes
+    row.update(dict(zip(("cpu_loss_rel_diff", "cpu_grad_worst_rel_l2",
+                         "cpu_grad_worst_leaf", "cpu_grad_worst_of_max"),
+                        _moe_cpu_agreement(params, cfg, tokens, "cuda"))))
+    row.update({"cpu_layers": MOE_CPU_LAYERS, "cpu_tokens": MOE_CPU_TOKENS,
+                "cpu_tol": {"loss_rtol": MOE_CPU_LOSS_RTOL,
+                            "grad_rel_l2": MOE_CPU_REL_L2}})
+    row.update(_moe_remat_check(params, cfg, batch))
+    torch.cuda.empty_cache()
+
+    tx = trainer.adamw(1e-3)
+    state = trainer.TrainState.create(params, tx)
+    step = trainer.make_train_step(moe.make_loss_fn(cfg), tx)
+    state, m = step(state, batch)  # warm-up
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(MOE_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    _falling(losses)
+    _moe_launch_check(counts, L, MOE_STEPS)
+    kernels, launches = _device_kernels(_profiled(
+        lambda: step(state, batch)))
+    step_s = wall / MOE_STEPS
+    tok_s = b * t / step_s
+    flops_tok = costmodel.train_flops_per_token(cfg, t)
+    # the cost model prices an expert as SwiGLU's three matrices; the
+    # MoE's ReLU expert has two
+    flops_two = flops_tok - 6.0 * L * cfg.d_model * cfg.d_ff * cfg.top_k
+    fams = {}
+    for name, ms in kernels.items():
+        fams[_kernel_family(name)] = fams.get(_kernel_family(name), 0) + ms
+    row.update({
+        "optimizer": "adamw(1e-3)", "steps": MOE_STEPS, "losses": losses,
+        "flash_launches": counts,
+        "flash_launches_per_step": _moe_flash_per_step(L),
+        "step_s": step_s, "tokens_per_s": tok_s,
+        "train_flops_per_token": flops_tok,
+        "mfu": flops_tok * tok_s / PEAK_BF16_FLOPS,
+        "mfu_two_matrix_experts": flops_two * tok_s / PEAK_BF16_FLOPS,
+        "peak_mem_gb": peak / 1e9,
+        "profiled_step_launches": launches,
+        "profiled_step_device_ms": sum(kernels.values()),
+        "profiled_step_ms_by_family": fams,
+        "profiled_step_top_kernels": _top(kernels, 6, 70),
+    })
+
+    reshard, state = _moe_reshard_check(state, step, batch, "cuda")
+    row.update(reshard)
+    torch.cuda.empty_cache()
+
+    i8 = dataclasses.replace(cfg, int8_mxu=True)
+    step8 = trainer.make_train_step(moe.make_loss_fn(i8), tx)
+    im.reset_calls()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    state, m = step8(state, batch)
+    torch.cuda.synchronize()
+    row["int8_step_s"] = time.perf_counter() - t0
+    row["int8_loss"] = float(m["loss"])
+    if not math.isfinite(row["int8_loss"]):
+        raise AssertionError(f"moe int8_mxu step loss {row['int8_loss']}")
+    row["int8_calls_per_step"] = _moe_int8_check(dict(im.calls), cfg)
+    i8_counts = fa.launch_counts()
+    _moe_launch_check(i8_counts, L, 1, what="moe int8_mxu step")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        params = replace_leaves(
+            state.params, [p.detach() for p in trainer.leaves(state.params)])
+        del state
+        torch.cuda.empty_cache()
+        pred = _moe_predict(params, cfg, os.path.join(tmp, "moe"), "cuda")
+    row.update({f"predict_{k}": v for k, v in pred.items()})
+    row["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(row), flush=True)
+    return {"train": counts, "int8": i8_counts,
+            "predict": pred["flash_launches"]["flash_fwd"]}
+
+
 # serving_load phase: bench.py's serving-load rungs on the port and the
 # verbs that serve under load. bench.py's horizon rung (bench.py:681-731)
 # on its card branch: 12 deep requests, 8 slots x 256, horizon 1 then 8;
@@ -4072,6 +4608,7 @@ def main() -> int:
     decode_launches = timed("decode_ladder", decode_ladder_phase, card)
     timed("ctr", ctr_phase, card, profile)
     predict_launches = timed("small_workloads", small_workloads_phase, card)
+    moe_launches = timed("moe", moe_phase, card)
     print(json.dumps({"phase": "bytecode", "modules": SL_BYTECODE_MODULES,
                       "seconds": _bytecode_seconds(bytecode)}), flush=True)
     load_launches, load_shape = timed("serving_load", serving_load_phase,
@@ -4107,13 +4644,16 @@ def main() -> int:
     # beside them
     by_path = {"train (adamw, full remat, 5 steps)": train_counts,
                **{f"train_ladder {kind} T{t}": c
-                  for (t, kind), (_, c) in ladder_runs.items()}}
+                  for (t, kind), (_, c) in ladder_runs.items()},
+               f"moe (adamw, {MOE_STEPS} steps)": moe_launches["train"],
+               "moe int8_mxu (1 step)": moe_launches["int8"]}
     remat = {f"remat_policies {p} (1 step)": n for p, n in remat_lse.items()}
     trainers = []
     for shape, launched in ((TRAIN_MAIN, train_counts),
                             *((ladder_shapes[key], c)
                               for key, (_, c) in ladder_runs.items()
-                              if key[1] == "bf16")):
+                              if key[1] == "bf16"),
+                            (MOE_TRAIN_SHAPE, moe_launches["train"])):
         tr = train_rows[shape]
         for name, source, replaces, errs, ms, plain, library in (
                 # with_lse=True: the fwd rule _flash_fwd (:363) of the
@@ -4150,16 +4690,19 @@ def main() -> int:
         **{f"decode_ladder {w} b{b}": n
            for (w, b), n in decode_launches.items()},
         "predict llama (flagship export, 64 x 512)": predict_launches,
+        "predict moe (MoEConfig() export, 64 x 512)": moe_launches["predict"],
         **load_launches}
     # the serving-load rungs' in-process launches (counted by the
     # wrapper) stand beside their largest prefill's shape
     load_counted = sum(n for k, n in load_launches.items()
                        if "rung" in k)
     primals = []
-    for shape in (SLICE_MAIN, *DECODE_SHAPES, PREDICT_SHAPE, load_shape):
+    for shape in (SLICE_MAIN, *DECODE_SHAPES, PREDICT_SHAPE,
+                  MOE_PREDICT_SHAPE, load_shape):
         r = rows[shape]
         launched = (launches if shape == SLICE_MAIN else
                     predict_launches if shape == PREDICT_SHAPE else
+                    moe_launches["predict"] if shape == MOE_PREDICT_SHAPE else
                     load_counted if shape == load_shape else
                     sum(n for (_, b), n in decode_launches.items()
                         if b == shape[0]))

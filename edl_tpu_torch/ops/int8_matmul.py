@@ -20,9 +20,13 @@ The recipe is the reference's, op for op:
   card it raises while TF32 matmuls are allowed.
 
 The int8 product is ``torch._int_mm`` on both devices: cuBLASLt's int8
-GEMM on a card, which takes M > 16 and K, N multiples of 8 only and
-raises on other shapes (nothing falls back to bf16). The scales
-multiply in the reference's order, ``y_i32.float() * (sa * sw)``.
+GEMM on a card, which takes only M > 16 and K, N multiples of 8. Every
+other shape is zero-padded up to the nearest one it takes, after
+quantizing, and the int32 result is sliced back: zeros add nothing to
+an int32 accumulator, so the product equals the unpadded one bit for
+bit, and the scales stay those of the unpadded operands. Nothing falls
+back to bf16. The scales multiply in the reference's order,
+``y_i32.float() * (sa * sw)``.
 
 The op is registered, ``torch.ops.edl_tpu_torch.int8_matmul`` (custom_op
 + register_autograd + register_fake), so a selective-checkpoint policy
@@ -38,6 +42,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 # forward and backward calls of the registered op since import (or reset)
 calls: Dict[str, int] = {"fwd": 0, "bwd": 0}
@@ -66,13 +71,30 @@ def absmax_quant(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor,
     return q, s
 
 
+# the least M cuBLASLt's int8 GEMM takes (it needs M > 16)
+_MIN_M = 17
+
+
+def _round8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
 def _dot8(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] x int8 [K, N] -> int32 [M, N]. Both operands should
     hold K innermost (``qa`` row-major, ``qb`` the transpose of a
     row-major [N, K]): cuBLASLt's int8 GEMM is that layout's, and on an
-    H100 a row-major ``qb`` took 5x its time. That GEMM takes M > 16
-    and K, N multiples of 8 only: on a card other shapes raise."""
-    return torch._int_mm(qa, qb)
+    H100 a row-major ``qb`` took 5x its time. That GEMM takes only
+    M > 16 and K, N multiples of 8, so other shapes are zero-padded up
+    to those (on every device, so the CPU runs the same path) and the
+    result is sliced back; the padded ``qb`` keeps K innermost."""
+    m, k = qa.shape
+    n = qb.shape[1]
+    mp, kp, np_ = max(m, _MIN_M), _round8(k), _round8(n)
+    if (mp, kp, np_) == (m, k, n):
+        return torch._int_mm(qa, qb)
+    qa = F.pad(qa, (0, kp - k, 0, mp - m))
+    qb = F.pad(qb.t(), (0, kp - k, 0, np_ - n)).t()
+    return torch._int_mm(qa, qb)[:m, :n]
 
 
 def _k_inner(q: torch.Tensor) -> torch.Tensor:

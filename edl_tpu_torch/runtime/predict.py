@@ -18,14 +18,16 @@ bert   tokens [B,T] i32,       pred [B,T] top-1 token per position;
        mask/targets (optional) masked_acc when mask+targets present
 llama  tokens [B,T] i32        next_token [B] (argmax after the last
                                position); ppl over the batch when T >= 2
+moe    tokens [B,T] i32        same as llama
 ====== ======================= ===========================================
 
 Params load onto the card (or the device named) as stored, and the
 forwards run there in chunks of ``models/evals.CHUNK`` rows with grad
-off. Not ported yet: the ``moe`` family (ROADMAP Queue A item 7), a
-sharded load over ``mesh_spec`` (item 2b), and rows from a shards-dir
-dataset (``load_rows(data_dir=...)``, ``runtime/shards.py``, item 6);
-each raises ``NotImplementedError``.
+off. The chunking is part of the moe family's function: an expert's
+capacity depends on the tokens one forward routes. Not ported yet: a
+sharded load over ``mesh_spec`` (ROADMAP Queue A item 2b) and rows from
+a shards-dir dataset (``load_rows(data_dir=...)``,
+``runtime/shards.py``, item 6); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,12 +78,8 @@ def predict_batch(
         return _predict_resnet(params, meta, rows)
     if family == "bert":
         return _predict_bert(params, meta, rows)
-    if family == "llama":
-        return _predict_lm(params, meta, rows)
-    if family == "moe":
-        raise NotImplementedError(
-            "predict for the moe family is not ported yet (ROADMAP Queue "
-            "A item 7)")
+    if family in ("llama", "moe"):
+        return _predict_lm(params, meta, rows, family)
     raise ValueError(
         f"export has no architecture record predict understands "
         f"(model={meta or None}); re-export with model_meta"
@@ -159,18 +157,24 @@ def _predict_bert(params, meta, rows) -> Dict[str, Any]:
     return out
 
 
-def _predict_lm(params, meta, rows) -> Dict[str, Any]:
-    from edl_tpu_torch.models import llama
+def _predict_lm(params, meta, rows, family: str) -> Dict[str, Any]:
     from edl_tpu_torch.models.evals import lm_scan
 
     _need(rows, "tokens")
-    cfg = llama.LlamaConfig.from_meta(meta)
+    if family == "llama":
+        from edl_tpu_torch.models import llama
+
+        cfg = llama.LlamaConfig.from_meta(meta)
+        fwd = lambda p, t: llama.forward(p, t, cfg)  # noqa: E731
+    else:
+        from edl_tpu_torch.models import moe
+
+        cfg = moe.MoEConfig.from_meta(meta)
+        fwd = lambda p, t: moe.forward(p, t, cfg)[0]  # noqa: E731
     # one chunked pass (models/evals): greedy next tokens + the SAME
     # CE accumulation the in-job perplexity eval publishes
-    nxt, total, count = lm_scan(
-        lambda p, t: llama.forward(p, t, cfg), params,
-        np.asarray(rows["tokens"], np.int32),
-    )
+    nxt, total, count = lm_scan(fwd, params,
+                                np.asarray(rows["tokens"], np.int32))
     out: Dict[str, Any] = {"next_token": nxt}
     if count:
         out["ppl"] = float(np.exp(total / count))

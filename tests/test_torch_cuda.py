@@ -370,28 +370,121 @@ def test_cuda_int8_matmul_matches_cpu_at_a_ragged_m(m, wgrad_bf16):
 def test_cuda_int8_matmul_raises_where_the_card_gemm_refuses(m, k, n,
                                                             where):
     """Where the card's int8 GEMM refuses a product (M <= 16, or a
-    contraction or output width not a multiple of 8) the op raises:
-    nothing pads it or falls back to bf16. At M=333 the forward and
-    dgrad run and the int8 wgrad, which contracts over M, raises; the
-    bf16 wgrad takes that shape."""
+    contraction or output width not a multiple of 8) ``torch._int_mm``
+    raises; ``_dot8`` zero-pads those shapes, so the op computes them:
+    its output and STE gradients (int8 and bf16 wgrad) equal the CPU's
+    but for one rounding of the scale products. At M=333 the forward and
+    dgrad are the GEMM's own shapes and the int8 wgrad, which contracts
+    over M, is the padded one."""
     _need_card()
     from edl_tpu_torch.ops import int8_matmul as im
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(m)
-    a = _randn(gen, m, k).requires_grad_()
-    w = torch.randn(k, n, generator=gen, device="cuda").requires_grad_()
+    a = _randn(gen, m, k)
+    w = torch.randn(k, n, generator=gen, device="cuda")
     g = _randn(gen, m, n)
-    if where == "forward":
-        with pytest.raises(RuntimeError):
-            im.int8_matmul(a, w)
-        return
-    y = im.int8_matmul(a, w)
+    qa, _ = im.absmax_quant(a, 1)
+    qw, _ = im.absmax_quant(w, 0)
+    qam, _ = im.absmax_quant(a, 0)
+    qgm, _ = im.absmax_quant(g, 0)
+    refused = ((qa, im._k_inner(qw)) if where == "forward" else
+               (qam.t().contiguous(), im._k_inner(qgm)))
     with pytest.raises(RuntimeError):
-        torch.autograd.grad(y, (a, w), g)
-    y = im.int8_matmul(a, w, True)
-    da, dw = torch.autograd.grad(y, (a, w), g)
-    assert bool(torch.isfinite(da).all() and torch.isfinite(dw).all())
+        torch._int_mm(*refused)
+    for wgrad_bf16 in (False, True):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            ad = a.to(dev).requires_grad_()
+            wd = w.to(dev).requires_grad_()
+            y = im.int8_matmul(ad, wd, wgrad_bf16)
+            outs.append((y, *torch.autograd.grad(y, (ad, wd), g.to(dev))))
+        of_max = (0, 0, 1e-5 if wgrad_bf16 else 0)
+        for got, want, rel, om in zip(outs[0], outs[1], (2 ** -8, 2 ** -8,
+                                                         2 ** -22), of_max):
+            want = want.float()
+            diff = (got.cpu().float() - want).abs()
+            assert bool((diff <= rel * want.abs()
+                         + om * want.abs().max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 7, 16)
+                                   for k in (12, 100) for n in (12, 100)])
+def test_cuda_dot8_pads_ragged_shapes_like_the_cpu(m, k, n):
+    """The padded int8 product on the card equals the CPU's bit for bit
+    (and the exact integer product) at shapes the card's GEMM refuses:
+    M <= 16, K and N not multiples of 8."""
+    _need_card()
+    from edl_tpu_torch.ops import int8_matmul as im
+
+    rng = np.random.RandomState(m * 10000 + k * 100 + n)
+    qa = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8))
+    qbt = torch.from_numpy(rng.randint(-127, 128, (n, k)).astype(np.int8))
+    got = im._dot8(qa.cuda(), qbt.cuda().t())
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), im._dot8(qa, qbt.t()))
+    assert torch.equal(got.cpu().long(), qa.long() @ qbt.long().t())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_int8_step_matches_cpu():
+    """The MoE's int8 experts on the card at ragged shapes, f32, TF32
+    off. ``moe_ffn`` with ``int8_mxu`` on 8 tokens (an expert's capacity
+    is 5 slots, so every int8 product takes the padded path) from the
+    same inputs on the card and the CPU: the expert inputs are gathered
+    copies and the int8 products exact, so y and the grads of x,
+    router, w_in and w_out agree within 1e-5 of each one's largest
+    entry (the router's f32 product and softmax sum in other orders).
+    Then one adamw step of ``MoEConfig.tiny`` with ``int8_mxu`` at B1 T8
+    on both: 4 + 2·E int8 ops a layer forward and backward, a finite
+    loss within 1e-3 (relative) of the CPU's. A whole step is held no
+    tighter: one f32 rounding of a quantizer's input can flip an int8
+    value or a near-tie of the router (on the CPU, perturbing the tiny
+    model's weights by 1e-7 relative moved this loss by up to 3.2e-4)."""
+    _need_card()
+    from edl_tpu_torch.models import moe
+    from edl_tpu_torch.ops import int8_matmul as im
+    from edl_tpu_torch.parallel import moe as pm
+    from edl_tpu_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    layer = pm.init_moe_params(gen, 64, 96, 4, device="cpu")
+    x = torch.randn(1, 8, 64, generator=gen)
+    ct = torch.randn(1, 8, 64, generator=gen)
+    out = []
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev).requires_grad_() for k, v in layer.items()}
+        xd = x.to(dev).requires_grad_()
+        y, aux = pm.moe_ffn(p, xd, int8_mxu=True)
+        g = torch.autograd.grad((y * ct.to(dev)).sum() + aux,
+                                [xd, p["router"], p["w_in"], p["w_out"]])
+        out.append([t.detach().cpu() for t in (y, *g)])
+    for got, want in zip(*out):
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+    cfg = dataclasses.replace(moe.MoEConfig.tiny(), int8_mxu=True)
+    init = moe.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = torch.from_numpy(moe.synthetic_tokens(
+        np.random.RandomState(0), 1, 8, cfg.vocab)["tokens"])
+    losses = []
+    for dev in ("cuda", "cpu"):
+        params = trainer.replace_leaves(
+            init, [p.to(dev, copy=True) for p in trainer.leaves(init)])
+        tx = trainer.adamw(1e-3)
+        state = trainer.TrainState.create(params, tx)
+        step = trainer.make_train_step(moe.make_loss_fn(cfg), tx)
+        im.reset_calls()
+        state, m = step(state, {"tokens": tokens.to(dev)})
+        n = (4 + 2 * cfg.n_experts) * cfg.n_layers
+        assert im.calls == {"fwd": n, "bwd": n}
+        assert all(bool(torch.isfinite(p).all())
+                   for p in trainer.leaves(state.params))
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])
 
 
 # -- observability on the card ------------------------------------------------

@@ -14,8 +14,10 @@ engines. Also the decode roofline's byte formulas, and
 """
 
 import dataclasses
+import itertools
 import math
 import types
+import unittest.mock
 
 import jax
 import jax.numpy as jnp
@@ -161,6 +163,33 @@ def test_dot8_is_exact_on_the_cpu(m, k, n):
     assert got.dtype == torch.int32 and got.shape == (m, n)
     want = qa.long() @ qbt.long().t()
     assert torch.equal(got.long(), want)
+
+
+@pytest.mark.parametrize("m,k,n", list(itertools.product(
+    [1, 7, 16], [12, 100], [12, 100])))
+def test_dot8_pads_ragged_shapes_exactly(m, k, n):
+    """Shapes the card's GEMM refuses (M <= 16, K or N not a multiple of
+    8) take the padded path on every device: zero-padded to M 17 and K,
+    N multiples of 8 after quantizing, then sliced back. The zeros add
+    nothing to the int32 accumulator, so the result equals the unpadded
+    product bit for bit (the CPU's ``_int_mm`` takes the unpadded one),
+    and the padded operand keeps K innermost."""
+    rng = np.random.RandomState(m * 10000 + k * 100 + n)
+    qa = torch.from_numpy(rng.randint(-127, 128, (m, k)).astype(np.int8))
+    qbt = torch.from_numpy(rng.randint(-127, 128, (n, k)).astype(np.int8))
+    seen = []
+    real = torch._int_mm
+
+    def spy(a, b):
+        seen.append((tuple(a.shape), tuple(b.shape), b.stride()))
+        return real(a, b)
+
+    with unittest.mock.patch.object(torch, "_int_mm", spy):
+        got = tim._dot8(qa, qbt.t())
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    assert seen == [((17, kp), (kp, np_), (1, kp))]
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, torch._int_mm(qa, qbt.t()))
 
 
 def test_wgrad_bf16_refuses_tf32_on_the_card(monkeypatch):

@@ -5,7 +5,7 @@ Exports pass both ways (the port writes, the reference reads, and the
 reverse) under bf16, f32 and ``"none"``, equal array for array. Scoring
 a reference-written export: CTR probabilities within 1e-5 and the AUC
 equal; ResNet classes, BERT predictions and masked accuracy, and llama
-next tokens equal; llama perplexity within 1e-5 relative (the f32
+and moe next tokens equal; their perplexity within 1e-5 relative (the f32
 forwards agree to ~1e-6; argmax ties do not occur at these seeds). The
 verb prints the reference verb's summary line and writes the same
 ``--out`` arrays.
@@ -26,6 +26,7 @@ from edl_tpu.cli.main import main as jmain
 from edl_tpu.models import bert as jb
 from edl_tpu.models import ctr as jctr
 from edl_tpu.models import llama as jl
+from edl_tpu.models import moe as jmoe
 from edl_tpu.models import resnet as jr
 from edl_tpu.runtime import export as jexport
 from edl_tpu.runtime import predict as jpred
@@ -236,10 +237,48 @@ def test_predict_errors_are_the_references(tmp_path):
         _error(lambda: jpred.load_rows("a", "b"))
 
 
+@pytest.mark.parametrize("t", [10, 1])
+def test_predict_moe_matches(tmp_path, t, capsys):
+    """A tiny moe export (the reference's weights, f32) scored by
+    ``predict_batch`` and by the verb: next tokens equal and ppl within
+    1e-5 relative of the reference's, over 70 rows (two chunks of
+    ``evals.CHUNK``: each chunk routes its own tokens, so the capacity
+    is the chunk's), and the verb's summary line and ``--out`` arrays
+    the reference verb's."""
+    cfg = jmoe.MoEConfig.tiny(vocab=128)
+    jp = jmoe.init_params(jax.random.PRNGKey(4), cfg)
+    jparams, jdoc, tparams, tdoc = _export(tmp_path / "export", jp,
+                                           cfg.to_meta())
+    toks = np.random.RandomState(0).randint(0, 128, (70, t)).astype(np.int32)
+    want = jpred.predict_batch(jparams, jdoc, {"tokens": toks})
+    got = tpred.predict_batch(tparams, tdoc, {"tokens": toks})
+    assert got.keys() == want.keys() == ({"next_token", "ppl"} if t > 1
+                                         else {"next_token"})
+    np.testing.assert_array_equal(got["next_token"], want["next_token"])
+    if t > 1:
+        np.testing.assert_allclose(got["ppl"], want["ppl"], rtol=PPL_RTOL)
+    np.savez(tmp_path / "rows.npz", tokens=toks)
+    argv = ["predict", str(tmp_path / "export"), "--input",
+            str(tmp_path / "rows.npz")]
+    assert jmain(argv + ["--out", str(tmp_path / "j.npz")]) == 0
+    want_out = capsys.readouterr().out
+    assert tcli.main(argv + ["--out", str(tmp_path / "t.npz"),
+                             "--device", "cpu"]) == 0
+    got_out = capsys.readouterr().out
+    assert got_out.splitlines()[0].startswith(
+        "predicted 70 rows (family=moe, step=3)")
+    if t > 1:  # ppl printed to 6 digits: equal within PPL_RTOL
+        g, w = (float(o.splitlines()[0].rsplit("ppl=", 1)[1])
+                for o in (got_out, want_out))
+        np.testing.assert_allclose(g, w, rtol=PPL_RTOL)
+    else:
+        assert got_out.splitlines()[0] == want_out.splitlines()[0]
+    with np.load(tmp_path / "j.npz") as j, np.load(tmp_path / "t.npz") as z:
+        assert sorted(j.files) == sorted(z.files) == ["next_token"]
+        np.testing.assert_array_equal(z["next_token"], j["next_token"])
+
+
 def test_unported_paths_say_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="moe.*not ported yet"):
-        tpred.predict_batch({}, {"model": {"family": "moe"}},
-                            {"tokens": np.zeros((1, 2), np.int32)})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tpred.load_params_for_predict(str(tmp_path), "fsdp=4")
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -300,12 +339,14 @@ def test_cli_predict_errors(tmp_path, capsys):
         want = capsys.readouterr().err
         assert tcli.main(argv + ["--device", "cpu"]) == 1
         assert capsys.readouterr().err == want
+    # a moe export without the model's leaves: the forward's KeyError
+    # escapes both verbs alike (a process exits 1 with its traceback)
     jexport.export_params(str(tmp_path / "moe"),
                           {"w": np.ones((2, 2), np.float32)}, step=1,
                           dtype="none", model_meta={"family": "moe"})
-    assert tcli.main(["predict", str(tmp_path / "moe"), "--input", rows,
-                      "--device", "cpu"]) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    argv = ["predict", str(tmp_path / "moe"), "--input", rows]
+    got = _error(lambda: tcli.main(argv + ["--device", "cpu"]))
+    assert got == _error(lambda: jmain(argv)) == (KeyError, "'embed'")
 
 
 def test_python_m_edl_tpu_torch_predict(tmp_path):
