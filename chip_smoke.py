@@ -320,9 +320,40 @@ reshards, no restart (w000 booted once and came up in every epoch),
 loss fell, AUC > 0.55, the final manifest at the final step, every
 worker on cuda:0 with gloo, the commits' param digests agreed. Prints
 each event's stall (with the part up to the new epoch's rendezvous and
-the cold start of its store host), w000's and the joiner's boots by
-stage, the commits' seconds and bytes, examples/s and the all-reduce's
-share of a step per epoch, and each process's peak memory.
+the cold start of its store host, and ``restore_last``: how the new
+world restored — the workers run the p2p shard plane, the reference's
+default), w000's and the joiner's boots by stage, the commits' seconds
+and bytes, examples/s and the all-reduce's share of a step per epoch,
+and each process's peak memory.
+
+P2p phase (after ``elastic``): the peer-to-peer shard plane and the
+chip-lease plane, one JSON line. (a) Migration: the elastic phase's CTR
+job (2^20, 4096 rows a worker) on w000 + w001; after 20 steps w002 and
+w003 start and both originals are SIGTERMed at once, so the new world
+restores the state from the leavers' RAM while they linger. Gates:
+``restore_last`` is ``p2p:``, each new worker's first restore came from
+peers and opened no shard file, the state it brought up equals the
+leavers' last snapshot (every piece, by digest, ``EDL_P2P_DIGEST=1``),
+the queue done with none dead, the loss fell, all four exit 0. Prints
+the restore's seconds and bytes and the stall. (b) Bandwidth,
+bench.py:_p2p_bench's ``p2p_bw_gbs`` (a 512 MB snapshot from a separate
+server process over the pooled FETCHN path, best of 3) and
+``p2p_agg_bw_gbs`` (4 fetcher x 4 server processes, all to all). (c)
+Warm start and handover: Llama-3-8B at full width, its first 8 of 32
+layers, bf16, params from seed 7 on the card pushed from host RAM by
+``serve_params``; a ``ServingFleet`` of ``--warm-from p2p`` replicas
+and a ``ChipLeaseBroker`` + ``ElasticityController`` (pool 3: trainer
+2, a replica 1) whose ``ServePort`` scales the fleet, over one
+day -> night cycle of the diurnal curve (one grant to serving, one
+recall). The trainer half of a handover waits for ROADMAP item 2b: the
+``TrainPort`` records the chip count. Gates: lease conservation after
+every tick, the pulled tree byte-equal to the pushed one, 8 requests
+(96-120-token prompts, the 128 bucket, one at a time) done with the
+tokens of an in-process engine on the pushed params with the replicas'
+slots and horizon, each replica's primal launches (its ``/metrics``)
+== its prefills x 8 and > 0. Prints ``elasticity_grant_ready_s``,
+``elasticity_warm_fetch_s`` and ``elasticity_cold_load_s`` (export, then
+``load_export``, of the same tree).
 
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
@@ -331,11 +362,12 @@ four times, at B4 T2048 with the train phase's launches, at each
 ladder rung's shape (the batch that fit) with that rung's launches
 and at the MoE's B4 T2048 H8 KV4 with the moe phase's 5 steps,
 each with its launches on every training path, the int8 rungs' too;
-the primal forward seven times, at B1 T1024 H32 with the slice's
+the primal forward eight times, at B1 T1024 H32 with the slice's
 launches, at each decode rung's prefill shape with that rung's bf16
 and int8 launches, at the llama predict's B64 T512 and the moe
 predict's B64 T512 H8 KV4 with their launches and at the serving-load
-rungs' largest prefill with their launches,
+rungs' largest prefill with their launches, and at the warm-started
+replicas' B1 T128 H32 KV8 with their launches,
 each with its launches on the slice, the int8 serving runs, every
 decode rung, the llama and moe predicts, both serving-load rungs, the
 loadgen
@@ -2902,7 +2934,7 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
             kv = {k: launcher.kv(k) for k in (
                 "phase", "reshards", "progress", "loss_first", "loss_last",
                 "eval_metric", "ckpt_step", "digests_agreed",
-                "digest_mismatches", "ckpt_aborts")}
+                "digest_mismatches", "ckpt_aborts", "restore_last")}
             queue = launcher.client.queue_stats()
             manifest = ckpt.latest_manifest(launcher.ckpt_dir)
             pids = {w.worker_id: w.proc.pid for w in launcher.workers}
@@ -2910,6 +2942,12 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
     # stepping workers)
     stalls, boots, commits, epochs, peaks = _elastic_report(
         logs, hosts, events, {"w000": t0, "w002": events[0][1]})
+    # how each event's new world restored (rank 0's decision, the
+    # job's ``restore_last`` at that epoch: p2p:<step> with the plane on)
+    restored = {r["epoch"]: r["source"]
+                for r in _log_records(logs["w000"], "restore done")}
+    for st in stalls:
+        st["restore_last"] = restored.get(st["epochs"][1])
     auc = float(kv["eval_metric"].split(":")[1]) if kv["eval_metric"] else 0
     dev_name = "cuda:0" if device == "cuda" else "cpu"
     gates = {
@@ -2946,6 +2984,494 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
         raise AssertionError(f"elastic: gates failed {bad}; logs: " + json.dumps(
             {w: t[-3000:] for w, t in logs.items()}))
     return row
+
+
+# the p2p phase (the peer-to-peer shard plane and the chip-lease plane).
+# (a) migration: ELASTIC's CTR job (2^20 vocab, 4096 rows a worker) on
+# w000 + w001; after ``steps_before`` steps w002 and w003 are spawned
+# and both originals SIGTERMed at once (the reference's
+# tests/test_multiproc.py:615 under dp), so the new world holds nothing
+# of the state and restores it from the leavers' RAM while they linger
+# (EDL_P2P_LINGER_S covers the joiners' boot on the card, 15-30 s)
+P2P_MIGRATION = {"vocab": 2 ** 20, "per_device_batch": 4096, "tasks": 200,
+                 "steps_before": 20, "ckpt_every": 50, "member_ttl_s": 3.0,
+                 "lease_timeout_s": 10.0, "linger_s": 120.0,
+                 "timeout_s": 600}
+# (b) the shard plane's bandwidth, bench.py:_p2p_bench's two numbers: a
+# ~512 MB snapshot (16 pieces of 8192 x 1024 f32) served by a separate
+# process, fetched through the pooled FETCHN path (best of 3); and 4
+# fetcher processes x 4 server processes (4 pieces each), every fetcher
+# draining every server, aggregate bytes over the slowest fetcher
+P2P_BENCH = {"pieces": 16, "rows": 8192, "reps": 3, "agg_servers": 4,
+             "agg_fetchers": 4, "agg_pieces": 4, "agg_reps": 2}
+# (c) warm start and handover (scripts/exp_elasticity.py:528-600 on the
+# card): Llama-3-8B at full width, the first 8 of its 32 layers (the
+# serving_modes depth), bf16, params from seed 7 on the card pushed from
+# host RAM; a fleet whose replicas warm-start from the push; one
+# day -> night cycle of the diurnal curve (bench.py / the elasticity
+# verb's) over a pool of 3 chips: the trainer holds 2, one replica 1;
+# the day's load grants a replica's chip to serving, the night's
+# recalls it. Requests run one at a time (so every engine sees the
+# same batches): prompts of 96-120 tokens (the 128 bucket), 16 new
+# tokens, 2 before the day, 4 in it, 2 after the night
+WARM = {"layers": 8, "push_seed": 7, "spec_seed": 1, "slots": 4,
+        "max_len": 256, "horizon": 4, "prompt": (96, 121), "max_new": 16,
+        "requests": (2, 4, 2), "pool": 3, "train_chips": 2, "hours": 24}
+WARM_SHAPE = (1, 128, 32, 8, True, 128)  # the replicas' prefills
+
+
+def p2p_migration(card, device="cuda", c=P2P_MIGRATION):
+    """The dp job moves to a disjoint set of workers from its peers'
+    RAM. Gates: the new world's restore decision (``restore_last``) is
+    ``p2p:``, each new worker's first restore came from peers and read
+    no shard file, the state it brought up equals the leavers' last
+    snapshot (every piece, by digest), every queue task done and none
+    dead, the loss fell and all four workers exited 0. Returns the row
+    (the restore's seconds and bytes, the stall)."""
+    import signal
+    import tempfile
+
+    from edl_tpu_torch.runtime.launcher import ProcessJobLauncher
+
+    local = 0 if device == "cuda" else 1
+    with tempfile.TemporaryDirectory(prefix="p2p") as work:
+        launcher = ProcessJobLauncher(
+            job="migrate", model="ctr", min_workers=2, max_workers=4,
+            n_samples=c["tasks"] * c["per_device_batch"],
+            per_device_batch=c["per_device_batch"], local_devices=local,
+            work_dir=work, ckpt_every=c["ckpt_every"],
+            member_ttl_s=c["member_ttl_s"],
+            lease_timeout_s=c["lease_timeout_s"],
+            extra_env={"EDL_VOCAB": str(c["vocab"]),
+                       "EDL_P2P_LINGER_S": str(c["linger_s"]),
+                       "EDL_P2P_DIGEST": "1"})
+        with launcher:
+            launcher.start(2)
+            launcher.wait_progress(c["steps_before"], timeout_s=c["timeout_s"])
+            t_event = time.time()
+            launcher.spawn()
+            launcher.spawn()
+            launcher.kill("w000", sig=signal.SIGTERM)
+            launcher.kill("w001", sig=signal.SIGTERM)
+            rcs = launcher.wait(timeout_s=c["timeout_s"])
+            logs = {w.worker_id: launcher.log_tail(w.worker_id, 10 ** 8)
+                    for w in launcher.workers}
+            kv = {k: launcher.kv(k) for k in (
+                "phase", "restore_last", "reshards", "progress", "loss_first",
+                "loss_last", "restored_step")}
+            queue = launcher.client.queue_stats()
+    old, new = ("w000", "w001"), ("w002", "w003")
+    linger = {w: _log_records(logs[w], "lingering") for w in old}
+    departed = {w: _log_records(logs[w], "departed") for w in old}
+    states = {w: _log_records(logs[w], "p2p state") for w in new}
+    restores = {w: _log_records(logs[w], "restore done") for w in new}
+    via = {w: _log_records(logs[w], "restored via p2p") for w in new}
+    reads = {w: _log_records(logs[w], "pieces read") for w in new}
+    stats = {w: _log_records(logs[w], "epoch stats") for w in logs}
+    # each leaver's last snapshot (step, digest): one each, the same
+    left = [(r["step"], r["state_digest"]) for w in old for r in linger[w]]
+    step, digest = left[0] if left else (None, None)
+    firsts = {w: restores[w][0] if restores[w] else None for w in new}
+    moved = {w: next((r for r in states[w] if r["step"] == step), None)
+             for w in new}
+    old_last = max(r["last_t"] for w in old for r in stats[w] if r["steps"])
+    new_first = min(r["first_t"] for w in new for r in stats[w] if r["steps"])
+    gates = {
+        "succeeded": kv["phase"] == "succeeded",
+        "restore_last_p2p": (kv["restore_last"] or "").startswith("p2p:"),
+        "first_restore_from_peers": all(
+            f is not None and f["source"] == f"p2p:{step}"
+            for f in firsts.values()),
+        "no_shard_file_read": all(
+            r and r[0]["disk"] == 0 and r[0]["disk_files"] == 0
+            and r[0]["peer"] > 0 and r[0]["ram"] == 0
+            for r in reads.values()),
+        "state_bit_equal": (len(left) == 2 and len(set(left)) == 1
+                            and all(m is not None
+                                    and m["state_digest"] == digest
+                                    for m in moved.values())),
+        "leavers_lingered": all(linger[w] and departed[w] for w in old),
+        "queue": (queue["done"] == c["tasks"] and queue["dead"] == 0
+                  and queue["todo"] == 0),
+        "loss_fell": float(kv["loss_last"]) < float(kv["loss_first"]),
+        "exit_codes": sorted(rcs) == sorted(old + new)
+        and all(v == 0 for v in rcs.values()),
+    }
+    row = {
+        "part": "migration", "model": "ctr (bench.py:1124)",
+        "vocab": c["vocab"], "per_device_batch": c["per_device_batch"],
+        "tasks": c["tasks"], "steps_before": c["steps_before"],
+        "leavers_step": step,
+        "restore_s": {w: v[0]["load_s"] if v else None
+                      for w, v in via.items()},
+        "restore_bytes": {w: v[0]["fetched_bytes"] if v else None
+                          for w, v in via.items()},
+        "pieces_read": {w: r[0] if r else None for w, r in reads.items()},
+        # the old world's last step to the new world's first: the
+        # joiners' boot (spawned at the SIGTERM), rendezvous and restore
+        "stall_s": new_first - old_last,
+        "event_to_first_step_s": new_first - t_event,
+        "restore_done_after_event_s": {
+            w: f["t"] - t_event if f else None for w, f in firsts.items()},
+        "linger_s": {w: departed[w][0]["t"] - linger[w][0]["t"]
+                     if linger[w] and departed[w] else None for w in old},
+        "exit_codes": rcs, "queue": queue, "kv": kv, "gates": gates,
+    }
+    if not all(gates.values()):
+        bad = [k for k, v in gates.items() if not v]
+        raise AssertionError(f"p2p migration: gates failed {bad}; row "
+                             f"{json.dumps(row)}; logs: " + json.dumps(
+                                 {w: t[-3000:] for w, t in logs.items()}))
+    return row
+
+
+_P2P_SERVER_SRC = """
+import sys, time
+import numpy as np
+from edl_tpu_torch.runtime.checkpoint import LocalSnapshot
+from edl_tpu_torch.runtime.shard_server import ShardServer
+seed, n_pieces, rows = (int(a) for a in sys.argv[1:4])
+piece = np.random.RandomState(seed).rand(rows, 1024).astype(np.float32)
+pieces = {"p:w": [((i * rows, 0), piece) for i in range(n_pieces)]}
+snap = LocalSnapshot(step=1, pieces=pieces,
+                     primary={"p:w": [o for o, _ in pieces["p:w"]]},
+                     shapes={"p:w": (n_pieces * rows, 1024)},
+                     dtypes={"p:w": "float32"})
+srv = ShardServer(lambda: snap)
+print(srv.port, flush=True)
+sys.stdin.read()  # serve until the parent closes the pipe
+"""
+
+_P2P_FETCHER_SRC = """
+import sys, time
+from edl_tpu_torch.runtime.shard_server import RemotePieces, fetch_index
+ports = [int(p) for p in sys.argv[1].split(",")]
+best = float("inf")
+for _ in range(int(sys.argv[2])):
+    t0 = time.perf_counter()
+    total = 0
+    for port in ports:
+        _, entries = fetch_index(f"127.0.0.1:{port}")
+        rp = RemotePieces(f"127.0.0.1:{port}", entries)
+        total += sum(a.nbytes for a in rp.get_many(list(entries)).values())
+        rp.close()
+    best = min(best, time.perf_counter() - t0)
+print(total, best, flush=True)
+"""
+
+
+def _p2p_env():
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+
+
+def _p2p_servers(n, pieces, rows):
+    """``n`` shard-server processes of ``pieces`` x [rows, 1024] f32
+    each; (processes, ports)."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _P2P_SERVER_SRC, str(i), str(pieces),
+         str(rows)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        env=_p2p_env(), text=True) for i in range(n)]
+    try:
+        return procs, [int(p.stdout.readline()) for p in procs]
+    except Exception:
+        _p2p_stop(procs)
+        raise
+
+
+def _p2p_stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def p2p_bandwidth(c=P2P_BENCH):
+    """bench.py:_p2p_bench on the port's shard plane: ``p2p_bw_gbs``
+    (one fetcher, this process, one server process) and
+    ``p2p_agg_bw_gbs`` (fetcher processes x server processes, all to
+    all), GiB/s as bench.py reports them, and the migration stall model
+    at 17 GiB a host it gives."""
+    from edl_tpu_torch.runtime import checkpoint as ckpt
+    from edl_tpu_torch.runtime.shard_server import RemotePieces, fetch_index
+
+    procs, ports = _p2p_servers(1, c["pieces"], c["rows"])
+    try:
+        _, entries = fetch_index(f"127.0.0.1:{ports[0]}")
+        best, total = float("inf"), 0
+        for _ in range(c["reps"]):
+            rp = RemotePieces(f"127.0.0.1:{ports[0]}", entries)
+            t0 = time.perf_counter()
+            got = rp.get_many(list(entries))
+            best = min(best, time.perf_counter() - t0)
+            total = sum(a.nbytes for a in got.values())
+            rp.close()
+            del got
+    finally:
+        _p2p_stop(procs)
+    procs, ports = _p2p_servers(c["agg_servers"], c["agg_pieces"], c["rows"])
+    fetchers = []
+    try:
+        fetchers = [subprocess.Popen(
+            [sys.executable, "-c", _P2P_FETCHER_SRC,
+             ",".join(map(str, ports)), str(c["agg_reps"])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=_p2p_env(),
+            text=True) for _ in range(c["agg_fetchers"])]
+        agg, worst = 0, 0.0
+        for f in fetchers:
+            out, err = f.communicate(timeout=SL_SUBPROCESS_TIMEOUT_S)
+            if f.returncode != 0 or len(out.split()) != 2:
+                raise AssertionError(f"p2p fetcher exited {f.returncode}: "
+                                     f"{err[-1000:]}")
+            agg += int(out.split()[0])
+            worst = max(worst, float(out.split()[1]))
+    finally:
+        _p2p_stop(procs + fetchers)
+    bw = total / best
+    return {"part": "bandwidth", "snapshot_bytes": total, "best_s": best,
+            "p2p_bw_gbs": bw / (1 << 30),
+            "agg_bytes": agg, "agg_slowest_s": worst,
+            "p2p_agg_bw_gbs": agg / worst / (1 << 30),
+            "servers_x_fetchers": [c["agg_servers"], c["agg_fetchers"]],
+            "stall_model_8b_migrate_s": ckpt.p2p_migrate_stall_model(
+                17 * (1 << 30), 1, bw)}
+
+
+def _warm_requests(vocab, c=WARM):
+    rng = np.random.RandomState(11)
+    return [[rng.randint(1, vocab, rng.randint(*c["prompt"])).tolist()
+             for _ in range(n)] for n in c["requests"]]
+
+
+def _reference_tokens(params, cfg, prompts, c, device):
+    """Each prompt through an in-process engine on the pushed params,
+    one request at a time, with the replicas' slots, length and
+    horizon."""
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.serving.scheduler import RequestQueue
+
+    eng = ContinuousBatchingEngine(
+        params, cfg, max_slots=c["slots"], max_len=c["max_len"],
+        horizon=c["horizon"], device=device,
+        queue=RequestQueue(max_total_len=c["max_len"], max_depth=64))
+    out = []
+    for i, p in enumerate(prompts):
+        eng.submit(f"ref{i}", p, c["max_new"])
+        res = eng.run()[f"ref{i}"]
+        if res.outcome not in ("done", "eos"):
+            raise AssertionError(f"in-process engine: ref{i} {res.outcome}")
+        out.append(res.tokens)
+    return out
+
+
+def _cold_vs_p2p(host, cfg, addr, workdir):
+    """scripts/exp_elasticity.py:475 measure_cold_vs_p2p: the p2p pull
+    of the tree from live RAM against the cold disk round trip (export
+    publish, then ``load_export``) of the same tree; the pulled tree
+    must equal the pushed one byte for byte. Host RAM on both ends."""
+    import torch
+
+    from edl_tpu_torch.elasticity import weightpush
+    from edl_tpu_torch.runtime import checkpoint as ckpt
+    from edl_tpu_torch.runtime import export
+
+    t0 = time.perf_counter()
+    fetched, doc, _ = weightpush.fetch_params(addr)
+    warm_s = time.perf_counter() - t0
+    want = dict(ckpt._leaf_keys(host))
+    got = dict(ckpt._leaf_keys(fetched))
+    equal = (doc == cfg.to_meta() and set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+        for k in want))
+    nbytes = sum(t.nbytes for t in got.values())
+    del fetched, got
+    exp_dir = os.path.join(workdir, "export")
+    t0 = time.perf_counter()
+    export.export_params(exp_dir, host, step=0, dtype="none",
+                         model_meta=cfg.to_meta())
+    loaded, _ = export.load_export(exp_dir, device="cpu")
+    cold_s = time.perf_counter() - t0
+    del loaded
+    return warm_s, cold_s, equal, nbytes
+
+
+def warm_handover(card, device="cuda", c=WARM, cfg=None):
+    """The chip-lease plane over a live fleet of warm-started replicas
+    (``cfg``: the slice's Llama-3-8B at full width cut to ``c["layers"]``
+    unless given). Gates: lease conservation after every tick, one
+    grant to serving and one recall back, the pulled tree byte-equal to
+    the pushed one, every request done with the in-process engine's
+    tokens, and each replica's primal launches (its own wrapper's
+    count) equal to its prefills x layers and above 0. Returns the row
+    (grant -> READY, warm fetch, cold load, the replicas' boots)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from edl_tpu_torch.elasticity import weightpush
+    from edl_tpu_torch.elasticity.broker import ChipLeaseBroker
+    from edl_tpu_torch.elasticity.controller import (ElasticityController,
+                                                     ServePort, TrainPort)
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.obs import events as flight
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.serving.fleet import (ReplicaSpec, ReplicaSupervisor,
+                                             ServingFleet)
+    from edl_tpu_torch.serving.router import (HttpTransport, ReplicaTable,
+                                              Router)
+    from edl_tpu_torch.serving.scheduler import Request
+    from edl_tpu_torch.utils.tree import leaves, replace_leaves
+
+    if cfg is None:
+        cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                  n_layers=c["layers"], use_flash=True)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=c["push_seed"], device=device)
+    host = replace_leaves(params, [t.cpu() for t in leaves(params)])
+    srv = weightpush.serve_params(host, cfg.to_meta())
+    push_s = time.perf_counter() - t0
+    addr = f"127.0.0.1:{srv.port}"
+    waves = _warm_requests(cfg.vocab, c)
+    prompts = [p for w in waves for p in w]
+    ref = _reference_tokens(params, cfg, prompts, c, device)
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="warm")
+    spec = ReplicaSpec(workdir=workdir, slots=c["slots"],
+                       max_len=c["max_len"], horizon=c["horizon"],
+                       seed=c["spec_seed"], warm_from="p2p", warm_addr=addr,
+                       device=device)
+    reg = MetricsRegistry()
+    table = ReplicaTable(registry=reg)
+    sup = ReplicaSupervisor(table, spec, spawn_retries=0)
+    router = Router(table, transport=HttpTransport(), seed=0, registry=reg)
+    fleet = ServingFleet(sup, router)
+    state = {"train_chips": c["train_chips"], "load": 0.25}
+    counted = {}
+
+    def add_replica():
+        t = time.perf_counter()
+        fleet.scale_up()
+        return time.perf_counter() - t
+
+    def remove_replica():
+        for rid in table.ids():  # the victim's counts before it goes
+            counted[rid] = _replica_counts(sup.handle(rid).url)
+        fleet.scale_down()
+
+    broker = ChipLeaseBroker(c["pool"], registry=reg)
+    ctl = ElasticityController(
+        broker,
+        TrainPort(chips=lambda: state["train_chips"],
+                  apply_chips=lambda n: state.update(train_chips=n),
+                  min_chips=1),
+        ServePort(replicas=lambda: len(table.ids()),
+                  load=lambda: state["load"], slo_breached=lambda: False,
+                  add_replica=add_replica, remove_replica=remove_replica,
+                  min_replicas=1),
+        chips_per_replica=1, load_high=4.0, load_low=0.5, cooldown_s=0.0,
+        registry=reg)
+    results, order, rows = {}, [], []
+    conserved = []
+
+    def drive(wave):
+        for p in waves[wave]:
+            rid = f"w{len(order)}"
+            order.append(rid)
+            results[rid] = fleet.generate(Request(rid=rid, prompt=p,
+                                                  max_new=c["max_new"]))
+
+    try:
+        t_boot = time.perf_counter()
+        fleet.start(1)
+        boot_s = time.perf_counter() - t_boot
+        ctl.bootstrap()
+        conserved.append(broker.check_conservation())
+        drive(0)
+        wave = 1
+        for hour in range(c["hours"]):
+            h = hour % 24
+            state["load"] = (6.0 if 10 <= h <= 17 else
+                             2.0 if h in (8, 9, 18, 19) else 0.25)
+            action = ctl.tick()
+            conserved.append(broker.check_conservation())
+            rows.append({"hour": hour, "load": state["load"],
+                         "action": action,
+                         "train_chips": state["train_chips"],
+                         "replicas": len(table.ids()),
+                         "free": broker.free_chips, "epoch": broker.epoch})
+            if action is not None:
+                drive(wave)
+                wave += 1
+        for rid in table.ids():
+            counted[rid] = _replica_counts(sup.handle(rid).url)
+        boots = _boot_breakdown(workdir, flight.default_recorder().records())
+        warm_s, cold_s, equal, nbytes = _cold_vs_p2p(host, cfg, addr,
+                                                      workdir)
+    except Exception:
+        print(_replica_logs(workdir), file=sys.stderr, flush=True)
+        raise
+    finally:
+        fleet.stop()
+        srv.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    outcomes = {r.outcome for r in results.values()}
+    identical = [results[rid].tokens == want
+                 for rid, want in zip(order, ref)]
+    ledger = [dataclasses.asdict(h) for h in ctl.ledger]
+    gates = {
+        "conserved_every_tick": all(conserved),
+        "one_cycle": [h["direction"] for h in ledger]
+        == ["to_serve", "to_train"],
+        "pushed_tree_equal": equal,
+        "requests_done": len(results) == len(prompts)
+        and outcomes <= {"done", "eos"},
+        "tokens_identical": all(identical),
+        "replicas_launched": len(counted) == 2 and all(
+            v["launches"] > 0 and v["launches"] == v["prefills"] * cfg.n_layers
+            for v in counted.values()),
+    }
+    grant = next(h for h in ledger if h["direction"] == "to_serve")
+    row = {
+        "part": "warm_handover",
+        "model": f"llama3_8b width, {cfg.n_layers} of 32 layers, bf16",
+        "push_bytes": nbytes, "push_s": push_s,
+        "elasticity_grant_ready_s": grant["ramp_s"],
+        "elasticity_warm_fetch_s": warm_s, "elasticity_cold_load_s": cold_s,
+        "first_replica_boot_s": boot_s, "boot_stages_s": boots,
+        "handovers": ledger, "rows": [r for r in rows if r["action"]],
+        "requests": len(prompts), "tokens_identical": identical,
+        "replica_prefills": {k: v["prefills"] for k, v in counted.items()},
+        "replica_launches": {k: v["launches"] for k, v in counted.items()},
+        "primal_launches": sum(v["launches"] for v in counted.values()),
+        "prefill_shape": WARM_SHAPE,
+        "trainer": "TrainPort records the chip count only: the trainer "
+                   "half of the handover (in-process reshard across "
+                   "devices) waits for ROADMAP item 2b",
+        "gates": gates,
+    }
+    if not all(gates.values()):
+        bad = [k for k, v in gates.items() if not v]
+        raise AssertionError(f"p2p warm handover: gates failed {bad}; "
+                             f"{json.dumps(row)}")
+    return row
+
+
+def p2p_phase(card):
+    """The migration, the shard plane's bandwidth and the warm-start
+    handover, as one JSON line; the replicas' primal launches."""
+    t = time.perf_counter()
+    mig = p2p_migration(card)
+    bw = p2p_bandwidth()
+    warm = warm_handover(card)
+    row = {"phase": "p2p", "migration": mig, "bandwidth": bw,
+           "warm_handover": warm, "seconds": time.perf_counter() - t,
+           "card": card}
+    print(json.dumps(row), flush=True)
+    return warm["primal_launches"]
 
 
 def _ctr_family(name):
@@ -4073,7 +4599,12 @@ SL_BYTECODE_MODULES = (
     "edl_tpu_torch.runtime.epoch_gc", "edl_tpu_torch.runtime.shards",
     "edl_tpu_torch.parallel.mesh", "edl_tpu_torch.models.ctr",
     "edl_tpu_torch.train.trainer", "edl_tpu_torch.train.dp_check",
-    "edl_tpu_torch.obs.fleet", "edl_tpu_torch.obs.costmodel")
+    "edl_tpu_torch.obs.fleet", "edl_tpu_torch.obs.costmodel",
+    # the p2p phase's shard plane, its bandwidth processes and the warm
+    # replicas' weight pull
+    "edl_tpu_torch.runtime.shard_server",
+    "edl_tpu_torch.runtime.p2p_restore",
+    "edl_tpu_torch.elasticity.weightpush")
 SL_BYTECODE_DIR = os.path.join("edl_tpu_torch", "_build", "pycache")
 # the report keys of the reference's `edl loadgen --json`
 # (edl_tpu/cli/main.py run_loadgen; held to it in
@@ -4912,6 +5443,7 @@ def main() -> int:
     print(json.dumps({"phase": "bytecode", "modules": SL_BYTECODE_MODULES,
                       "seconds": _bytecode_seconds(bytecode)}), flush=True)
     timed("elastic", elastic_phase, card)
+    warm_launches = timed("p2p", p2p_phase, card)
     predict_launches = timed("small_workloads", small_workloads_phase, card)
     moe_launches = timed("moe", moe_phase, card)
     load_launches, load_shape = timed("serving_load", serving_load_phase,
@@ -4994,16 +5526,18 @@ def main() -> int:
            for (w, b), n in decode_launches.items()},
         "predict llama (flagship export, 64 x 512)": predict_launches,
         "predict moe (MoEConfig() export, 64 x 512)": moe_launches["predict"],
-        **load_launches}
+        **load_launches,
+        "p2p warm-started replicas (8B width, 8 layers)": warm_launches}
     # the serving-load rungs' in-process launches (counted by the
     # wrapper) stand beside their largest prefill's shape
     load_counted = sum(n for k, n in load_launches.items()
                        if "rung" in k)
     primals = []
     for shape in (SLICE_MAIN, *DECODE_SHAPES, PREDICT_SHAPE,
-                  MOE_PREDICT_SHAPE, load_shape):
+                  MOE_PREDICT_SHAPE, load_shape, WARM_SHAPE):
         r = rows[shape]
-        launched = (launches if shape == SLICE_MAIN else
+        launched = (warm_launches if shape is WARM_SHAPE else
+                    launches if shape == SLICE_MAIN else
                     predict_launches if shape == PREDICT_SHAPE else
                     moe_launches["predict"] if shape == MOE_PREDICT_SHAPE else
                     load_counted if shape == load_shape else

@@ -23,7 +23,18 @@ records the metric history that ``--metrics-port`` serves on
 --replica``) behind the router (``serving/{replica,router,fleet}.py``):
 the demo routes ``--requests`` through them, ``--swap`` rolls the
 weight generation mid-traffic, and the report line carries ``ok`` and
-the READY floor ``min_ready``. ``--warm-from p2p`` is not ported yet.
+the READY floor ``min_ready``. ``--warm-from p2p --warm-addr HOST:PORT``
+warm-starts each replica from a peer's shard server
+(``elasticity/weightpush.py``): it pulls the params and the
+``__config__`` architecture document, and any failure exits the replica
+non-zero — never a cold init. (The reference's demo mode ignores the
+two flags; the port's passes them to every replica.)
+
+``elasticity``: the train⇄serve chip-elasticity rehearsal — a scripted
+diurnal load curve through the real lease broker and handover
+controller (fake clock, fake sides), in process or against a running
+``edl-coordinator`` (``--coordinator HOST:PORT``); ``--json`` prints the
+reference verb's document.
 
 ``serve`` reads the same JSONL request feed and the same export directory as the
 reference verb and prints the same per-request JSON records on stdout
@@ -684,7 +695,39 @@ def _run_fleet_replica(args) -> int:
         return 1
     torch.empty(0, device=device)  # the device's context
     boot["device"] = time.time()
-    if args.dryrun:
+    if args.warm_from == "p2p":
+        # pull live weights + the architecture doc from a peer shard
+        # server (the elasticity handover path). Loud on any failure: a
+        # cold init would serve DIFFERENT weights than the fleet
+        # believes it has
+        from edl_tpu_torch.elasticity import weightpush
+        from edl_tpu_torch.models import llama
+        from edl_tpu_torch.utils.tree import leaves, replace_leaves
+
+        t0 = time.perf_counter()
+        try:
+            params, cfg_doc, _step = weightpush.fetch_params(args.warm_addr)
+        except (ConnectionError, OSError, ValueError) as e:
+            print(f"p2p warm-start from {args.warm_addr} failed: {e}",
+                  file=sys.stderr)
+            return 1
+        if cfg_doc is None:
+            print("p2p warm-start: peer served no __config__ doc",
+                  file=sys.stderr)
+            return 1
+        try:
+            cfg = llama.LlamaConfig.from_meta(cfg_doc)
+        except (KeyError, TypeError, ValueError) as e:
+            print(f"p2p warm-start: the peer's __config__ doc is no llama "
+                  f"architecture: {e!r}", file=sys.stderr)
+            return 1
+        fetch_s = time.perf_counter() - t0
+        params = replace_leaves(params, [t.to(device)
+                                         for t in leaves(params)])
+        boot["fetched"] = boot["device"] + fetch_s
+        print(f"# replica {args.replica_id} warm from {args.warm_addr} "
+              f"({fetch_s:.3f}s)", file=sys.stderr, flush=True)
+    elif args.dryrun:
         from edl_tpu_torch.models import llama
 
         cfg = llama.LlamaConfig.tiny(vocab=args.vocab)
@@ -742,13 +785,13 @@ def run_fleet(args) -> int:
     """Elastic serving fleet: N engine replicas as supervised
     subprocesses behind the fault-tolerant router (serving/fleet.py).
     The default mode boots a fleet (``--dryrun``: a tiny random model;
-    else ``--export-dir``), routes traffic through it (optionally
-    rolling the weight generation mid-traffic with ``--swap``), and
-    reports per-outcome counts plus the READY floor. ``--replica`` is
-    the internal per-process entrypoint the supervisor spawns."""
-    if args.warm_from is not None:
-        print("--warm-from p2p is not ported yet (ROADMAP Queue A item 6)",
-              file=sys.stderr)
+    else ``--export-dir``; ``--warm-from p2p``: pulled from a peer),
+    routes traffic through it (optionally rolling the weight generation
+    mid-traffic with ``--swap``), and reports per-outcome counts plus
+    the READY floor. ``--replica`` is the internal per-process
+    entrypoint the supervisor spawns."""
+    if args.warm_from == "p2p" and not args.warm_addr:
+        print("error: --warm-from p2p needs --warm-addr", file=sys.stderr)
         return 1
     if args.replica:
         if args.slots < 1 or args.max_len < 2 or args.horizon < 1:
@@ -786,7 +829,8 @@ def run_fleet(args) -> int:
         workdir=workdir, vocab=args.vocab, slots=args.slots,
         max_len=args.max_len, horizon=args.horizon, seed=args.seed,
         export_dir=None if args.dryrun else args.export_dir,
-        device=args.device,
+        device=args.device, warm_from=args.warm_from,
+        warm_addr=args.warm_addr,
     )
     table = ReplicaTable()
     sup = ReplicaSupervisor(table, spec)
@@ -1201,7 +1245,182 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--data-dir", default=None)
     pr.add_argument("--mesh", default="")
     pr.set_defaults(fn=run_predict)
+
+    el = sub.add_parser(
+        "elasticity",
+        help="train<->serve chip elasticity rehearsal: drive a "
+        "scripted diurnal load curve through the real lease broker "
+        "+ handover controller (fake clock, fake sides — pure "
+        "policy, no devices) and print the handover ledger",
+    )
+    el.add_argument(
+        "--chips", type=int, default=8,
+        help="total chip inventory in the broker pool",
+    )
+    el.add_argument(
+        "--train-chips", type=int, default=6,
+        help="chips the trainer holds at bootstrap",
+    )
+    el.add_argument(
+        "--replicas", type=int, default=1,
+        help="serving replicas at bootstrap",
+    )
+    el.add_argument(
+        "--chips-per-replica", type=int, default=2,
+        help="chips one serving replica occupies",
+    )
+    el.add_argument(
+        "--hours", type=int, default=48,
+        help="simulated hours to run (one controller tick per hour)",
+    )
+    el.add_argument(
+        "--cooldown-s", type=float, default=0.0,
+        help="handover cooldown through the shared ScaleGate "
+        "(simulated seconds; 1 tick = 3600)",
+    )
+    el.add_argument(
+        "--coordinator", default="",
+        help="HOST:PORT of a running edl-coordinator: run the policy "
+        "loop against the distributed (WAL-persisted, epoch-fenced) "
+        "lease broker instead of the in-process one",
+    )
+    el.add_argument("--json", action="store_true",
+                    help="machine-readable ledger")
+    el.set_defaults(fn=run_elasticity)
     return p
+
+
+def run_elasticity(args) -> int:
+    """Policy rehearsal for the train⇄serve elasticity plane: a
+    scripted diurnal load curve driven through the REAL
+    ChipLeaseBroker + ElasticityController + shared ScaleGate, with a
+    fake clock and fake side ports — no devices, no subprocesses, so
+    an operator can see exactly when and why chips would move before
+    pointing the controller at a live fleet. One tick per simulated
+    hour. (chip_smoke.py's ``p2p`` phase runs the same controller over
+    a live warm-started fleet.)
+
+    ``--coordinator HOST:PORT`` swaps the in-process broker for the
+    coordinator-fronted :class:`DistributedChipBroker` — same policy
+    loop, but every lease transition is WAL-persisted by the remote
+    ``edl-coordinator`` and survives its restart."""
+    from edl_tpu_torch.elasticity.broker import ChipLeaseBroker, LeaseError
+    from edl_tpu_torch.elasticity.controller import (
+        ElasticityController,
+        ServePort,
+        TrainPort,
+    )
+
+    if args.train_chips + args.replicas * args.chips_per_replica > args.chips:
+        print(
+            f"error: bootstrap wants "
+            f"{args.train_chips + args.replicas * args.chips_per_replica} "
+            f"chips, pool holds {args.chips}",
+            file=sys.stderr,
+        )
+        return 1
+
+    clock = {"t": 0.0}
+    state = {"train_chips": args.train_chips, "replicas": args.replicas,
+             "offered": 0.0}
+
+    def offered_load(hour: int) -> float:
+        # the diurnal curve: quiet nights, a hard day plateau, shoulders
+        h = hour % 24
+        if 10 <= h <= 17:
+            return 6.0
+        if h in (8, 9, 18, 19):
+            return 2.0
+        return 0.25
+
+    if args.coordinator:
+        from edl_tpu_torch.elasticity.distbroker import DistributedChipBroker
+        from edl_tpu_torch.runtime.coordinator import CoordinatorClient
+
+        host, _, port = args.coordinator.rpartition(":")
+        if not host or not port.isdigit():
+            print(f"error: --coordinator wants HOST:PORT, got "
+                  f"{args.coordinator!r}", file=sys.stderr)
+            return 1
+        try:
+            broker = DistributedChipBroker(
+                CoordinatorClient(host, int(port)), args.chips,
+                clock=lambda: clock["t"],
+            )
+        except (LeaseError, OSError) as e:
+            print(f"error: coordinator {args.coordinator}: {e}",
+                  file=sys.stderr)
+            return 1
+    else:
+        broker = ChipLeaseBroker(args.chips, clock=lambda: clock["t"])
+    train = TrainPort(
+        chips=lambda: state["train_chips"],
+        apply_chips=lambda n: state.update(train_chips=n),
+        min_chips=args.chips_per_replica,
+    )
+
+    def _add_replica() -> float:
+        state["replicas"] += 1
+        return 0.0
+
+    def _remove_replica() -> None:
+        state["replicas"] -= 1
+
+    serve = ServePort(
+        replicas=lambda: state["replicas"],
+        load=lambda: state["offered"] / max(state["replicas"], 1),
+        slo_breached=lambda: False,
+        add_replica=_add_replica,
+        remove_replica=_remove_replica,
+        min_replicas=1,
+    )
+    ctl = ElasticityController(
+        broker, train, serve,
+        chips_per_replica=args.chips_per_replica,
+        cooldown_s=args.cooldown_s,
+        clock=lambda: clock["t"],
+    )
+    ctl.bootstrap()
+
+    rows = []
+    for hour in range(args.hours):
+        clock["t"] = hour * 3600.0
+        state["offered"] = offered_load(hour)
+        action = ctl.tick()
+        if not broker.check_conservation():
+            print(f"LEASE CONSERVATION VIOLATED at hour {hour}",
+                  file=sys.stderr)
+            return 1
+        rows.append({
+            "hour": hour,
+            "offered": state["offered"],
+            "action": action,
+            "train_chips": state["train_chips"],
+            "replicas": state["replicas"],
+            "free": broker.free_chips,
+            "epoch": broker.epoch,
+        })
+
+    if args.json:
+        print(json.dumps({
+            "rows": rows,
+            "handovers": [h.__dict__ for h in ctl.ledger],
+            "epoch": broker.epoch,
+            "conserved": broker.check_conservation(),
+        }, sort_keys=True))
+        return 0
+    print(f"{'hour':>4} {'offered':>7} {'action':<9} {'train':>5} "
+          f"{'replicas':>8} {'free':>4} {'epoch':>5}")
+    for r in rows:
+        if r["action"] is None and r["hour"] % 6:
+            continue  # quiet hours: print a sample, not 48 idle rows
+        print(f"{r['hour']:>4} {r['offered']:>7.2f} "
+              f"{r['action'] or '-':<9} {r['train_chips']:>5} "
+              f"{r['replicas']:>8} {r['free']:>4} {r['epoch']:>5}")
+    print(f"# {len(ctl.ledger)} handovers over {args.hours}h; "
+          f"final epoch {broker.epoch}; conservation "
+          f"{'OK' if broker.check_conservation() else 'VIOLATED'}")
+    return 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -34,8 +34,20 @@ dp states (every process holds every leaf whole): :func:`snapshot_local`,
 :func:`save_shards`, :func:`write_manifest`, :func:`latest_manifest`,
 :func:`gc_step_dirs`, :func:`load_sharded`, :func:`load_sharded_params`
 and :func:`restore_local`. The manifest and the ``p:`` pieces are the
-reference's format; pieces of a sharded (fsdp) layout and the peer
-restore wait for ROADMAP Queue A items 2b and 6.
+reference's format; pieces of a sharded (fsdp) layout wait for ROADMAP
+Queue A item 2b.
+
+The peer restore's half (the p2p shard plane,
+``runtime/shard_server.py`` and ``runtime/p2p_restore.py``):
+:class:`_PieceIndex` takes remote peers' pieces beside RAM and disk,
+:func:`template_state` / :func:`template_schema` give the leaf schema
+without a manifest, :func:`peer_coverage_ok` decides whether peers'
+pieces tile the state and :func:`load_from_pieces` assembles it.
+
+bfloat16 leaves are held on the host as uint16 views with
+``"bfloat16"`` in ``dtypes`` (numpy has no bf16; the export format's
+rule), so a piece is the same bytes as the reference's ml_dtypes one,
+on disk and on the wire.
 """
 
 from __future__ import annotations
@@ -44,9 +56,10 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -393,6 +406,27 @@ def _state_leaf_items(state: TrainState) -> List[Tuple[str, torch.Tensor]]:
     return items
 
 
+def host_array(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """(host numpy array, dtype name) of a CPU tensor: a bfloat16
+    tensor becomes its uint16 view named ``"bfloat16"``."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    arr = t.numpy()
+    return arr, arr.dtype.name
+
+
+def storage_dtype(name: str) -> np.dtype:
+    """The numpy dtype a leaf named ``name`` is held in on the host."""
+    return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
+
+
+def to_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
+    """A CPU tensor of a host array whose leaf dtype is ``name`` (a
+    copy: the array may be a read-only npz member or a peer's buffer)."""
+    t = torch.from_numpy(np.array(arr, storage_dtype(name)))
+    return t.view(torch.bfloat16) if name == "bfloat16" else t
+
+
 def snapshot_local(state: TrainState, rank: int = 0) -> LocalSnapshot:
     """Device → host of this process's state (one
     :func:`~sharding.to_host` pipeline). Under dp the process holds
@@ -402,12 +436,12 @@ def snapshot_local(state: TrainState, rank: int = 0) -> LocalSnapshot:
     host = shd.to_host([t for _, t in items])
     pieces, primary, shapes, dtypes = {}, {}, {}, {}
     for (key, _), h in zip(items, host):
-        arr = h.numpy()
+        arr, name = host_array(h)
         off = tuple(0 for _ in arr.shape)
         pieces[key] = [(off, arr)]
         primary[key] = [off] if rank == 0 else []
         shapes[key] = tuple(arr.shape)
-        dtypes[key] = arr.dtype.name
+        dtypes[key] = name
     return LocalSnapshot(step=int(state.step), pieces=pieces,
                          primary=primary, shapes=shapes, dtypes=dtypes)
 
@@ -537,15 +571,33 @@ def gc_step_dirs(root: str, keep: int = 2) -> None:
 
 
 class _PieceIndex:
-    """Piece lookup across a RAM snapshot and the manifest-listed shard
-    files; RAM wins at equal geometry (same bytes, cheaper source). Disk
-    pieces load lazily (npz members decompress on access)."""
+    """Piece lookup across a RAM snapshot, the manifest-listed shard
+    files and remote peers (``shard_server.RemotePieces``). Entry keys
+    carry (offset, shape), so overlap is decided without I/O; disk
+    pieces load lazily (npz members decompress on access) and remote
+    ones are fetched lazily or by :meth:`prefetch`. Priority at equal
+    geometry: disk < remote peer < local RAM (the same bytes
+    everywhere; the cheaper source wins). With ``shapes`` (the expected
+    leaf shapes), an entry whose rank differs from its leaf's — a stale
+    or version-skewed peer — is dropped here."""
 
     def __init__(self, manifest: Optional[Dict[str, Any]],
-                 ram: Optional[LocalSnapshot]):
+                 ram: Optional[LocalSnapshot], remotes: Sequence[Any] = (),
+                 shapes: Optional[Dict[str, Tuple[int, ...]]] = None):
+        ranks = ({k: len(tuple(v)) for k, v in shapes.items()}
+                 if shapes is not None else None)
+
+        def ok(key: str, off, shape) -> bool:
+            return (ranks is None or key not in ranks
+                    or (len(off) == ranks[key] and len(shape) == ranks[key]))
+
+        # {leaf key: {(offset, shape): source}}: a host array or an
+        # (indexable, entry) handle — an NpzFile or a RemotePieces
         self._index: Dict[str, Dict[Tuple[Tuple[int, ...], Tuple[int, ...]],
                                     Any]] = {}
         self._files: List[Any] = []
+        # pieces assembled, by the kind of source they came from
+        self.reads = {"ram": 0, "peer": 0, "disk": 0}
         if manifest is not None:
             for fname in manifest["files"]:
                 z = np.load(os.path.join(manifest["_dir"], fname),
@@ -553,40 +605,118 @@ class _PieceIndex:
                 self._files.append(z)
                 for entry in z.files:
                     key, off, shape = _parse_piece_key(entry)
-                    self._index.setdefault(key, {})[(off, shape)] = (z, entry)
+                    if ok(key, off, shape):
+                        self._index.setdefault(key, {})[(off, shape)] = (
+                            z, entry)
+        for src in remotes:
+            for entry in src.entries():
+                key, off, shape = _parse_piece_key(entry)
+                if ok(key, off, shape):
+                    self._index.setdefault(key, {})[(off, shape)] = (src,
+                                                                     entry)
         if ram is not None:
             for key, plist in ram.pieces.items():
                 for off, arr in plist:
-                    self._index.setdefault(key, {})[(off, arr.shape)] = arr
+                    self._index.setdefault(key, {})[
+                        (off, tuple(arr.shape))] = arr
 
     def close(self) -> None:
         for z in self._files:
             z.close()
 
-    def assemble(self, key: str, shape: Tuple[int, ...], dtype) -> np.ndarray:
-        """The whole leaf ``key`` from its stored pieces; raises when the
-        pieces leave a hole."""
+    def _read(self, src) -> np.ndarray:
+        if isinstance(src, np.ndarray):
+            self.reads["ram"] += 1
+            return src
+        self.reads["disk" if isinstance(src[0], np.lib.npyio.NpzFile)
+                   else "peer"] += 1
+        return src[0][src[1]]
+
+    def prefetch(self, wants: Sequence[Tuple[str, Tuple[int, ...],
+                                             Tuple[int, ...]]]) -> None:
+        """Fetch every remote piece that overlaps the wanted boxes
+        (``(leaf key, starts, stops)``) before assembly: grouped by
+        peer, each peer drained through its pooled ``get_many``, the
+        peers concurrently. A failure here only logs: the piece is
+        fetched again by :meth:`assemble`, whose coverage check raises."""
+        by_src: Dict[int, Tuple[Any, set]] = {}
+        for key, starts, stops in wants:
+            for (off, pshape), src in self._index.get(key, {}).items():
+                if not isinstance(src, tuple) or not hasattr(src[0],
+                                                             "get_many"):
+                    continue
+                if pshape and starts and any(
+                        max(b, o) >= min(e, o + s) for b, e, o, s in
+                        zip(starts, stops, off, pshape)):
+                    continue
+                by_src.setdefault(id(src[0]), (src[0], set()))[1].add(src[1])
+        if not by_src:
+            return
+        errs: List[BaseException] = []
+
+        def drain(holder, entries) -> None:
+            try:
+                holder.get_many(sorted(entries))
+            except BaseException as e:  # noqa: BLE001 - surfaced at assembly
+                errs.append(e)
+
+        threads = [threading.Thread(target=drain, args=(h, es), daemon=True)
+                   for h, es in by_src.values()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            kv_logger("checkpoint").warn("p2p prefetch incomplete",
+                                         err=str(errs[0]))
+
+    def assemble(self, key: str, idx: Tuple, shape: Tuple[int, ...],
+                 dtype) -> np.ndarray:
+        """The slice ``idx`` of leaf ``key`` from its stored pieces.
+        Coverage is proved geometrically (:func:`_boxes_tile`), so
+        overlapping pieces are handled and a hole raises."""
+        starts = [(s.start or 0) if isinstance(s, slice) else 0 for s in idx]
+        stops = [(s.stop if s.stop is not None else shape[i])
+                 if isinstance(s, slice) else shape[i]
+                 for i, s in enumerate(idx)]
+        out_shape = tuple(e - b for b, e in zip(starts, stops))
         pieces = self._index.get(key, {})
-        if not shape:
-            for src in pieces.values():
-                arr = src if isinstance(src, np.ndarray) else src[0][src[1]]
-                return np.asarray(arr, dtype).reshape(())
-            raise ValueError(f"checkpoint has no piece of {key}")
-        (off, pshape), src = next(iter(pieces.items()), ((None, None), None))
-        if len(pieces) == 1 and pshape == tuple(shape) and not any(off):
-            arr = src if isinstance(src, np.ndarray) else src[0][src[1]]
-            return np.asarray(arr, dtype)
-        out = np.empty(shape, dtype)
-        covered = np.zeros(shape, bool)
+        whole = pieces.get((tuple(0 for _ in shape), tuple(shape)))
+        if whole is not None and out_shape == tuple(shape):
+            # a dp piece: the whole leaf, no copy into a new buffer
+            return np.asarray(self._read(whole), dtype).reshape(shape)
+        out = np.empty(out_shape, dtype)
+        boxes: List[Tuple[Tuple[int, ...], Tuple[int, ...]]] = []
         for (off, pshape), src in pieces.items():
-            box = tuple(slice(o, o + s) for o, s in zip(off, pshape))
-            out[box] = src if isinstance(src, np.ndarray) else src[0][src[1]]
-            covered[box] = True
-        if not covered.all():
+            if not shape:  # scalar leaf
+                out[...] = self._read(src)
+                boxes.append(((), ()))
+                break
+            lo = [max(b, o) for b, o in zip(starts, off)]
+            hi = [min(e, o + s) for e, o, s in zip(stops, off, pshape)]
+            if any(a >= b for a, b in zip(lo, hi)):
+                continue
+            arr = self._read(src)
+            out[tuple(slice(a - b, h - b) for a, b, h in zip(lo, starts, hi))] = \
+                arr[tuple(slice(a - o, h - o) for a, o, h in zip(lo, off, hi))]
+            boxes.append((tuple(a - b for a, b in zip(lo, starts)),
+                          tuple(h - a for a, h in zip(lo, hi))))
+        if not _boxes_tile(out_shape, boxes):
             raise ValueError(
-                f"checkpoint piece coverage incomplete for {key}: "
-                f"{len(pieces)} pieces leave a hole in {tuple(shape)}")
+                f"checkpoint piece coverage incomplete for {key}{idx}: "
+                f"{len(boxes)} pieces leave a hole in {out_shape}")
         return out
+
+
+def _whole(shape) -> Tuple[slice, ...]:
+    return tuple(slice(0, s) for s in shape)
+
+
+def _leaf_from_index(index: _PieceIndex, fq: str, shape,
+                     name: str) -> torch.Tensor:
+    shape = tuple(shape)
+    return to_tensor(index.assemble(fq, _whole(shape), shape,
+                                    storage_dtype(name)), name)
 
 
 def _params_from_index(index: _PieceIndex, shapes, dtypes,
@@ -598,9 +728,9 @@ def _params_from_index(index: _PieceIndex, shapes, dtypes,
     params: Dict[str, Any] = {}
     for fq, shape in shapes.items():
         if fq.startswith("p:"):
-            arr = index.assemble(fq, tuple(shape), np.dtype(dtypes[fq]))
             _tree_insert(params, fq[2:].split("/"),
-                         torch.from_numpy(np.array(arr)).to(dev))
+                         _leaf_from_index(index, fq, shape,
+                                          dtypes[fq]).to(dev))
     return _restore_lists(params)
 
 
@@ -608,7 +738,10 @@ def _state_from_index(index: _PieceIndex, step: int, shapes, dtypes, tx,
                       dev: torch.device) -> TrainState:
     """A TrainState of ``tx``'s optimizer from stored ``p:`` and ``o:``
     leaves; the optimizer's ``step`` counts stay on the CPU, where
-    torch keeps them."""
+    torch keeps them. Remote pieces of every leaf are fetched first in
+    one parallel pass."""
+    index.prefetch([(fq, tuple(0 for _ in shape), tuple(shape))
+                    for fq, shape in shapes.items()])
     params = _params_from_index(index, shapes, dtypes, dev)
     state = TrainState.create(params, tx)
     index_of = {k: i for i, (k, _) in enumerate(_leaf_keys(state.params))}
@@ -619,8 +752,7 @@ def _state_from_index(index: _PieceIndex, step: int, shapes, dtypes, tx,
         key, name = fq[2:].rsplit("/", 1)
         if key not in index_of:
             raise ValueError(f"checkpoint moment {fq} has no param")
-        t = torch.from_numpy(np.array(index.assemble(
-            fq, tuple(shape), np.dtype(dtypes[fq]))))
+        t = _leaf_from_index(index, fq, shape, dtypes[fq])
         tensors[(index_of[key], name)] = t if name == "step" else t.to(dev)
     state = rebind_state(state, leaves(state.params), tensors)
     state.step = int(step)
@@ -647,7 +779,7 @@ def load_sharded(
         raise FileNotFoundError(f"no committed sharded checkpoint under {root}")
     if ram is not None and ram.step != manifest["step"]:
         ram = None  # stale/ahead RAM: the disk manifest is the agreed truth
-    index = _PieceIndex(manifest, ram)
+    index = _PieceIndex(manifest, ram, shapes=manifest["shapes"])
     t0 = time.perf_counter()
     try:
         with tracing.span("checkpoint.load_sharded", step=manifest["step"]):
@@ -673,6 +805,122 @@ def load_sharded_params(root: str, manifest: Optional[Dict[str, Any]] = None,
         return _params_from_index(index, manifest["shapes"],
                                   manifest["dtypes"], dev)
     finally:
+        index.close()
+
+
+def template_state(params, tx) -> TrainState:
+    """A structure template of ``TrainState.create(params, tx)`` after
+    its first step, on the meta device (no memory): params and the
+    optimizer's state with their shapes and dtypes — the port's
+    ``jax.eval_shape`` of a state, since a torch optimizer makes its
+    moments at its first step."""
+    meta = replace_leaves(params, [
+        torch.empty_like(p, device="meta") for p in leaves(params)])
+    like = TrainState.create(meta, tx)
+    for p in leaves(like.params):
+        if p.requires_grad:
+            p.grad = torch.zeros_like(p)
+    like.opt_state.step()
+    return like
+
+
+def template_schema(like: TrainState) -> Tuple[Dict[str, Tuple[int, ...]],
+                                               Dict[str, str]]:
+    """(shapes, dtypes) keyed like the sharded format, from a structure
+    template (:func:`template_state`): what a peer-only restore uses in
+    place of a manifest."""
+    from edl_tpu_torch.models.meta import dtype_name
+
+    shapes, dtypes = {}, {}
+    for key, leaf in _state_leaf_items(like):
+        shapes[key] = tuple(leaf.shape)
+        dtypes[key] = dtype_name(leaf.dtype)
+    return shapes, dtypes
+
+
+def _boxes_tile(shape: Tuple[int, ...],
+                boxes: Sequence[Tuple[Tuple[int, ...], Tuple[int, ...]]]
+                ) -> bool:
+    """Whether the boxes ``(offset, extent)`` cover every element of
+    ``shape`` — a geometric union (coordinate-compressed grid), not an
+    element count, so overlapping pieces cannot hide a hole."""
+    if not shape:
+        return bool(boxes)
+    if any(s == 0 for s in shape):
+        return True
+    cuts: List[List[int]] = []
+    for d, size in enumerate(shape):
+        c = {0, size}
+        for off, ext in boxes:
+            c.add(min(max(off[d], 0), size))
+            c.add(min(max(off[d] + ext[d], 0), size))
+        cuts.append(sorted(c))
+    grid_shape = tuple(len(c) - 1 for c in cuts)
+    if int(np.prod(grid_shape)) > (1 << 24):
+        return False  # pathological offsets: the conservative answer
+    grid = np.zeros(grid_shape, dtype=bool)
+    for off, ext in boxes:
+        grid[tuple(slice(
+            int(np.searchsorted(cuts[d], min(max(off[d], 0), size))),
+            int(np.searchsorted(cuts[d], min(max(off[d] + ext[d], 0), size))))
+            for d, size in enumerate(shape))] = True
+    return bool(grid.all())
+
+
+def peer_coverage_ok(like: TrainState, piece_entries: Sequence[str]) -> bool:
+    """Whether piece entry keys (peers' shard-server indexes) tile every
+    leaf of ``like`` — pure key geometry, no bytes moved: the go/no-go
+    of a peer restore. Entries of another rank than their leaf's do not
+    count."""
+    shapes, _ = template_schema(like)
+    boxes: Dict[str, set] = {}
+    for entry in piece_entries:
+        key, off, shape = _parse_piece_key(entry)
+        boxes.setdefault(key, set()).add((off, shape))
+    for key, shape in shapes.items():
+        usable = [(o, e) for o, e in boxes.get(key, ())
+                  if len(o) == len(shape) and len(e) == len(shape)]
+        if not _boxes_tile(tuple(shape), usable):
+            return False
+    return True
+
+
+def load_from_pieces(step: int, like: TrainState, tx,
+                     ram: Optional[LocalSnapshot] = None,
+                     manifest: Optional[Dict[str, Any]] = None,
+                     remotes: Sequence[Any] = (),
+                     device: DeviceLike = None) -> TrainState:
+    """A TrainState of ``tx``'s optimizer at ``step`` on ``device`` from
+    any mix of sources: the local RAM snapshot, a committed manifest AT
+    THE SAME STEP, and remote peers (``shard_server.RemotePieces``) —
+    the peer-to-peer migration restore. The schema is the template's,
+    so a pure-peer restore needs no disk artifact. A vanished peer
+    surfaces as a coverage error, never a silent hole. Where RAM and the
+    peers tile the state by themselves, no shard file is opened: disk
+    pieces rank below theirs at equal geometry. Logs ``pieces read``
+    with the pieces taken from each kind of source."""
+    if ram is not None and ram.step != step:
+        ram = None
+    if manifest is not None and manifest["step"] != step:
+        manifest = None
+    if manifest is not None:
+        held = [e for src in remotes for e in src.entries()]
+        if ram is not None:
+            held += [_piece_key(k, o, tuple(a.shape))
+                     for k, plist in ram.pieces.items() for o, a in plist]
+        if peer_coverage_ok(like, held):
+            manifest = None
+    shapes, dtypes = template_schema(like)
+    index = _PieceIndex(manifest, ram, remotes=remotes, shapes=shapes)
+    try:
+        with tracing.span("checkpoint.load_from_pieces", step=step,
+                          peers=len(remotes)):
+            return _state_from_index(index, step, shapes, dtypes, tx,
+                                     resolve_device(device))
+    finally:
+        kv_logger("checkpoint").info("pieces read", step=step,
+                                     disk_files=len(index._files),
+                                     **index.reads)
         index.close()
 
 

@@ -6,9 +6,13 @@ docker/paddle_k8s:26-32).
 
 - :class:`CoordinatorClient` — TCP client of the line protocol, with the
   reference's reconnect window, RPC counters, ``coord.rpc`` fault site
-  and client spans on traced paths.
+  and client spans on traced paths, and the chip-lease ops
+  (``lease_init``, ``lease_grant``, ``lease_recall``, ``lease_free``,
+  ``lease_confirm``, ``lease_crashed``, ``lease_expire``,
+  ``lease_snap``) that ``elasticity/distbroker.py`` drives.
 - :class:`CoordinatorServer` — spawns and owns an ``edl-coordinator``
-  process (durable with a WAL).
+  process (durable with a WAL; ``lease_recover_s`` sets the window a
+  restarted lease pool waits for its holders to re-confirm).
 - :func:`ensure_native_built` — builds the server with the sources'
   own Makefile into ``edl_tpu_torch/_build/coordinator`` (``make
   BUILD=...``), so the port shares no build directory with the
@@ -16,7 +20,7 @@ docker/paddle_k8s:26-32).
 
 There is no Python fallback: the server raises when the build fails,
 as the reference's does. The in-process coordinators
-(``NativeCoordinator``, ``PyCoordinator``) and the chip-lease ops wait
+(``NativeCoordinator``, ``PyCoordinator`` and its ``LeaseTable``) wait
 for ROADMAP Queue A item 9.
 """
 
@@ -29,8 +33,9 @@ import socket
 import subprocess
 import threading
 import time
+import uuid
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from edl_tpu_torch.obs import disttrace
 from edl_tpu_torch.obs import metrics as obs_metrics
@@ -122,6 +127,34 @@ def _parse_members(s: str) -> List[Member]:
         for part in s.split(","):
             name, inc, rank = part.rsplit(":", 2)
             out.append(Member(name, int(inc), int(rank)))
+    return out
+
+
+def _parse_lease_snap(s: str) -> Dict:
+    """Parse ``pool free epoch recovering [id|holder|chips|epoch|state|
+    confirmed,...]`` (the LSNAP payload; "|" because holders contain
+    ":") into the same dict shape LeaseTable.snap() returns."""
+    parts = s.split(" ", 4)
+    out = {
+        "pool": int(parts[0]),
+        "free": int(parts[1]),
+        "epoch": int(parts[2]),
+        "recovering": bool(int(parts[3])),
+        "leases": [],
+    }
+    if len(parts) > 4 and parts[4]:
+        for ent in parts[4].split(","):
+            lid, holder, chips, ep, st, conf = ent.split("|")
+            out["leases"].append(
+                {
+                    "id": int(lid),
+                    "holder": holder,
+                    "chips": int(chips),
+                    "epoch": int(ep),
+                    "state": int(st),
+                    "confirmed": bool(int(conf)),
+                }
+            )
     return out
 
 
@@ -298,6 +331,85 @@ class CoordinatorClient:
         parts = self._call("WALSTATS").split()[1:]
         return {"appended_bytes": int(parts[0]), "compactions": int(parts[1])}
 
+    # chip leases. Same graceful degradation as time(): an old server
+    # binary without the lease ops answers "ERR unknown command" and
+    # every method returns None, so callers can fall back to the
+    # in-process broker instead of failing bring-up. Holders and
+    # tokens must be space-free (":" is fine — "train:job0").
+
+    def lease_init(self, total_chips: int) -> Optional[bool]:
+        r = self._call(f"LINIT {total_chips}")
+        if r.startswith("OK"):
+            return True
+        if r == "ERR busy":
+            return False
+        return None
+
+    def lease_grant(
+        self, holder: str, chips: int, token: str = ""
+    ) -> Optional[Dict]:
+        # the token makes a retried grant (reconnect window re-issuing
+        # after a lost reply) return the original lease, not a second
+        # one — the WAL-replayed server still knows the token
+        token = token or uuid.uuid4().hex
+        r = self._call(f"LGRANT {holder} {chips} {token}")
+        if r.startswith("LEASE "):
+            _, lid, ep, ch = r.split()
+            return {
+                "ok": True, "id": int(lid), "epoch": int(ep),
+                "chips": int(ch), "token": token,
+            }
+        if r.startswith("ERR nochips"):
+            return {"ok": False, "reason": "nochips", "free": int(r.split()[2])}
+        if r == "ERR nopool":
+            return {"ok": False, "reason": "nopool", "free": 0}
+        return None
+
+    def lease_recall(self, lease_id: int) -> Optional[str]:
+        r = self._call(f"LRECALL {lease_id}")
+        if r == "OK":
+            return "ok"
+        if r.startswith("ERR unknown c"):  # old server: no lease ops
+            return None
+        if r.startswith("ERR "):
+            return r.split()[1]  # "unknown" | "freed"
+        return None
+
+    def lease_free(self, lease_id: int) -> Optional[int]:
+        r = self._call(f"LFREE {lease_id}")
+        if r.startswith("OK "):
+            return int(r.split()[1])
+        if r == "ERR unknown":
+            return -1
+        if r == "ERR freed":
+            return -2
+        return None
+
+    def lease_confirm(self, lease_id: int, epoch: int) -> Optional[str]:
+        r = self._call(f"LCONFIRM {lease_id} {epoch}")
+        if r.startswith("OK"):
+            return "ok"
+        if r.startswith("FENCED "):
+            return r.split()[1]  # "stale_epoch" | "freed" | "unknown"
+        return None
+
+    def lease_crashed(self, holder: str) -> Optional[int]:
+        r = self._call(f"LCRASH {holder}")
+        return int(r.split()[1]) if r.startswith("OK ") else None
+
+    def lease_expire(self) -> Optional[Tuple[int, int]]:
+        r = self._call("LEXPIRE")
+        if not r.startswith("OK "):
+            return None
+        _, released, recovering = r.split()
+        return (int(released), int(recovering))
+
+    def lease_snap(self) -> Optional[Dict]:
+        r = self._call("LSNAP")
+        if not r.startswith("LEASES "):
+            return None
+        return _parse_lease_snap(r[7:])
+
 
 class CoordinatorServer:
     """Spawn and own an edl-coordinator process (the per-job coordinator
@@ -311,6 +423,7 @@ class CoordinatorServer:
         member_ttl_s: float = 10.0,
         wal_path: str = "",
         wal_compact_bytes: int = 0,  # 0 = server default (1 MiB)
+        lease_recover_s: float = -1.0,  # <0 = server default (5 s)
     ):
         if not ensure_native_built():
             raise RuntimeError("native coordinator unavailable")
@@ -323,6 +436,7 @@ class CoordinatorServer:
         self.member_ttl_s = member_ttl_s
         self.wal_path = wal_path
         self.wal_compact_bytes = wal_compact_bytes
+        self.lease_recover_s = lease_recover_s
         self._spawn()
 
     def _spawn(self) -> None:
@@ -332,6 +446,10 @@ class CoordinatorServer:
             cmd += ["--wal", self.wal_path]
         if self.wal_compact_bytes > 0:
             cmd += ["--wal-compact-bytes", str(self.wal_compact_bytes)]
+        if self.lease_recover_s >= 0:
+            # the chip-lease recovery window: how long a restarted pool
+            # waits for holders to re-confirm before force-releasing
+            cmd += ["--lease-recover", str(self.lease_recover_s)]
         self._proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
         )

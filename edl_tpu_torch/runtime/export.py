@@ -59,13 +59,6 @@ def _cast(t: torch.Tensor, dtype: str) -> torch.Tensor:
     return t.to(dtype_from_name(dtype))
 
 
-def _store_view(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """(npz-safe array, recorded dtype name)."""
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-    return t.numpy(), dtype_name(t.dtype)
-
-
 def _write_export(
     root: str,
     step: int,
@@ -74,12 +67,15 @@ def _write_export(
     source: str,
     model: Optional[Dict[str, Any]] = None,
 ) -> str:
+    # npz has no bf16: the checkpoint format's host view (uint16)
+    from edl_tpu_torch.runtime.checkpoint import host_array
+
     d = os.path.join(root, f"step-{step:08d}")
     os.makedirs(d, exist_ok=True)
     payload, dtypes, shapes = {}, {}, {}
     for key, t in flat.items():
         t = _cast(t, dtype)
-        stored, name = _store_view(t)
+        stored, name = host_array(t)
         payload[key] = stored
         dtypes[key] = name
         shapes[key] = list(t.shape)
@@ -174,8 +170,8 @@ def export_from_checkpoint(ckpt_root: str, export_root: str,
     index = ckpt._PieceIndex(manifest, ram)
     try:
         flat = {
-            fq[2:]: torch.from_numpy(np.array(index.assemble(
-                fq, tuple(shape), np.dtype(manifest["dtypes"][fq]))))
+            fq[2:]: ckpt._leaf_from_index(index, fq, shape,
+                                          manifest["dtypes"][fq])
             for fq, shape in manifest["shapes"].items()
             if fq.startswith("p:")  # params only: moments never ship
         }

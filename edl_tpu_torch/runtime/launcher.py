@@ -13,8 +13,9 @@ analog) provides membership, rendezvous KV and the data task queue.
 Where the reference defaults to a virtual CPU device a worker, the
 port's workers run on the card (``local_devices=0``: every worker
 process drives ``cuda:0``, joined by gloo) unless the caller asks for
-the CPU with ``local_devices=1``, as the tests do. The peer-to-peer
-shard plane is not ported yet, so the workers get ``EDL_P2P=0``.
+the CPU with ``local_devices=1``, as the tests do. The workers run the
+peer-to-peer shard plane (``EDL_P2P``, on unless ``extra_env`` sets it
+to 0), as the reference's do.
 """
 
 from __future__ import annotations
@@ -182,7 +183,6 @@ class ProcessJobLauncher:
                 "EDL_STEP_SLEEP_S": str(self.step_sleep_s),
                 "EDL_SYNC_EVERY": str(self.sync_every),
                 "EDL_SLICE": str(self._slice_of(worker_id)),
-                "EDL_P2P": "0",
                 "PYTHONPATH": os.pathsep.join(
                     [
                         os.path.dirname(

@@ -2,7 +2,7 @@
 ``edl_tpu/runtime/worker_config.py``: the same fields, defaults and env
 names. The port's worker reads ``local_devices`` as the device rule of
 :func:`edl_tpu_torch.parallel.mesh.process_device` (0 = the card, 1 =
-the CPU) and raises for a mesh other than dp and for ``p2p``
+the CPU) and raises for a mesh other than dp
 (:mod:`edl_tpu_torch.runtime.worker_main`).
 
 The contract itself is the TPU analog of the reference's PADDLE_INIT_*

@@ -18,10 +18,14 @@ Lifecycle, per membership epoch:
      survivable), whose endpoint is published in coordinator KV; every
      worker joins the epoch's gloo process group as a pure client
      (world = live members);
-  3. restore the train state — from the committed sharded checkpoint
+  3. restore the train state — from peers' RAM snapshots over the p2p
+     shard plane (runtime/p2p_restore.py: rank 0 decides the newest
+     step the peers' and its own pieces tile, records it under
+     ``restore_last``), else from the committed sharded checkpoint
      (its RAM pieces when the step matches), else from this worker's
      complete RAM snapshot, else fresh init (job start); rank 0
-     collects every member's restore mark;
+     collects every member's restore mark, which releases lingering
+     leavers;
   4. lockstep training: every step the rank-0 worker publishes ONE
      decision — ``step`` / ``ckpt`` / ``reshard`` / ``stop`` — in KV
      and all workers obey it, so nobody leaves a peer stranded inside
@@ -37,17 +41,22 @@ Lifecycle, per membership epoch:
 Scale-up: the launcher starts another worker process; its registration
 bumps the membership epoch, rank 0 notices and publishes ``reshard``.
 Scale-down: SIGTERM; the worker sets a leaving flag but KEEPS stepping
-until rank 0 publishes ``reshard`` (graceful drain), then deregisters
-and exits 0. Crash: a failed all-reduce raises before the optimizer
-touches anything, so the survivors hold the last completed step; they
+until rank 0 publishes ``reshard`` (graceful drain), then deregisters,
+lingers serving its RAM snapshot to the new world (bounded by
+``p2p_linger_s``) and exits 0 — so a job can move to a disjoint set of
+workers without reading its checkpoint back from storage. Crash: a
+failed all-reduce raises before the optimizer touches anything, so the
+survivors hold the last completed step; they
 nack their task, persist that state solo when it is newer than the last
 commit, wait for the coordinator to reap the dead peer, and regroup.
 
+Each worker serves its current RAM snapshot from one shard server
+(``EDL_P2P=1``, the default, as the reference's; ``EDL_P2P=0`` turns
+the plane off and every restore reads the commit). Under dp each
+worker holds whole leaves, so one peer's pieces tile the state.
+
 Not ported yet: meshes other than dp and several devices a process
-(ROADMAP Queue A item 2b) raise at start; so does ``EDL_P2P=1``, the
-peer-to-peer shard plane (item 6's next slice): set ``EDL_P2P=0``. Under
-dp a joiner restores from the commit every reshard writes, so the
-protocol is whole without it.
+(ROADMAP Queue A item 2b) raise at start.
 
 Run as ``python -m edl_tpu_torch.runtime.worker_main`` with the EDL_*
 env contract (``WorkerConfig.from_env``).
@@ -76,6 +85,9 @@ log = kv_logger("worker")
 
 _POLL_S = 0.02
 _T_MAIN = time.time()  # the boot's first stamp: this module's import
+# log a digest of the state each p2p restore brings up and each leaver
+# serves (its cost is a hash of the whole state, so only on request)
+_DIGESTS = os.environ.get("EDL_P2P_DIGEST", "0") == "1"
 
 
 def _emit_worker_event(kind: str, worker: str, severity: str = "info",
@@ -123,6 +135,16 @@ def _param_digest(snap) -> str:
     return h.hexdigest()
 
 
+def _state_digest(snap) -> str:
+    """Digest of every piece of a snapshot (params, moments, steps)."""
+    h = hashlib.blake2b(digest_size=16)
+    for key in sorted(snap.pieces):
+        h.update(key.encode())
+        for _, arr in snap.pieces[key]:
+            h.update(np.ascontiguousarray(arr).view(np.uint8))
+    return h.hexdigest()
+
+
 def _snap_bytes(snap) -> int:
     return sum(a.nbytes for ps in snap.pieces.values() for _, a in ps)
 
@@ -131,6 +153,7 @@ class ElasticWorker:
     def __init__(self, cfg: WorkerConfig):
         from edl_tpu_torch.runtime.epoch_gc import EpochKeyGC
         from edl_tpu_torch.runtime.eval_hook import ExportEvaluator
+        from edl_tpu_torch.runtime.p2p_restore import P2PRestorePlane
 
         self.cfg = cfg
         self.client = CoordinatorClient(cfg.coord_host, cfg.coord_port, 30.0)
@@ -143,6 +166,12 @@ class ElasticWorker:
         self._model_meta = None
         self._device = None
         self._gc = EpochKeyGC()
+        # p2p shard plane brokering (server lifecycle, roster, restore
+        # decision, veto, drain-window linger): runtime/p2p_restore.py
+        self._p2p = P2PRestorePlane(cfg, self._k, self._gc,
+                                    lambda: self._ram_snapshot)
+        self._like = None  # the state's structure template (meta device)
+        self._restored_from = None  # how the last restore happened
         self._eval = ExportEvaluator(cfg, self._k)
         self._incarnation = 0
         self._restore_failures = 0
@@ -302,17 +331,37 @@ class ElasticWorker:
             return epoch, me.rank, world, addr, members
 
     # -- state placement -----------------------------------------------------
-    def _restore_state(self, wl, tx):
-        """Committed sharded checkpoint (+RAM pieces when the step
+    def _restore_state(self, wl, tx, cl=None, epoch=0, rank=0, members=()):
+        """P2P peer pieces (rank-0-brokered decision; newest covered
+        step) > committed sharded checkpoint (+RAM pieces when the step
         matches) > complete RAM snapshot (no ckpt dir) > fresh init. All
-        processes restore the same step: the manifest is the agreed
-        truth, so a survivor whose RAM ran ahead rolls back with
-        everyone else."""
+        processes restore the same step: the decision key / the manifest
+        is the agreed truth, so a survivor whose RAM ran ahead rolls back
+        with everyone else."""
+        import torch
+
         from edl_tpu_torch.runtime import checkpoint as ckpt
         from edl_tpu_torch.train.trainer import TrainState
 
         manifest = (ckpt.latest_manifest(self.cfg.ckpt_dir)
                     if self.cfg.ckpt_dir else None)
+        if self.cfg.p2p and cl is not None:
+            if self._like is None:
+                self._like = ckpt.template_state(
+                    wl.init_params(torch.device("cpu")), tx)
+            state = self._p2p.restore(cl, epoch, rank, members, self._like,
+                                      tx, manifest, self._ram_snapshot,
+                                      device=self._device)
+            if state is not None:
+                self._restored_from = f"p2p:{state.step}"
+                if _DIGESTS:
+                    log.info("p2p state", step=state.step,
+                             state_digest=_state_digest(
+                                 ckpt.snapshot_local(state)))
+                return state
+        self._restored_from = "disk" if manifest is not None else (
+            "ram" if self._ram_snapshot is not None
+            and self._ram_snapshot.is_complete() else "fresh")
         if manifest is not None:
             t0 = time.perf_counter()
             state = ckpt.load_sharded(self.cfg.ckpt_dir, tx,
@@ -528,12 +577,6 @@ class ElasticWorker:
         from edl_tpu_torch.parallel.mesh import check_dp_only
 
         check_dp_only(cfg.mesh)
-        if cfg.p2p:
-            raise NotImplementedError(
-                "EDL_P2P=1: the peer-to-peer shard plane (shard_server, "
-                "p2p_restore) is not ported yet (ROADMAP Queue A item 6); "
-                "set EDL_P2P=0 — under dp a joiner restores from the "
-                "commit every reshard writes")
         import torch  # the boot's import stage
 
         from edl_tpu_torch.parallel.mesh import process_device
@@ -570,6 +613,9 @@ class ElasticWorker:
 
         if self._leaving:  # SIGTERM during startup: never joined
             return 0
+        # serve our host-RAM snapshot to peers (the p2p reshard data
+        # plane), published before registration
+        self._p2p.start(self.client)
         ctx = entrypoint.bootstrap(self.client)
         self._incarnation = ctx.incarnation
         log.info("boot", worker=cfg.worker_id, main=_T_MAIN,
@@ -684,10 +730,13 @@ class ElasticWorker:
             mesh = plan.build([self._device])
             self._local_rows = cfg.per_device_batch * plan.batch_shards() // world
             try:
-                state = self._restore_state(wl, tx)
-            except (OSError, ValueError, KeyError) as e:
-                # a torn read of a checkpoint another epoch is reaping:
-                # bump our incarnation so everyone regroups
+                state = self._restore_state(wl, tx, cl=cl, epoch=epoch,
+                                            rank=rank, members=members)
+            except (OSError, ValueError, KeyError, RuntimeError) as e:
+                # a p2p source died between decision and fetch, the
+                # decision never came, or a torn read of a checkpoint
+                # another epoch is reaping: bump our incarnation so
+                # everyone regroups
                 self._restore_failures += 1
                 log.warn("state restore failed; regrouping", error=str(e),
                          failures=self._restore_failures)
@@ -703,7 +752,8 @@ class ElasticWorker:
                 continue
             self._restore_failures = 0
             log.info("restore done", epoch=epoch, step=state.step,
-                     dist_s=t_dist, t=time.time())
+                     dist_s=t_dist, source=self._restored_from,
+                     t=time.time())
             rmark = lambda n: self._k("restored", str(epoch), n)  # noqa: E731
             cl.kv_put(rmark(cfg.worker_id), "1")
             self._gc.defer_late(rmark(cfg.worker_id))
@@ -1053,6 +1103,13 @@ class ElasticWorker:
         cl.release_worker(self.cfg.worker_id)
         cl.leave(self.cfg.worker_id)
         cl.kv_del(self._k("leaving", self.cfg.worker_id))
+        snap = self._ram_snapshot
+        if self.cfg.p2p and snap is not None:
+            log.info("lingering", step=snap.step, t=time.time(),
+                     **({"state_digest": _state_digest(snap)}
+                        if _DIGESTS else {}))
+        self._p2p.linger(cl)
+        log.info("departed", t=time.time())
         return code
 
 
@@ -1067,7 +1124,7 @@ def main(argv=None) -> int:
         description="elastic worker entrypoint of the PyTorch port; "
         "configured via the EDL_* environment contract (EDL_JOB_NAME, "
         "EDL_COORDINATOR, EDL_WORKER_ID, EDL_WORKERS_MIN/MAX, "
-        "EDL_LOCAL_DEVICES, EDL_P2P=0, ...)",
+        "EDL_LOCAL_DEVICES, EDL_P2P, ...)",
     ).parse_args(argv)
     from edl_tpu_torch.utils.logging import configure
 

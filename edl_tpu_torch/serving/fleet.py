@@ -39,9 +39,10 @@ orchestration logic runs in tier-1 without booting an engine.
 
 The PyTorch port's copy of ``edl_tpu/serving/fleet.py``. A replica is
 ``python -m edl_tpu_torch fleet --replica`` on ``ReplicaSpec.device``
-(the card unless the spec says ``cpu``). The p2p warm start
-(``--warm-from p2p``, the reference's ``elasticity/weightpush.py``) is
-not ported yet: the replica verb refuses it. One repair against the
+(the card unless the spec says ``cpu``). With ``warm_from="p2p"`` a
+replica pulls its weights and architecture from the shard server at
+``warm_addr`` (``elasticity/weightpush.py``) and exits non-zero when it
+cannot. One repair against the
 reference: :class:`ServingFleet` skips a swap or scale-down residual
 whose request a ``generate`` call is still attached to or has already
 finished (the reference checks only the router's own attachment, so a
@@ -103,8 +104,7 @@ class ReplicaSpec:
     # the replica's device: the card unless a caller asks for the CPU
     # (the tests); a replica that cannot reach it exits, never falls back
     device: str = "cuda"
-    # p2p warm-start (the reference's elasticity/weightpush.py; not
-    # ported yet, the replica verb refuses it): replicas pull live
+    # p2p warm-start (elasticity/weightpush.py): replicas pull live
     # weights from a shard server at ``warm_addr`` instead of
     # cold-loading the export / seed-initializing
     warm_from: Optional[str] = None

@@ -627,13 +627,114 @@ def test_replica_spec_command_is_the_references_on_the_port():
     assert tfleet.ReplicaSpec(workdir="/w").device == "cuda"
 
 
-@pytest.mark.parametrize("argv", [
-    ["fleet", "--dryrun", "--warm-from", "p2p", "--warm-addr", "h:1"],
-    ["fleet", "--replica", "--dryrun", "--warm-from", "p2p"],
+_COUNTING_SITE = """
+from edl_tpu_torch.ops import flash_attention as fa
+
+_plain = fa.flash_attention_ref
+
+
+def _counting(q, k, v, causal=True, block_q=512, block_k=1024):
+    fa._launched("flash_fwd")
+    return _plain(q, k, v, causal, block_q, block_k)
+
+
+fa.flash_attention_ref = _counting
+"""
+
+
+def test_warm_started_replicas_serve_the_in_process_engines_tokens(
+        tmp_path, monkeypatch):
+    """chip_smoke.py's warm handover on the CPU at LlamaConfig.tiny: a
+    fleet of ``fleet --replica --dryrun --device cpu --warm-from p2p``
+    replicas warm-started from a weight push, one day -> night cycle of
+    the lease controller (a grant to serving, a recall back, lease
+    conservation after every tick), every request with the in-process
+    engine's tokens on the pushed weights, the pulled tree equal to the
+    pushed one, and each replica's launches (the plain forward counted
+    as the kernel, in the replicas through a sitecustomize) equal to its
+    prefills x layers."""
+    (tmp_path / "site").mkdir()
+    (tmp_path / "site" / "sitecustomize.py").write_text(_COUNTING_SITE)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(tmp_path / "site"), ROOT]))
+    cs = _chip_smoke()
+    c = dict(cs.WARM, max_len=64, prompt=(9, 17), max_new=6,
+             requests=(2, 2, 1))
+    row = cs.warm_handover("cpu", device="cpu", c=c, cfg=TCFG)
+    assert all(row["gates"].values()), row["gates"]
+    assert [h["direction"] for h in row["handovers"]] == ["to_serve",
+                                                          "to_train"]
+    assert row["elasticity_grant_ready_s"] > 0
+    assert row["elasticity_warm_fetch_s"] > 0 < row["elasticity_cold_load_s"]
+    assert sum(row["replica_prefills"].values()) == 5
+    assert row["primal_launches"] == 5 * TCFG.n_layers
+
+
+def test_the_fleet_verb_warm_starts_its_replicas_from_a_push(tmp_path):
+    """``fleet --dryrun --device cpu --warm-from p2p --warm-addr A``: the
+    demo's replicas pull a push of seed-7 weights (the reference's demo
+    ignores the two flags and boots cold replicas) and serve every
+    request."""
+    from edl_tpu_torch.elasticity import weightpush as twp
+
+    params = tl.init_params(TCFG, seed=7, device="cpu")
+    srv = twp.serve_params(params, TCFG.to_meta())
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "edl_tpu_torch", "fleet", "--dryrun",
+             "--device", "cpu", "--replicas", "1", "--requests", "4",
+             "--warm-from", "p2p", "--warm-addr", f"127.0.0.1:{srv.port}",
+             "--workdir", str(tmp_path)],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=ROOT))
+    finally:
+        srv.close()
+    assert out.returncode == 0, out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["ok"] is True and report["outcomes"] == {"done": 4}
+    log = open(tmp_path / "r0.log").read()
+    assert f"warm from 127.0.0.1:{srv.port}" in log
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["fleet", "--dryrun", "--warm-from", "p2p"], "needs --warm-addr"),
+    (["fleet", "--replica", "--dryrun", "--warm-from", "p2p"],
+     "needs --warm-addr"),
 ])
-def test_fleet_warm_from_p2p_is_not_ported_yet(argv, capsys):
+def test_fleet_warm_from_p2p_needs_an_address(argv, err, capsys):
     assert tmain(argv) == 1
-    assert "not ported yet" in capsys.readouterr().err
+    assert err in capsys.readouterr().err
+
+
+def test_a_replica_that_cannot_warm_start_exits_non_zero(tmp_path):
+    """No cold-init fallback: a replica whose push is gone exits 1 with
+    the reference's message; one whose peer's architecture document is
+    no llama's too."""
+    import socket
+
+    from edl_tpu_torch.elasticity import weightpush as twp
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    dead = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    srv = twp.serve_params({"w": torch.zeros(2)}, {"family": "llama"})
+    cases = ((dead, "p2p warm-start from"),
+             (f"127.0.0.1:{srv.port}", "no llama architecture"))
+    try:
+        for addr, err in cases:
+            out = subprocess.run(
+                [sys.executable, "-m", "edl_tpu_torch", "fleet", "--replica",
+                 "--dryrun", "--device", "cpu", "--warm-from", "p2p",
+                 "--warm-addr", addr, "--port-file",
+                 str(tmp_path / "p.json")],
+                cwd=ROOT, capture_output=True, text=True, timeout=120,
+                env=dict(os.environ, PYTHONPATH=ROOT))
+            assert out.returncode == 1, out.stderr[-2000:]
+            assert err in out.stderr
+            assert not (tmp_path / "p.json").exists()
+    finally:
+        srv.close()
 
 
 def test_fleet_verb_swaps_under_traffic_on_the_cpu(tmp_path):

@@ -443,8 +443,12 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     assert len(files) > 15
     runtime = os.path.join(ROOT, "edl_tpu_torch", "runtime")
     for name in ("worker_main", "launcher", "dist_service", "coordinator",
-                 "workloads", "entrypoint"):
+                 "workloads", "entrypoint", "shard_server", "p2p_restore"):
         assert os.path.join(runtime, f"{name}.py") in files
+    elasticity = os.path.join(ROOT, "edl_tpu_torch", "elasticity")
+    for name in ("__init__", "weightpush", "broker", "controller",
+                 "distbroker", "holder"):
+        assert os.path.join(elasticity, f"{name}.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

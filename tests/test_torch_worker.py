@@ -622,7 +622,6 @@ def test_process_device_zero_is_the_card_and_never_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("env,match", [
-    ({"EDL_P2P": "1", "EDL_LOCAL_DEVICES": "1"}, "EDL_P2P=0"),
     ({"EDL_P2P": "0", "EDL_MESH": "fsdp", "EDL_LOCAL_DEVICES": "1"},
      "item 2b"),
     ({"EDL_P2P": "0", "EDL_LOCAL_DEVICES": "2"}, "item 2b"),
@@ -636,6 +635,28 @@ def test_worker_refuses_what_is_not_ported_yet(server, env, match):
     cl = server.client()
     assert "wx" not in [m.name for m in cl.members()]  # never joined
     cl.close()
+
+
+def test_a_dp_job_migrates_to_disjoint_workers_from_peers_ram():
+    """chip_smoke.py's p2p migration on the CPU (CTR at vocab 4096): w000
+    and w001 train, then w002 and w003 start while both originals drain
+    (SIGTERM); the new world restores from the leavers' RAM over the
+    shard plane — ``restore_last`` is ``p2p:``, no shard file is read,
+    the state it brings up is the leavers' last snapshot by digest — and
+    finishes the queue with exact accounting."""
+    import chip_smoke
+
+    c = dict(chip_smoke.P2P_MIGRATION, vocab=4096, per_device_batch=64,
+             tasks=200, linger_s=60.0, timeout_s=240)
+    row = chip_smoke.p2p_migration("cpu", device="cpu", c=c)
+    assert all(row["gates"].values()), row["gates"]
+    assert row["kv"]["restore_last"] == f"p2p:{row['leavers_step']}"
+    assert row["queue"] == {"todo": 0, "leased": 0, "done": 200, "dead": 0,
+                            "epoch": 0}
+    assert set(row["exit_codes"].values()) == {0}
+    for w in ("w002", "w003"):
+        assert row["pieces_read"][w]["disk"] == 0
+        assert row["restore_bytes"][w] > 0
 
 
 def test_the_step_factories_take_the_reference_signature():
