@@ -300,9 +300,22 @@
    victim's just before the kill), the loadgen verb's measured replay's
    from its recorded history; each equals its prefills x 16. Each
    replica's boot is split into stages (its log's boot stamps between
-   the supervisor's spawn and ready events). The largest prefill
-   of (a) and (b), B1 T64 H16 KV8 causal, is held to its plain version
-   after the phase. Prints each part's seconds.
+   the supervisor's spawn and ready events). While the loadgen verb
+   serves, ``top ENDPOINT --polls 1`` exits 0 and ``profile ENDPOINT
+   --json`` reports non-zero ``edl_mfu`` for the engine's phases
+   (prefill and decode: the engine's labels in both packages) and the
+   ledger's ``kv`` bytes; after it ``watch D --once --json`` exits with
+   its page count and prints the reference's keys, and ``export-status
+   EXPORT`` prints the reference's line. Then ``generate EXPORT
+   --prompt <512 ids, seed 11> --max-new 32`` and the same with
+   ``--int8``, both processes at once: each verb's greedy tokens equal
+   ``llama.generate`` in this process on what the verb's loader
+   (``_load_llama_serving``) reads from the export, and that generate
+   launches ``flash_fwd`` exactly 16 times (1 prefill x 16 layers, the
+   decode ladder's B1 T512 shape) and no other kernel; prints the
+   verbs' wall seconds and the in-process tokens/s. The largest
+   prefill of (a) and (b), B1 T64 H16 KV8 causal, is held to its plain
+   version after the phase. Prints each part's seconds.
 
 Elastic phase (after ``ctr``; runs no flash kernel): the elastic process
 runtime (``runtime/{launcher,worker_main,dist_service}``) on the card.
@@ -325,6 +338,30 @@ world restored — the workers run the p2p shard plane, the reference's
 default), w000's and the joiner's boots by stage, the commits' seconds
 and bytes, examples/s and the all-reduce's share of a step per epoch,
 and each process's peak memory.
+Beside the job runs the fleet's read side: the workers push every
+second (``EDL_METRICS_PUSH_S=1``, 512 spans a push) and
+``coordinator_main.serve_fleet`` over the launcher's client serves the
+fleet's ``/metrics``, ``/events`` and ``/trace`` and appends the union
+to a history every second under the default alert rules. In each steady
+window (2, 3, 2, 1 workers) ``/metrics`` labels the step histogram with
+exactly the live members and carries ``dist_service``'s series, each
+worker's counters equal its raw snapshot read in the same pass,
+``/events`` is labeled by worker and ordered on the corrected clock,
+and with 2+ workers ``/trace`` holds 2+ workers and flow links. After
+the grow: the ``trace`` verb's critical path of the grow's reshard
+epoch (the restore spans under the derived reshard root) and, in the
+3-worker window, of the newest step whose ``train.step`` span every
+member's window holds (``trace URL --step S --assert-critical-path
+--json`` through the verb's entry in this process, so its scrape
+follows the window it was chosen from), every member's ``worker.join`` of the grow epoch, and
+``top URL --polls 1``. At the end ``job-status`` shows the queue done
+with none dead and the job's reshard count, and two replays of the
+fleet history by ``watch --once --json`` exit 0 with the same
+document. Then ``coordinator_main`` as a process: a pushed series
+carries ``worker="smoke0"`` on its ``/metrics``, its history gets
+appends, SIGTERM ends it with 0. Prints the skew ratio each window, the
+grow epoch's barrier waits, both critical paths (hops, total, longest
+hop) and each scrape's seconds (``elastic_fleet`` row).
 
 P2p phase (after ``elastic``): the peer-to-peer shard plane and the
 chip-lease plane, one JSON line. (a) Migration: the elastic phase's CTR
@@ -936,8 +973,15 @@ def obs_phase(card, params, cfg, slice_tps):
     the replay is printed: bf16 recovery is not bit-exact); the scrape
     of ``/metrics``
     parses and declares every core family, ``/trace`` holds the
-    ``serving.*`` spans and ``/events?rid=`` that request's events.
-    Returns the replay's flash launches."""
+    ``serving.*`` spans and ``/events?rid=`` that request's events; the
+    flight recorder's dump of the warm run and the replay passes
+    ``postmortem DUMP --assert-no-incidents``, and its dump of the fault
+    plan's run alone ``postmortem DUMP --assert-recovered`` (the fault
+    -> recover -> re-prefill -> finish chains). Returns the replay's
+    flash launches."""
+    import shutil
+    import tempfile
+
     import torch
 
     from edl_tpu_torch import obs
@@ -1047,11 +1091,33 @@ def obs_phase(card, params, cfg, slice_tps):
     finally:
         exporter.stop()
         tracing.tracer().remove_listener(listener)
+    # the fault-free timeline (the warm run and the replay) for the
+    # postmortem verb; the fault plan's run records alone after it
+    pm_dir = tempfile.mkdtemp(prefix="edl_postmortem_")
+    clean_dump = os.path.join(pm_dir, "replay.jsonl")
+    rec.dump(clean_dump)
+    rec.clear()
     # the fault plan: recovery re-prefills from prompt + generated
     fault_eng, got, counts = _obs_serve(params, cfg, ServingMetrics(
         registry=om.MetricsRegistry()), "o", plan=OBS_FAULT_PLAN)
     recoveries = fault_eng.recoveries
     del fault_eng
+    fault_dump = os.path.join(pm_dir, "faults.jsonl")
+    rec.dump(fault_dump)
+    postmortem = {}
+    try:
+        for name, path, flag in (
+                ("replay", clean_dump, "--assert-no-incidents"),
+                ("fault_plan", fault_dump, "--assert-recovered")):
+            out, secs = _run_verb(["postmortem", path, flag])
+            if "postmortem assertions OK" not in out:
+                raise AssertionError(f"postmortem {flag}: {out[-2000:]}")
+            with open(path) as f:
+                n_events = sum(1 for _ in f) - 1  # the meta line
+            postmortem[name] = {"assert": flag, "events": n_events,
+                                "seconds": secs}
+    finally:
+        shutil.rmtree(pm_dir, ignore_errors=True)
     if counts != {"serve.dispatch": 1, "serve.drain": 1} or not recoveries:
         raise AssertionError(f"fault plan fired {counts}, {recoveries} "
                              "recoveries")
@@ -1092,6 +1158,7 @@ def obs_phase(card, params, cfg, slice_tps):
                    "held_over_growth_minus_1": held / grown - 1.0},
         "crosscheck": crosscheck, "fault_plan": OBS_FAULT_PLAN,
         "faults": counts, "recoveries": recoveries,
+        "postmortem": postmortem,
         "replay_equals_warm": True,
         "faulted_tokens_equal": not diverged,
         "faulted_first_divergence": diverged,
@@ -2717,9 +2784,11 @@ def ctr_phase(card, profile: bool):
 # a joiner boots for 15-30 s); 1024 leave margin, and the last worker a
 # tail of 5-8 ms steps. The phase fails if the queue runs low before an
 # event.
-ELASTIC = {"vocab": 2 ** 20, "per_device_batch": 4096, "tasks": 1024,
+# tasks: 1536 since the fleet windows (below) run while the job steps
+ELASTIC = {"vocab": 2 ** 20, "per_device_batch": 4096, "tasks": 1536,
            "ckpt_every": 100, "gap_steps": 20, "member_ttl_s": 3.0,
-           "lease_timeout_s": 10.0, "eval_rows": 4096, "timeout_s": 600}
+           "lease_timeout_s": 10.0, "eval_rows": 4096, "timeout_s": 600,
+           "push_s": 1.0}
 # the dp step check: 2 gloo processes on the card vs this process, CTR
 # at 2^20, 2 x 4096 rows, 3 SGD steps, the last ragged (rank 1 all
 # _w = 0). SGD's update is linear in the gradient, so the params differ
@@ -2733,6 +2802,14 @@ ELASTIC_PARAM_ATOL = 1e-6
 ELASTIC_LOSS_ATOL = 1e-5
 ELASTIC_AUC_MIN = 0.55  # the reference test's bar (tests/test_multiproc.py)
 _KV = re.compile(r"(\w+)=('(?:[^'\\]|\\.)*'|\S+)")
+# the fleet read side beside the job: coordinator_main's supervised body
+# (serve_fleet) over the launcher's client, its history appended every
+# FLEET_WATCH_S; each steady window waits at most FLEET_WAIT_S for the
+# fleet's /metrics to label exactly the live members (a joiner's first
+# push) in a pass whose snapshots did not change while it was scraped
+FLEET_WATCH_S = 1.0
+FLEET_WAIT_S = 20.0
+FLEET_VERB_TIMEOUT_S = 120
 
 
 def _log_records(text, msg):
@@ -2771,13 +2848,16 @@ def _elastic_steady(launcher, c):
                              f"before the schedule's next event")
 
 
-def _elastic_event(launcher, c, n_reshards, act, last=False):
+def _elastic_event(launcher, c, n_reshards, act, last=False, then=None):
     """Fire one membership event and wait until the regrouped job is
     steady again (after the ``last`` event: until it has taken
-    ``gap_steps`` steps); the wall time it fired at."""
+    ``gap_steps`` steps); the wall time it fired at. ``then()`` runs once
+    the job has counted the reshard, before the wait for steady steps."""
     t = time.time()
     act()
     _elastic_wait(launcher, "reshards", n_reshards, c["timeout_s"])
+    if then is not None:
+        then()
     if last:
         launcher.wait_progress(launcher.progress() + c["gap_steps"],
                                timeout_s=c["timeout_s"])
@@ -2871,6 +2951,321 @@ def _boot_stages(log, stats, spawned):
             "total_s": first - spawned}
 
 
+def _checkout_env():
+    """(this checkout's directory, the environment a process started
+    from it runs with: the checkout first on PYTHONPATH)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return here, dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p))
+
+
+def _run_verb(args, expect=0, timeout=FLEET_VERB_TIMEOUT_S):
+    """``python -m edl_tpu_torch ARGS`` from this checkout: (stdout,
+    seconds). Raises with its stderr unless it exits ``expect``."""
+    here, env = _checkout_env()
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "edl_tpu_torch", *args],
+                         cwd=here, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    if out.returncode != expect:
+        raise AssertionError(f"{' '.join(args[:2])} exited "
+                             f"{out.returncode}, not {expect}: "
+                             f"{out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t
+
+
+def _trace_verb(url, *flags):
+    """``trace URL FLAGS --assert-critical-path --json`` through the
+    verb's entry (``edl_tpu_torch.cli.main``, what ``python -m
+    edl_tpu_torch`` runs) in this process, so its scrape of the fleet's
+    ``/trace`` follows the one the filter was chosen from by
+    milliseconds. Its document; raises unless it exits 0 with a hop."""
+    import contextlib
+    import io
+
+    from edl_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["trace", url, *flags, "--assert-critical-path",
+                       "--json"])
+    docs = [ln for ln in out.getvalue().splitlines()
+            if ln.startswith('{"hops"')]
+    if rc != 0 or not docs or not json.loads(docs[-1])["hops"]:
+        raise AssertionError(f"trace {' '.join(flags)} exited {rc}: "
+                             f"{err.getvalue()[-2000:]}")
+    hops = json.loads(docs[-1])["hops"]
+    longest = max(hops, key=lambda h: h["dur_s"])
+    return {"hops": len(hops), "total_s": sum(h["dur_s"] for h in hops),
+            "longest_hop": longest["name"], "longest_hop_s": longest["dur_s"],
+            "longest_hop_worker": longest["worker"],
+            "workers": sorted({h["worker"] for h in hops})}
+
+
+def _reshard_path(url, world, timeout_s):
+    """Once the fleet's ``/trace`` holds a regroup's restore spans at
+    ``world`` workers (the ``worker.restore`` span under the derived
+    reshard root), the critical path of that reshard epoch through the
+    ``trace`` verb: (epoch, workers with restore spans, path)."""
+    from edl_tpu_torch.obs.exporter import scrape
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        doc = json.loads(scrape(url, "/trace"))
+        eps = {}
+        for e in doc["traceEvents"]:
+            if e.get("ph") == "X" and e["name"] == "worker.restore" \
+                    and e["args"].get("world") == world:
+                eps.setdefault(e["args"]["reshard_epoch"], set()).add(
+                    e["args"]["worker"])
+        if eps:
+            ep = max(eps)
+            return ep, sorted(eps[ep]), _trace_verb(
+                url, "--reshard-epoch", str(ep))
+        if time.monotonic() > deadline:
+            raise AssertionError(f"elastic fleet: no restore span at "
+                                 f"world {world} in /trace")
+        time.sleep(0.1)
+
+
+def _fleet_window(launcher, url, world, grow_epoch=None):
+    """One steady window's read of the fleet endpoint. Gates, met by
+    one pass within FLEET_WAIT_S: ``/metrics`` labels
+    ``edl_train_step_seconds`` with exactly the live members (``world``
+    of them) and carries ``dist_service``'s series, the raw snapshots
+    ({job}/metrics/{worker}) did not change while it was scraped, and
+    with 2+ workers ``/trace`` holds spans from 2+ workers with flow
+    links (with ``grow_epoch``: and a step whose ``train.step`` span
+    every member's window holds).
+    Then each worker's counters in that union equal its
+    snapshot's, and ``/events`` is labeled by worker and ordered by the
+    corrected wall clock. With ``grow_epoch``: every member's
+    ``worker.join`` of that epoch is in ``/events``, it is the newest
+    epoch joined (the one the barrier gauge reads), and the critical
+    path of the newest such step comes out of the ``trace`` verb.
+    Returns the window's figures."""
+    from edl_tpu_torch.obs import events as flight
+    from edl_tpu_torch.obs import fleet
+    from edl_tpu_torch.obs import metrics as om
+    from edl_tpu_torch.obs.exporter import scrape
+
+    cl, job = launcher.client, launcher.job
+    deadline = time.monotonic() + FLEET_WAIT_S
+    while True:
+        members = sorted(m.name for m in cl.members())
+        raw = {w: cl.kv_get(fleet.metrics_key(job, w)) for w in members}
+        t = time.perf_counter()
+        text = scrape(url)
+        metrics_s = time.perf_counter() - t
+        again = {w: cl.kv_get(fleet.metrics_key(job, w)) for w in members}
+        t = time.perf_counter()
+        doc = json.loads(scrape(url, "/trace"))
+        trace_s = time.perf_counter() - t
+        fams = om.parse_prometheus_text(text)
+        labeled = sorted({lb.get("worker") for lb, _ in
+                          fams.get("edl_train_step_seconds_count", ())})
+        sources = {lb.get("worker") for samples in fams.values()
+                   for lb, _ in samples}
+        workers = [w for w in doc["workers"] if w != "coordinator"]
+        # each worker's window is its newest spans as of its last push:
+        # the workers' pushes interleave, so a link needs a step that
+        # both windows still hold
+        linked = world < 2 or (len(workers) >= 2 and doc["flow_links"] > 0)
+        steps = {}  # the steps whose train.step span a worker's window holds
+        for e in doc["traceEvents"]:
+            if e.get("ph") == "X" and e["name"] == "train.step":
+                steps.setdefault(e["args"]["worker"], set()).add(
+                    e["args"]["step"])
+        common = set.intersection(*(steps.get(w, set()) for w in members))
+        if grow_epoch is not None and not common:
+            linked = False  # no step every member's window holds yet
+        if raw == again and len(members) == world and labeled == members \
+                and "dist_service" in sources and linked:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"elastic fleet: /metrics labels {labeled} (sources "
+                f"{sorted(map(str, sources))}) for members {members}, "
+                f"want {world} and dist_service; /trace has workers "
+                f"{workers}, {doc['flow_links']} flow links, steps in "
+                f"every member's window: {sorted(common)[-3:]}")
+        time.sleep(0.2)
+    for w, snap in raw.items():
+        for fam in json.loads(snap)["families"]:
+            if fam["kind"] != "counter":
+                continue
+            for smp in fam["samples"]:
+                labels = dict(zip(fam["labelnames"], smp["labels"]),
+                              worker=w)
+                got = [v for lb, v in fams.get(fam["name"], ())
+                       if lb == labels]
+                if got != [float(smp["value"])]:
+                    raise AssertionError(
+                        f"elastic fleet: {fam['name']}{labels} is {got} in "
+                        f"the union, {smp['value']} in {w}'s snapshot")
+    t = time.perf_counter()
+    evs = [json.loads(x) for x in scrape(url, "/events").splitlines()]
+    events_s = time.perf_counter() - t
+    stamps = [e["t_wall"] for e in evs]
+    if not evs or stamps != sorted(stamps) or any(
+            not (e.get("corr") or {}).get("worker") for e in evs):
+        raise AssertionError("elastic fleet: /events is empty, unlabeled "
+                             "or out of order")
+    one = lambda name: [v for _, v in fams.get(name, ())]  # noqa: E731
+    row = {"world": world, "members": members,
+           "skew_ratio": one("edl_step_skew_ratio"),
+           "reporting_workers": one("edl_fleet_reporting_workers"),
+           "scrape_s": {"metrics": metrics_s, "events": events_s,
+                        "trace": trace_s},
+           "events": len(evs), "trace_workers": workers,
+           "trace_spans": sum(1 for e in doc["traceEvents"]
+                              if e.get("ph") == "X"),
+           "flow_links": doc["flow_links"],
+           # straggler_pass runs in this process (the fleet's scrapes and
+           # appends): its straggler.detected events so far
+           "straggler_events": flight.default_recorder().counts().get(
+               "straggler.detected", 0)}
+    if grow_epoch is not None:
+        joins = {}
+        for e in evs:
+            if e["kind"] == "worker.join":
+                joins.setdefault(e["attrs"]["epoch"], set()).add(
+                    e["corr"]["worker"])
+        if joins.get(grow_epoch) != set(members) or max(joins) != grow_epoch:
+            raise AssertionError(f"elastic fleet: joins by epoch {joins}, "
+                                 f"want {members} at {grow_epoch}")
+        row["barrier_wait_s"] = {
+            lb["worker"]: v
+            for lb, v in fams.get("edl_barrier_wait_seconds", ())}
+        if sorted(row["barrier_wait_s"]) != members:
+            raise AssertionError(f"elastic fleet: barrier waits "
+                                 f"{row['barrier_wait_s']}")
+        row["step"] = max(common)
+        row["step_critical_path"] = _trace_verb(url, "--step",
+                                                str(row["step"]))
+    return row
+
+
+def _flight_records(kind):
+    """This process's flight-recorder records of ``kind``."""
+    from edl_tpu_torch.obs import events as flight
+
+    return flight.default_recorder().records(kind)
+
+
+def _start_fleet(launcher, tsdb_dir):
+    """coordinator_main's supervised body (``serve_fleet``) over the
+    launcher's client in a thread: the fleet's ``/metrics``, ``/events``
+    and ``/trace`` on an ephemeral port, the aggregated snapshot
+    appended to ``tsdb_dir`` every FLEET_WATCH_S with the default alert
+    rules. Returns (url, stop); ``stop()`` ends it and re-raises what
+    ended it early."""
+    import threading
+
+    from edl_tpu_torch.runtime import coordinator_main
+
+    stop, ready, got = threading.Event(), threading.Event(), {}
+
+    def announce(url):
+        got["url"] = url
+        ready.set()
+
+    def run():
+        try:
+            coordinator_main.serve_fleet(
+                launcher.client, launcher.job, 0, tsdb_dir=tsdb_dir,
+                watch_interval=FLEET_WATCH_S, stop=stop, announce=announce)
+        except BaseException as e:  # handed to the phase by stop()
+            got["error"] = e
+            ready.set()
+
+    th = threading.Thread(target=run, name="fleet-endpoint", daemon=True)
+    th.start()
+    ready.wait(30)
+
+    def close():
+        stop.set()
+        th.join(30)
+        if "error" in got:
+            raise got["error"]
+
+    if "url" not in got:
+        close()
+        raise AssertionError("the fleet endpoint did not come up")
+    return got["url"], close
+
+
+def _coordinator_process_check(workdir):
+    """``python -m edl_tpu_torch.runtime.coordinator_main --metrics-port
+    0 --tsdb-dir D --watch-interval 1`` as a process, with a
+    ``MetricsPusher`` here pushing a registry under the member
+    ``smoke0``. Gates: the bound-URL line, ``worker="smoke0"`` on the
+    pushed series in the scraped ``/metrics``, appends in D, and SIGTERM
+    ending the process with 0. Returns its figures."""
+    import signal
+    import socket
+
+    from edl_tpu_torch.obs import fleet
+    from edl_tpu_torch.obs import metrics as om
+    from edl_tpu_torch.obs.exporter import scrape
+    from edl_tpu_torch.obs.tsdb import TSDB
+    from edl_tpu_torch.runtime.coordinator import CoordinatorClient
+
+    here, env = _checkout_env()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    db = os.path.join(workdir, "coordinator_tsdb")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "edl_tpu_torch.runtime.coordinator_main",
+         "--port", str(port), "--metrics-port", "0", "--job", "smoke",
+         "--tsdb-dir", db, "--watch-interval", "1"],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        line = proc.stdout.readline()
+        up_s = time.perf_counter() - t0
+        m = re.match(r"coordinator on :(\d+); fleet metrics at (\S+)/metrics"
+                     r" \(fleet event log at /events, merged fleet trace at "
+                     r"/trace\)$", line.strip())
+        if not m or int(m.group(1)) != port:
+            raise AssertionError(f"coordinator_main printed {line!r}")
+        cl = CoordinatorClient("127.0.0.1", port)
+        cl.register("smoke0", 1)
+        reg = om.MetricsRegistry()
+        reg.counter("edl_train_examples_total", "rows").inc(4096)
+        key = fleet.metrics_key("smoke", "smoke0")
+        pusher = fleet.MetricsPusher(lambda v: cl.kv_put(key, v),
+                                     registry=reg)
+        if not pusher.push_once():
+            raise AssertionError("the push into coordinator_main failed")
+        text = scrape(m.group(2))
+        if 'edl_train_examples_total{worker="smoke0"} 4096' not in text:
+            raise AssertionError(f"coordinator_main /metrics: {text[:2000]}")
+        deadline = time.monotonic() + 15
+        while not (os.path.isdir(db) and TSDB(db).raw_times()):
+            if time.monotonic() > deadline or proc.poll() is not None:
+                raise AssertionError("coordinator_main appended no history")
+            time.sleep(0.1)
+        appends = len(TSDB(db).raw_times())
+        cl.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=30)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0:
+        raise AssertionError(f"coordinator_main exited {rc} on SIGTERM: "
+                             f"{proc.stderr.read()[-2000:]}")
+    return {"up_s": up_s, "appends": appends, "sigterm_rc": rc,
+            "seconds": time.perf_counter() - t0}
+
+
 def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
     """The elastic process runtime on the card (runtime/worker_main.py
     under runtime/launcher.py): the dp step check, then the CTR job at
@@ -2880,10 +3275,12 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
     start 2, grow to 3, drain back to 2 (SIGTERM), SIGKILL one, and
     finish on the last; each event waits for ``gap_steps`` more steps
     (:func:`_elastic_steady`)."""
+    import concurrent.futures
     import glob
     import tempfile
 
     from edl_tpu_torch.models import ctr
+    from edl_tpu_torch.obs.tsdb import TSDB
     from edl_tpu_torch.runtime import checkpoint as ckpt
     from edl_tpu_torch.runtime import shards
     from edl_tpu_torch.runtime.launcher import ProcessJobLauncher
@@ -2911,19 +3308,42 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
             export=True, member_ttl_s=c["member_ttl_s"],
             lease_timeout_s=c["lease_timeout_s"],
             extra_env={"EDL_VOCAB": str(c["vocab"]), "EDL_EVAL_DIR": eval_dir,
-                       "EDL_EVAL_MAX_ROWS": str(c["eval_rows"])})
+                       "EDL_EVAL_MAX_ROWS": str(c["eval_rows"]),
+                       "EDL_METRICS_PUSH_S": str(c["push_s"])})
+        fleet_tsdb = os.path.join(work, "fleet_tsdb")
         with launcher:
-            t0 = time.time()
-            launcher.start(2)
-            _elastic_steady(launcher, c)
-            events = [("grow 2->3", _elastic_event(
-                launcher, c, 1, lambda: launcher.scale_to(3)))]
-            events.append(("drain 3->2 (SIGTERM)", _elastic_event(
-                launcher, c, 2, lambda: launcher.scale_to(2))))
-            events.append(("kill w001 (SIGKILL) 2->1", _elastic_event(
-                launcher, c, 3, lambda: launcher.kill("w001"), last=True)))
-            rcs = launcher.wait(timeout_s=c["timeout_s"])
-            job_s = time.time() - t0
+            url, stop_fleet = _start_fleet(launcher, fleet_tsdb)
+            try:
+                t0 = time.time()
+                launcher.start(2)
+                _elastic_steady(launcher, c)
+                windows = [_fleet_window(launcher, url, 2)]
+                grow = {}
+
+                def reshard_path():
+                    grow.update(zip(("epoch", "restored", "path"),
+                                    _reshard_path(url, 3, c["timeout_s"])))
+
+                events = [("grow 2->3", _elastic_event(
+                    launcher, c, 1, lambda: launcher.scale_to(3),
+                    then=reshard_path))]
+                windows.append(_fleet_window(launcher, url, 3,
+                                             grow_epoch=grow["epoch"]))
+                top_out, top_s = _run_verb(["top", url, "--polls", "1"])
+                events.append(("drain 3->2 (SIGTERM)", _elastic_event(
+                    launcher, c, 2, lambda: launcher.scale_to(2))))
+                windows.append(_fleet_window(launcher, url, 2))
+                events.append(("kill w001 (SIGKILL) 2->1", _elastic_event(
+                    launcher, c, 3, lambda: launcher.kill("w001"),
+                    last=True)))
+                windows.append(_fleet_window(launcher, url, 1))
+                rcs = launcher.wait(timeout_s=c["timeout_s"])
+                job_s = time.time() - t0
+                status, _ = _run_verb(
+                    ["job-status", "elastic", "--coordinator",
+                     f"127.0.0.1:{launcher.server.port}"])
+            finally:
+                stop_fleet()
             logs = {w.worker_id: launcher.log_tail(w.worker_id, 10 ** 8)
                     for w in launcher.workers}
             hosts = {}
@@ -2938,6 +3358,13 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
             queue = launcher.client.queue_stats()
             manifest = ckpt.latest_manifest(launcher.ckpt_dir)
             pids = {w.worker_id: w.proc.pid for w in launcher.workers}
+        # the fleet's recorded history replayed twice by the watch verb
+        # (two processes at once)
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            (watch, watch_s), (replay, _) = pool.map(
+                _run_verb, [["watch", fleet_tsdb, "--once", "--json"]] * 2)
+        fleet_appends = len(TSDB(fleet_tsdb).raw_times())
+        coord_proc = _coordinator_process_check(work)
     # w000's first boot (beside w001's) and the joiner's (beside two
     # stepping workers)
     stalls, boots, commits, epochs, peaks = _elastic_report(
@@ -2967,6 +3394,13 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
                               for t in logs.values()),
         "digests": (kv["digest_mismatches"] is None
                     and int(kv["digests_agreed"] or 0) >= 1),
+        # the fleet read side (each window's gates raise in place)
+        "job_status": (f"todo=0 leased=0 done={c['tasks']} dead=0" in status
+                       and re.search(rf"^reshards\s+{kv['reshards']}$",
+                                     status, re.M) is not None),
+        "watch_replay": watch == replay and watch.strip() != "",
+        "fleet_history": fleet_appends >= 2,
+        "top": top_out.startswith(f"EDL TOP  {url}"),
     }
     row = {
         "phase": "elastic", "model": "ctr (bench.py:1124)",
@@ -2978,6 +3412,24 @@ def elastic_phase(card, device="cuda", c=ELASTIC, check=ELASTIC_CHECK):
         "exit_codes": rcs, "queue": queue, "kv": kv, "gates": gates,
         "card": card,
     }
+    watched = json.loads(watch.strip().splitlines()[-1])
+    fleet_row = {
+        "phase": "elastic_fleet", "push_s": c["push_s"], "windows": windows,
+        "grow_reshard": grow, "top_s": top_s,
+        "job_status": status.strip().splitlines(),
+        "fleet_history_appends": fleet_appends,
+        "watch": {"rules": len(watched["rules"]),
+                  "fired_total": watched["fired_total"],
+                  "pages": watched["pages"],
+                  "transitions": len(watched["transitions"]),
+                  "seconds": watch_s},
+        "coordinator_process": coord_proc,
+        "stragglers": [{**e["corr"], **e["attrs"]} for e in
+                       _flight_records("straggler.detected")],
+        "card": card,
+    }
+    print(json.dumps(fleet_row), flush=True)
+    row["fleet"] = fleet_row
     print(json.dumps(row), flush=True)
     if not all(gates.values()):
         bad = [k for k, v in gates.items() if not v]
@@ -4604,8 +5056,22 @@ SL_BYTECODE_MODULES = (
     # replicas' weight pull
     "edl_tpu_torch.runtime.shard_server",
     "edl_tpu_torch.runtime.p2p_restore",
-    "edl_tpu_torch.elasticity.weightpush")
+    "edl_tpu_torch.elasticity.weightpush",
+    # the operator verbs and the coordinator process
+    "edl_tpu_torch.obs.top", "edl_tpu_torch.obs.postmortem",
+    "edl_tpu_torch.obs.profile", "edl_tpu_torch.obs.alerts",
+    "edl_tpu_torch.runtime.coordinator_main")
 SL_BYTECODE_DIR = os.path.join("edl_tpu_torch", "_build", "pycache")
+# the generate verb on the flagship export: a 512-token prompt (the
+# decode ladder's b1 prefill, B1 T512 H16 KV8) from this seed, 32 new
+# tokens, bf16 and --int8
+SL_GENERATE = {"seed": 11, "prompt": 512, "max_new": 32}
+# the keys of the reference's `edl watch --json` document
+WATCH_KEYS = frozenset(("rules", "time_scale", "transitions", "active",
+                        "pages", "fired_total"))
+# the reference's export-status line (edl_tpu/cli/main.py)
+EXPORT_STATUS_LINE = re.compile(r"^step=\d+ dtype=\S+ leaves=\d+ "
+                                r"params=\d+ dir=\S+ source=\S+$")
 # the report keys of the reference's `edl loadgen --json`
 # (edl_tpu/cli/main.py run_loadgen; held to it in
 # tests/test_torch_loadgen.py)
@@ -4909,12 +5375,35 @@ def _watch_loadgen(proc, out):
                 pass
             time.sleep(0.2)
 
+    def live_verbs():
+        # top and profile against the endpoint while the verb serves:
+        # top at once, then profile until its report has the engine's
+        # efficiency gauges and the ledger's kv bytes
+        try:
+            top, secs = _run_verb(["top", url["u"], "--polls", "1"])
+            out["top"] = {"lines": len(top.splitlines()), "seconds": secs}
+            while proc.poll() is None:
+                text, secs = _run_verb(["profile", url["u"], "--json"])
+                rep = json.loads(text)
+                mfu = {ph: (rep["phases"].get(ph) or {}).get("mfu", 0.0)
+                       for ph in ("prefill", "decode")}
+                if all(mfu.values()) and rep["hbm_bytes"].get("kv"):
+                    out["profile"] = {"mfu": mfu, "seconds": secs,
+                                      "kv_bytes": rep["hbm_bytes"]["kv"]}
+                    return
+                time.sleep(0.2)
+        except AssertionError as e:
+            out["live_verbs_error"] = str(e)
+
     for line in proc.stderr:
         lines.append(line)
         m = re.match(r"# metrics endpoint (\S+)/metrics", line)
         if m and "u" not in url:
             url["u"] = m.group(1)
             threading.Thread(target=poll, daemon=True).start()
+            out["live_verbs"] = threading.Thread(target=live_verbs,
+                                                 daemon=True)
+            out["live_verbs"].start()
 
 
 def _replica_counts(url):
@@ -5126,6 +5615,72 @@ def fleet_failover(params, cfg, export_dir, workdir, device="cuda"):
         "boot_stages_s": boots,
     }
 
+def _generate_check(root, vocab, device="cuda"):
+    """The generate verb on an export, bf16 and ``--int8``, through its
+    entry (``edl_tpu_torch.cli.main``, what ``python -m edl_tpu_torch``
+    runs) in this process, so the wrapper counts its launches; then
+    ``llama.generate`` in this process, after one warm-up call, on what
+    ``_load_llama_serving`` (the verb's loader: ``load_export``, then
+    ``quantize_params_int8`` for int8) reads from the same export. The
+    card runs nothing else meanwhile. Gates: the verb exits 0, launches
+    ``flash_fwd`` once a layer (its prefill) and no other kernel, and
+    prints the in-process greedy tokens. Returns (rows, the verb's
+    launches by tree)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from edl_tpu_torch import cli
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.ops import flash_attention as fa
+
+    c = SL_GENERATE
+    ids = np.random.RandomState(c["seed"]).randint(0, vocab, c["prompt"])
+    args = ["generate", root, "--prompt", ",".join(map(str, ids)),
+            "--max-new", str(c["max_new"]), "--device", device]
+    rows, launches = [], {}
+    for tree, extra in (("bf16", []), ("int8", ["--int8"])):
+        out, err = io.StringIO(), io.StringIO()
+        fa.reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([*args, *extra])
+        verb_s = time.perf_counter() - t
+        counts = fa.launch_counts()
+        if rc != 0:
+            raise AssertionError(f"generate {tree} exited {rc}: "
+                                 f"{err.getvalue()[-3000:]}")
+        got = [int(x) for x in out.getvalue().strip().splitlines()[-1]
+               .split(",")]
+        params, cfg = cli._load_llama_serving(root, device, tree == "int8")
+        if params is None:
+            raise AssertionError(f"generate: {cfg}")
+        if counts != {**dict.fromkeys(fa.KERNELS, 0),
+                      "flash_fwd": cfg.n_layers}:
+            raise AssertionError(f"generate {tree}: launches {counts}, "
+                                 f"want flash_fwd x {cfg.n_layers}")
+        prompt = torch.from_numpy(ids[None].astype(np.int32)).to(device)
+        warm = llama.generate(params, prompt, cfg, max_new=c["max_new"])
+        _sync(device)
+        t = time.perf_counter()
+        toks = llama.generate(params, prompt, cfg, max_new=c["max_new"])
+        want = toks[0].tolist()
+        gen_s = time.perf_counter() - t
+        del params
+        if got != want or warm[0].tolist() != want:
+            raise AssertionError(f"generate {tree}: the verb's tokens "
+                                 f"{got} != in-process {want}")
+        launches[tree] = counts["flash_fwd"]
+        rows.append({"part": f"generate verb ({tree})",
+                     "prompt": c["prompt"], "max_new": c["max_new"],
+                     "tokens_equal": True, "verb_wall_s": verb_s,
+                     "in_process_s": gen_s,
+                     "in_process_tokens_per_s": c["max_new"] / gen_s,
+                     "flash_fwd_launches": counts["flash_fwd"]})
+    return rows, launches
+
+
 def serving_verbs(params, cfg, workdir, device="cuda"):
     """Part (c): the flagship exported; ``fleet --swap`` started as a
     subprocess, and once its first replicas are bound, ``loadgen``
@@ -5246,8 +5801,38 @@ def serving_verbs(params, cfg, workdir, device="cuda"):
         raise AssertionError(f"fleet report {fl_report}")
     fl_row = {"part": "fleet verb (--swap)", **fl_report, "seconds": fl_s}
     kill_row = {"part": "fleet failover (SIGKILL)", **kill}
+
+    # top and profile ran against loadgen's endpoint while it served
+    if "live_verbs" in lg_out:
+        lg_out["live_verbs"].join(timeout=SL_SUBPROCESS_TIMEOUT_S)
+    if "profile" not in lg_out or "top" not in lg_out:
+        raise AssertionError(
+            "top/profile against the loadgen endpoint: "
+            f"{lg_out.get('live_verbs_error', 'loadgen ended first')}")
+    live_row = {"part": "top + profile (live loadgen endpoint)",
+                "profile": lg_out["profile"], "top": lg_out["top"]}
+    # watch over loadgen's recorded history exits with its page count
+    t0 = time.perf_counter()
+    w = subprocess.run([sys.executable, "-m", "edl_tpu_torch", "watch",
+                        tsdb_dir, "--once", "--json"], cwd=here, env=env,
+                       capture_output=True, text=True,
+                       timeout=SL_SUBPROCESS_TIMEOUT_S)
+    doc = json.loads(w.stdout.strip().splitlines()[-1]) if w.stdout else {}
+    if set(doc) != WATCH_KEYS or w.returncode != min(doc["pages"], 100):
+        raise AssertionError(f"watch exited {w.returncode} with "
+                             f"{sorted(doc)}: {w.stderr[-2000:]}")
+    watch_row = {"part": "watch (loadgen history)", "rc": w.returncode,
+                 "pages": doc["pages"], "fired_total": doc["fired_total"],
+                 "transitions": len(doc["transitions"]),
+                 "seconds": time.perf_counter() - t0}
+    status, status_s = _run_verb(["export-status", root])
+    if not EXPORT_STATUS_LINE.match(status.strip()):
+        raise AssertionError(f"export-status printed {status!r}")
+    gen_rows, gen_launches = _generate_check(root, cfg.vocab, device)
     return ([{"part": "export", "export_s": export_s}, lg_row, fl_row,
-             kill_row], lg_launches)
+             kill_row, live_row, watch_row,
+             {"part": "export-status", "line": status.strip(),
+              "seconds": status_s}, *gen_rows], lg_launches, gen_launches)
 
 
 def serving_load_phase(card):
@@ -5296,7 +5881,7 @@ def serving_load_phase(card):
 
     workdir = tempfile.mkdtemp(prefix="edl_serving_load_")
     try:
-        rows, lg_launches = serving_verbs(params, cfg, workdir)
+        rows, lg_launches, gen_launches = serving_verbs(params, cfg, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for row in rows:
@@ -5309,7 +5894,12 @@ def serving_load_phase(card):
         "serving_load horizon rung h8": h_launches[8],
         "serving_load goodput rung": g_launches,
         "loadgen verb (measured replay)": lg_launches,
-        "fleet failover replicas": rows[-1]["primal_launches"],
+        "fleet failover replicas": next(
+            r for r in rows
+            if r["part"] == "fleet failover (SIGKILL)")["primal_launches"],
+        "generate verb (flagship export, B1 T512)": gen_launches["bf16"],
+        "generate verb --int8 (flagship export, B1 T512)":
+            gen_launches["int8"],
     }
     shape = (1, max(h_bucket, g_bucket)) + TRAIN_MAIN[2:]
     print(json.dumps({"phase": "serving_load_summary",
@@ -5532,6 +6122,10 @@ def main() -> int:
     # wrapper) stand beside their largest prefill's shape
     load_counted = sum(n for k, n in load_launches.items()
                        if "rung" in k)
+    # the generate verb's prefills (its launches, counted by the
+    # wrapper) are the decode ladder's b1 shape, B1 T512 H16 KV8
+    gen_counted = sum(n for k, n in load_launches.items()
+                      if k.startswith("generate verb"))
     primals = []
     for shape in (SLICE_MAIN, *DECODE_SHAPES, PREDICT_SHAPE,
                   MOE_PREDICT_SHAPE, load_shape, WARM_SHAPE):
@@ -5542,7 +6136,8 @@ def main() -> int:
                     moe_launches["predict"] if shape == MOE_PREDICT_SHAPE else
                     load_counted if shape == load_shape else
                     sum(n for (_, b), n in decode_launches.items()
-                        if b == shape[0]))
+                        if b == shape[0])
+                    + (gen_counted if shape == DECODE_SHAPES[0] else 0))
         err = (max(rows[k]["max_abs_err"] for k in KERNEL_SHAPES)
                if shape == SLICE_MAIN else r["max_abs_err"])
         e = entry("flash_fwd", "flash_fwd.cu", "100", launched, err,

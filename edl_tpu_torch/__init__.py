@@ -12,7 +12,12 @@ fit_a_line, ResNet and BERT (``train.trainer``); exports and the
 scoring consumer of every ported family (``runtime.export``,
 ``runtime.predict``); the elastic process runtime for dp meshes
 (``runtime.launcher`` spawning ``runtime.worker_main`` processes that
-regroup in place as workers join, drain or die). ``python -m
-edl_tpu_torch serve`` and ``python -m edl_tpu_torch predict`` are the
-command-line entries.
+regroup in place as workers join, drain or die), with the coordinator
+process (``runtime.coordinator_main``) serving the job's aggregated
+``/metrics``, ``/events`` and ``/trace`` and running the alert rules
+(``obs.fleet``, ``obs.disttrace``, ``obs.alerts``). ``python -m
+edl_tpu_torch VERB`` is the command-line entry: ``serve``,
+``generate``, ``predict``, ``loadgen``, ``fleet`` and ``elasticity``,
+and the operator verbs ``top``, ``watch``, ``postmortem``, ``trace``,
+``profile``, ``export-status`` and ``job-status``.
 """

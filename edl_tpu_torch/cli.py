@@ -1,5 +1,8 @@
-"""``python -m edl_tpu_torch serve``, ``predict``, ``loadgen`` and
-``fleet`` — the ports of the reference's verbs (``edl_tpu/cli/main.py``).
+"""``python -m edl_tpu_torch VERB`` — the ports of the reference's verbs
+(``edl_tpu/cli/main.py``): ``serve``, ``generate``, ``predict``,
+``loadgen``, ``fleet`` and ``elasticity``, and the operator verbs
+``top``, ``watch``, ``postmortem``, ``trace``, ``profile``,
+``export-status`` and ``job-status``.
 
 ``serve``: the contiguous and paged KV caches, the prefix cache, chunked
 prefill, quantized KV, speculative decoding and weight-only int8 params
@@ -35,6 +38,26 @@ diurnal load curve through the real lease broker and handover
 controller (fake clock, fake sides), in process or against a running
 ``edl-coordinator`` (``--coordinator HOST:PORT``); ``--json`` prints the
 reference verb's document.
+
+``generate``: decodes ``--max-new`` tokens after ``--prompt`` from a
+published llama export and prints them comma-separated; ``--int8``
+serves the weight-only int8 records; greedy tokens are the reference's,
+sampled ones come from a ``torch.Generator`` seeded with ``--seed``.
+``--mesh`` is not ported yet (ROADMAP item 2b).
+
+The operator verbs read telemetry and import neither torch nor jax
+(``export-status`` loads the export module, which imports torch):
+``top`` paints an endpoint's ``/metrics``; ``watch`` evaluates the alert
+rules (``obs/alerts.py``) over a live endpoint or a recorded metric
+history and exits with its count of active pages; ``postmortem``
+rebuilds timelines and incidents from a flight-recorder dump or a live
+``/events``; ``trace`` prints the critical path of a step, reshard epoch
+or request from a trace document or a live ``/trace`` (the coordinator's
+is the fleet merge); ``profile SOURCE`` renders the roofline report of
+an endpoint or a ``BENCH_r*.json`` (``--dryrun`` trains through
+``ElasticTrainer``, ROADMAP item 2b, and exits 1); ``export-status``
+shows and fetches the latest export; ``job-status`` reads a running
+job's progress and queue from its coordinator.
 
 ``serve`` reads the same JSONL request feed and the same export directory as the
 reference verb and prints the same per-request JSON records on stdout
@@ -907,7 +930,7 @@ def run_fleet(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m edl_tpu_torch",
-        description="PyTorch/CUDA port of the edl serving verbs",
+        description="PyTorch/CUDA port of the edl verbs",
     )
     sub = p.add_subparsers(dest="cmd", required=True)
     sv = sub.add_parser(
@@ -1287,6 +1310,7 @@ def build_parser() -> argparse.ArgumentParser:
     el.add_argument("--json", action="store_true",
                     help="machine-readable ledger")
     el.set_defaults(fn=run_elasticity)
+    _add_operator_parsers(sub)
     return p
 
 
@@ -1421,6 +1445,659 @@ def run_elasticity(args) -> int:
           f"final epoch {broker.epoch}; conservation "
           f"{'OK' if broker.check_conservation() else 'VIOLATED'}")
     return 0
+
+
+# -- the operator verbs ------------------------------------------------------
+# top, watch, postmortem, trace, job-status and profile SOURCE import
+# neither torch nor jax: telemetry analysis needs no device
+
+
+def run_top(args) -> int:
+    """Live one-screen view of any telemetry endpoint (a serving
+    process's --metrics-port, a worker's EDL_METRICS_PORT, or the
+    coordinator's fleet aggregation) — scrape /metrics, summarize the
+    headline series, repeat."""
+    from edl_tpu_torch.obs.top import top_once
+
+    i = 0
+    while True:
+        try:
+            print(top_once(args.endpoint, timeout_s=args.timeout), flush=True)
+        except OSError as e:
+            print(f"scrape failed for {args.endpoint}: {e}", file=sys.stderr)
+            return 1
+        i += 1
+        if args.polls is not None and i >= args.polls:
+            return 0
+        time.sleep(args.interval)
+
+
+def _watch_line(tr: dict) -> str:
+    detail = " ".join(
+        f"{k}={v:.6g}"
+        for k, v in sorted(tr.items())
+        if k not in ("transition", "rule", "severity", "t")
+        and isinstance(v, (int, float))
+    )
+    return (f"[{tr['t']:.3f}] {tr['transition'].upper():7s} "
+            f"{tr['rule']} severity={tr['severity']} {detail}").rstrip()
+
+
+def run_watch(args) -> int:
+    """Evaluate alert rules over metric history: tail a live exporter
+    (scrape /metrics on a cadence, record into a local tsdb, evaluate)
+    or replay a recorded tsdb directory (deterministic). Rules come
+    from --rules JSON or the shipped defaults (obs/alerts.py
+    DEFAULT_RULES); --time-scale shrinks every window so production
+    burn-rate rules run against seconds-long replays. Transitions print
+    as they happen (and emit alert.fire / alert.resolve flight-recorder
+    events); the exit code is the number of PAGES still active at exit
+    (capped at 100), 2 on bad rules or a failed scrape."""
+    import os
+
+    from edl_tpu_torch import obs
+    from edl_tpu_torch.obs import alerts as obs_alerts
+    from edl_tpu_torch.obs import events as obs_events
+    from edl_tpu_torch.obs.tsdb import TSDB, snapshot_from_prometheus_text
+
+    try:
+        doc = obs_alerts.load_rules_doc(args.rules)
+        engine = obs_alerts.engine_from_doc(
+            doc, time_scale=args.time_scale,
+            registry=obs.default_registry(),
+        )
+    except (OSError, ValueError) as e:
+        print(f"bad rules: {e}", file=sys.stderr)
+        return 2
+
+    src = args.source
+    transitions: list = []
+
+    def _saw(trs) -> None:
+        for tr in trs:
+            transitions.append(tr)
+            if not args.json:
+                print(_watch_line(tr), flush=True)
+
+    if os.path.isdir(src):
+        db = TSDB(src)
+        seen_t: Optional[float] = None
+
+        def pass_once() -> None:
+            nonlocal seen_t
+            new = [t for t in db.raw_times()
+                   if seen_t is None or t > seen_t]
+            for t in new:
+                _saw(engine.evaluate(db, t))
+            if new:
+                seen_t = new[-1]
+    else:
+        import tempfile
+
+        url = src if src.startswith("http") else f"http://{src}"
+        db = TSDB(args.record or tempfile.mkdtemp(prefix="edl-watch-"))
+
+        def pass_once() -> None:
+            text = obs.scrape(url)
+            now = time.time()
+            db.append(snapshot_from_prometheus_text(text), t=now)
+            _saw(engine.evaluate(db, now))
+
+    polls = 1 if args.once else args.polls
+    i = 0
+    while True:
+        try:
+            pass_once()
+        except OSError as e:
+            print(f"scrape failed for {src}: {e}", file=sys.stderr)
+            return 2
+        i += 1
+        if polls is not None and i >= polls:
+            break
+        time.sleep(args.interval)
+
+    if args.events_out:
+        recs = obs_events.default_recorder().records()
+        with open(args.events_out, "w") as f:
+            for r in recs:
+                f.write(json.dumps(r, default=str,
+                                   separators=(",", ":")) + "\n")
+        print(f"# events -> {args.events_out} ({len(recs)} events)",
+              file=sys.stderr)
+
+    summary = {
+        "rules": sorted(r.name for r in engine.rules),
+        "time_scale": engine.time_scale,
+        "transitions": transitions,
+        "active": engine.active(),
+        "pages": engine.pages(),
+        "fired_total": engine.to_block()["fired_total"],
+    }
+    if args.json:
+        print(json.dumps(summary, sort_keys=True))
+    else:
+        act = (", ".join(f"{a['rule']}({a['severity']})"
+                         for a in summary["active"]) or "none")
+        print(f"WATCH {len(summary['rules'])} rules  "
+              f"fired={summary['fired_total']}  active: {act}")
+    return min(engine.pages(), 100)
+
+
+def run_postmortem(args) -> int:
+    """Reconstruct timelines and incidents from a flight-recorder dump
+    (obs/events.py JSONL — a recorder dump, a crash-dump black box from
+    EDL_BLACKBOX_DIR, or a live exporter's /events URL) and optionally
+    enforce the contracts: --assert-recovered proves every injected
+    serving fault chained into a recorded recovery (fault -> recover ->
+    re-prefill -> finish per affected rid); --assert-no-incidents
+    proves a fault-free run's timeline is clean."""
+    from edl_tpu_torch.obs import postmortem as pm
+
+    try:
+        evs = pm.load_events(args.source)
+    except (OSError, ValueError) as e:
+        print(f"cannot load events from {args.source!r}: {e}",
+              file=sys.stderr)
+        return 2
+    print(pm.render_report(evs, rid=args.rid, window_s=args.window))
+    problems = []
+    if args.assert_recovered:
+        problems += pm.verify_recovered(evs, site_prefix=args.sites)
+    if args.assert_no_incidents:
+        problems += pm.verify_no_incidents(evs)
+    if problems:
+        for p in problems:
+            print(f"POSTMORTEM FAIL: {p}", file=sys.stderr)
+        return 1
+    if args.assert_recovered or args.assert_no_incidents:
+        print("postmortem assertions OK")
+    return 0
+
+
+def run_trace(args) -> int:
+    """Fetch or load a (merged fleet) trace and print the critical path
+    of a step, reshard epoch or served request — the longest causal
+    chain of spans with per-hop durations and gaps
+    (obs/disttrace.critical_path). ``source`` is a chrome-trace JSON
+    path or an exporter URL / host:port (scrapes /trace — against a
+    coordinator that is the offset-corrected fleet merge)."""
+    import os
+
+    from edl_tpu_torch.obs import disttrace
+
+    src = args.source
+    try:
+        if os.path.exists(src):
+            with open(src) as f:
+                doc = json.load(f)
+        else:
+            from edl_tpu_torch.obs.exporter import scrape
+
+            doc = json.loads(scrape(src, "/trace", timeout_s=args.timeout))
+    except (OSError, ValueError) as e:
+        print(f"cannot load trace from {src!r}: {e}", file=sys.stderr)
+        return 2
+    n_spans = sum(1 for e in doc.get("traceEvents", ()) if e.get("ph") == "X")
+    workers = doc.get("workers") or []
+    flows = doc.get("flow_links", 0)
+    print(
+        f"trace: {n_spans} spans"
+        + (f" from {len(workers)} processes ({', '.join(workers)})"
+           if workers else "")
+        + (f", {flows} flow links" if flows else "")
+    )
+    hops = disttrace.critical_path(
+        doc, rid=args.rid, step=args.step,
+        reshard_epoch=args.reshard_epoch, trace_id=args.trace_id,
+    )
+    if args.json:
+        print(json.dumps({"hops": hops, "spans": n_spans,
+                          "workers": workers, "flow_links": flows}))
+    else:
+        print(disttrace.render_critical_path(hops))
+    if args.assert_critical_path and not hops:
+        print("TRACE FAIL: empty critical path for the given filter",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def run_profile(args) -> int:
+    """Roofline report (achieved vs peak per phase + the HBM ledger +
+    compile activity) from a live ``/metrics`` endpoint or a committed
+    ``BENCH_r*.json`` round. ``--dryrun`` trains through
+    ``ElasticTrainer``, which is not ported yet (ROADMAP item 2b): it
+    exits 1."""
+    from edl_tpu_torch.obs import profile as prof
+
+    if args.dryrun:
+        try:
+            report = prof.run_dryrun(
+                metrics_port=args.metrics_port, steps=args.steps
+            )
+        except NotImplementedError as e:
+            print(f"PROFILE DRYRUN FAIL: {e}", file=sys.stderr)
+            return 1
+    elif args.source:
+        try:
+            report = prof.report_for_source(args.source, timeout_s=args.timeout)
+        except (OSError, ValueError, KeyError) as e:
+            print(
+                f"cannot profile {args.source!r}: {e}", file=sys.stderr
+            )
+            return 2
+    else:
+        print(
+            "error: need a SOURCE (endpoint or BENCH_r*.json) or --dryrun",
+            file=sys.stderr,
+        )
+        return 2
+    if args.json:
+        print(json.dumps(report, sort_keys=True))
+    else:
+        print(prof.render_report(report))
+    return 0
+
+
+def run_export_status(args) -> int:
+    """Inspect (and optionally fetch) the latest servable export — the
+    consumer side of the export contract."""
+    import math
+    import os
+
+    from edl_tpu_torch.runtime.export import export_status
+
+    doc = export_status(args.export_dir)
+    if doc is None:
+        print(f"no published export under {args.export_dir}", file=sys.stderr)
+        return 1
+    n_params = sum(math.prod(s) if s else 1 for s in doc["shapes"].values())
+    print(
+        f"step={doc['step']} dtype={doc['dtype']} "
+        f"leaves={len(doc['shapes'])} params={n_params} "
+        f"dir={doc['_dir']} source={doc['source']}"
+    )
+    if args.fetch:
+        import shutil
+
+        os.makedirs(args.fetch, exist_ok=True)
+        # the GC (keep=2) may delete doc["_dir"] while we copy if two
+        # newer exports publish in between — retry against the re-read
+        # latest pointer instead of dying mid-fetch
+        for attempt in range(5):
+            try:
+                for f in ("params.npz", "manifest.json"):
+                    shutil.copy2(os.path.join(doc["_dir"], f), args.fetch)
+                break
+            except FileNotFoundError:
+                newer = export_status(args.export_dir)
+                if newer is None or newer["_dir"] == doc["_dir"] or attempt == 4:
+                    print(
+                        f"export {doc['_dir']} vanished mid-fetch",
+                        file=sys.stderr,
+                    )
+                    return 1
+                doc = newer
+        print(f"fetched -> {args.fetch} (step={doc['step']})")
+    return 0
+
+
+def run_job_status(args) -> int:
+    """Operator view into a RUNNING process-runtime job: the live
+    training metrics the workers publish in their job coordinator's KV
+    (progress, phase, loss curve endpoints, reshard count, held-out
+    eval_metric, last restore source, slice layout, queue accounting)."""
+    from edl_tpu_torch.runtime.coordinator import CoordinatorClient
+
+    host, _, port = args.coordinator.rpartition(":")
+    try:
+        cl = CoordinatorClient(host or "127.0.0.1", int(port), 5.0,
+                               reconnect_window_s=0.0)
+    except (OSError, ValueError) as e:
+        print(f"cannot reach coordinator {args.coordinator}: {e}",
+              file=sys.stderr)
+        return 1
+    try:
+        k = lambda key: cl.kv_get(f"{args.job}/{key}")  # noqa: E731
+        members = cl.members()
+        rows = [
+            ("phase", k("phase") or "running"),
+            ("progress", k("progress") or "0"),
+            ("workers", ",".join(m.name for m in members) or "-"),
+            ("reshards", k("reshards") or "0"),
+            ("loss", f"{k('loss_first') or '?'} -> {k('loss_last') or '?'}"),
+            ("ckpt_step", k("ckpt_step") or "-"),
+            ("eval_metric", k("eval_metric") or "-"),
+            ("restore_last", k("restore_last") or "-"),
+            ("mesh_slices", k("mesh_slices") or "-"),
+        ]
+        # an uninitialized queue answers with zeros; a mid-read
+        # coordinator death raises and takes the error path below
+        q = cl.queue_stats()
+        rows.append((
+            "queue",
+            f"todo={q.get('todo')} leased={q.get('leased')} "
+            f"done={q.get('done')} dead={q.get('dead')}",
+        ))
+        for name, val in rows:
+            print(f"{name:14s} {val}")
+        return 0
+    except (ConnectionError, OSError, ValueError) as e:
+        # the coordinator died mid-read (reconnect window 0: fail fast)
+        print(f"coordinator failed mid-read: {e}", file=sys.stderr)
+        return 1
+    finally:
+        cl.close()
+
+
+def run_generate(args) -> int:
+    """Decode from a published llama export — the one-shot serving
+    consumer (the export's manifest carries the architecture record;
+    ``llama.generate``'s KV-cache decode does the rest), on CUDA unless
+    ``--device cpu``. ``--int8`` serves the weight-only int8 records.
+    Greedy tokens are the reference's; sampling draws from a
+    ``torch.Generator`` seeded with ``--seed``, deterministic per seed
+    but not the reference's ``jax.random`` draws. ``--mesh`` is not
+    ported yet (ROADMAP item 2b)."""
+    # argv-only validation FIRST: a pure flag mistake must not cost a
+    # multi-GB export load + quantization before it is reported
+    if args.temperature <= 0 and (args.top_k or args.top_p < 1.0):
+        print(
+            "--top-k/--top-p require --temperature > 0 "
+            "(greedy decoding ignores them)",
+            file=sys.stderr,
+        )
+        return 1
+    if args.top_k < 0:
+        print(f"top_k must be >= 0, got {args.top_k}", file=sys.stderr)
+        return 1
+    if not 0.0 < args.top_p <= 1.0:
+        print(f"top_p must be in (0, 1], got {args.top_p}", file=sys.stderr)
+        return 1
+    if args.mesh:
+        print("--int8 and --mesh are mutually exclusive" if args.int8 else
+              "--mesh is not ported yet (ROADMAP item 2b)", file=sys.stderr)
+        return 1
+    from edl_tpu_torch.utils.device import resolve_device
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    params, cfg_or_err = _load_llama_serving(args.export_dir, device,
+                                             args.int8)
+    if params is None:
+        print(cfg_or_err, file=sys.stderr)
+        return 1
+    cfg = cfg_or_err
+    import torch
+
+    from edl_tpu_torch.models import llama
+
+    try:
+        ids = [int(t) for t in args.prompt.split(",")]
+    except ValueError:
+        print(
+            f"--prompt must be comma-separated integers, got {args.prompt!r}",
+            file=sys.stderr,
+        )
+        return 1
+    if not ids or args.max_new < 1:
+        print("need a non-empty prompt and --max-new >= 1", file=sys.stderr)
+        return 1
+    if min(ids) < 0 or max(ids) >= cfg.vocab:
+        print(f"prompt tokens outside [0, {cfg.vocab})", file=sys.stderr)
+        return 1
+    prompt = torch.tensor([ids], dtype=torch.int32, device=device)
+    try:
+        toks = llama.generate(
+            params,
+            prompt,
+            cfg,
+            max_new=args.max_new,
+            temperature=args.temperature,
+            generator=(
+                torch.Generator(device=device).manual_seed(args.seed)
+                if args.temperature > 0
+                else None
+            ),
+            top_k=args.top_k,
+            top_p=args.top_p,
+        )
+    except ValueError as e:  # bad top_k/top_p bounds
+        print(str(e), file=sys.stderr)
+        return 1
+    print(",".join(str(int(t)) for t in toks[0].tolist()))
+    return 0
+
+
+def _add_operator_parsers(sub) -> None:
+    """The parsers of the operator verbs, with the reference's flags."""
+    tp = sub.add_parser(
+        "top",
+        help="live one-screen view of a telemetry endpoint "
+        "(scrapes /metrics: TTFT percentiles, step-time breakdown, "
+        "reshard stalls, queue depth)",
+    )
+    tp.add_argument(
+        "endpoint",
+        help="host:port or URL of an exporter (`serve --metrics-port`, "
+        "a worker's EDL_METRICS_PORT, or the coordinator's "
+        "--metrics-port fleet aggregation)",
+    )
+    tp.add_argument("--interval", type=float, default=2.0)
+    tp.add_argument("--polls", type=int, default=None, help="stop after N polls")
+    tp.add_argument("--timeout", type=float, default=5.0)
+    tp.set_defaults(fn=run_top)
+
+    w = sub.add_parser(
+        "watch",
+        help="alerting watchdog: evaluate threshold / burn-rate / "
+        "anomaly rules over metric history (tail a live exporter or "
+        "replay a recorded tsdb dir); exit code = active pages",
+    )
+    w.add_argument(
+        "source",
+        help="host:port or URL of an exporter (tailed: each poll "
+        "scrapes /metrics and records it), or a tsdb history "
+        "directory (replayed deterministically)",
+    )
+    w.add_argument(
+        "--rules", default=None,
+        help="rules JSON; default: the shipped burn-rate + watchdog "
+        "rules (obs/alerts.py)",
+    )
+    w.add_argument(
+        "--time-scale", type=float, default=None,
+        help="multiply every rule window (e.g. 0.01 turns the 5m/1h "
+        "fast-burn pair into 3s/36s for a replay); default: the rules "
+        "doc's own time_scale",
+    )
+    w.add_argument("--interval", type=float, default=2.0)
+    w.add_argument("--polls", type=int, default=None,
+                   help="stop after N polls (default: forever)")
+    w.add_argument(
+        "--once", action="store_true",
+        help="single pass: one scrape, or one full replay of a "
+        "recorded dir, then exit",
+    )
+    w.add_argument(
+        "--json", action="store_true",
+        help="suppress per-transition lines; print one JSON summary "
+        "(rules, transitions, active, pages) at exit",
+    )
+    w.add_argument(
+        "--record", default=None,
+        help="when tailing a live endpoint, record scrapes into this "
+        "tsdb dir (default: a temp dir)",
+    )
+    w.add_argument(
+        "--events-out", default=None,
+        help="write the watcher's flight-recorder JSONL (the "
+        "alert.fire/alert.resolve timeline) here for "
+        "`postmortem --sites alert.`",
+    )
+    w.set_defaults(fn=run_watch)
+
+    pmn = sub.add_parser(
+        "postmortem",
+        help="analyze a flight-recorder dump (or a live /events URL): "
+        "per-request timelines, incident summary, fault->recovery "
+        "chains; assertions for fault runs",
+    )
+    pmn.add_argument(
+        "source",
+        help="events JSONL path (a recorder dump or an EDL_BLACKBOX_DIR "
+        "crash dump) or an exporter URL / host:port (scrapes /events)",
+    )
+    pmn.add_argument(
+        "--rid", default=None,
+        help="render only this request's timeline",
+    )
+    pmn.add_argument(
+        "--window", type=float, default=5.0,
+        help="seconds of follow-on events attached to each injected "
+        "fault in the incident summary",
+    )
+    pmn.add_argument(
+        "--sites", default="serve.",
+        help="site prefix --assert-recovered checks (default: the "
+        "serving fault points)",
+    )
+    pmn.add_argument(
+        "--assert-recovered", action="store_true",
+        help="exit 1 unless every injected fault at --sites is "
+        "followed by a recorded recovery whose requests re-prefilled "
+        "and finished (a dump with no such faults also fails)",
+    )
+    pmn.add_argument(
+        "--assert-no-incidents", action="store_true",
+        help="exit 1 if the timeline shows any injected fault, "
+        "recovery, error event, timeout, failure, or heartbeat "
+        "degradation",
+    )
+    pmn.set_defaults(fn=run_postmortem)
+
+    trc = sub.add_parser(
+        "trace",
+        help="fetch/load a (merged fleet) trace and print the "
+        "critical path of a step, reshard epoch, or request",
+    )
+    trc.add_argument(
+        "source",
+        help="chrome-trace JSON path or an exporter URL / host:port "
+        "(scrapes /trace; a coordinator endpoint serves the "
+        "offset-corrected fleet merge)",
+    )
+    trc.add_argument(
+        "--rid", default=None,
+        help="critical path of this served request (matches span "
+        "rid/rids attrs — the same correlation key as /events?rid=)",
+    )
+    trc.add_argument(
+        "--step", type=int, default=None,
+        help="critical path of this training step",
+    )
+    trc.add_argument(
+        "--reshard-epoch", type=int, default=None,
+        help="critical path of this reshard (selects the derived "
+        "reshard trace root)",
+    )
+    trc.add_argument(
+        "--trace-id", default=None, help="select one trace explicitly",
+    )
+    trc.add_argument("--json", action="store_true",
+                     help="machine-readable hops")
+    trc.add_argument("--timeout", type=float, default=5.0)
+    trc.add_argument(
+        "--assert-critical-path", action="store_true",
+        help="exit 1 when the filter selects no spans",
+    )
+    trc.set_defaults(fn=run_trace)
+
+    pf = sub.add_parser(
+        "profile",
+        help="roofline report: achieved vs peak per phase (edl_mfu / "
+        "edl_bw_util_ratio), the HBM memory ledger, and compile "
+        "telemetry — from a live /metrics endpoint or a BENCH_r*.json",
+    )
+    pf.add_argument(
+        "source", nargs="?", default=None,
+        help="exporter host:port / URL, or a BENCH_r*.json path "
+        "(omit with --dryrun)",
+    )
+    pf.add_argument(
+        "--dryrun", action="store_true",
+        help="not ported yet (ROADMAP item 2b): exits 1",
+    )
+    pf.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="with --dryrun: expose /metrics during the run",
+    )
+    pf.add_argument(
+        "--steps", type=int, default=4,
+        help="dryrun train-window steps",
+    )
+    pf.add_argument("--timeout", type=float, default=5.0)
+    pf.add_argument(
+        "--json", action="store_true",
+        help="print the report as one JSON object",
+    )
+    pf.set_defaults(fn=run_profile)
+
+    ex = sub.add_parser(
+        "export-status",
+        help="show (and optionally fetch) the latest servable export",
+    )
+    ex.add_argument("export_dir")
+    ex.add_argument(
+        "--fetch", default=None, help="copy the latest export to this dir"
+    )
+    ex.set_defaults(fn=run_export_status)
+
+    js = sub.add_parser(
+        "job-status",
+        help="live metrics of a running process-runtime job from its "
+        "coordinator KV (progress, eval_metric, reshards, slices, queue)",
+    )
+    js.add_argument("job", help="job name (the KV key prefix)")
+    js.add_argument(
+        "--coordinator", required=True, help="job coordinator host:port"
+    )
+    js.set_defaults(fn=run_job_status)
+
+    g = sub.add_parser(
+        "generate", help="decode tokens from a published llama export"
+    )
+    g.add_argument("export_dir")
+    g.add_argument(
+        "--prompt", required=True, help="comma-separated token ids"
+    )
+    g.add_argument("--max-new", type=int, default=16)
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument(
+        "--top-k", type=int, default=0,
+        help="sample from the k most likely tokens (0 = no truncation)",
+    )
+    g.add_argument(
+        "--top-p", type=float, default=1.0,
+        help="nucleus sampling: smallest token set with probability "
+        "mass >= p (1.0 = off); composes with --top-k",
+    )
+    g.add_argument(
+        "--mesh", default="",
+        help="not ported yet (ROADMAP item 2b): exits 1",
+    )
+    g.add_argument(
+        "--int8", action="store_true",
+        help="weight-only int8 decode: quantize the export's matmul "
+        "weights (per-output-column absmax) before serving — halves "
+        "the weight-bandwidth bill of small-batch decode",
+    )
+    g.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    g.set_defaults(fn=run_generate)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

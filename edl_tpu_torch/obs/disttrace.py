@@ -1,31 +1,37 @@
-"""Distributed tracing — the trace context that tracer spans and
-flight-recorder events share: the port's copy of the process-local half
-of ``edl_tpu/obs/disttrace.py``.
+"""Distributed tracing — cross-process trace propagation, clock
+alignment, fleet trace merge and critical-path/straggler analysis: the
+port's copy of ``edl_tpu/obs/disttrace.py``.
 
 * **trace context** — ``TraceContext(trace_id, span_id, parent_id)``
-  carried in a contextvar. Roots are opened at request boundaries; ids
-  for *agreed* roots (a rid, a step number, a reshard epoch) are
-  DERIVED deterministically (:func:`derived_trace_id`), so every
-  process — and the reference engine — lands on the same ``trace_id``
-  for the same request without a network hop, while span ids stay
-  random. Tracer spans and flight-recorder events both stamp the
-  active context (the hooks installed below), so ``/trace`` and
-  ``/events`` agree on the same correlation keys.
+  carried in a contextvar. Roots are opened at request/step/reshard
+  boundaries; ids for *agreed* roots (a rid, a step number, a reshard
+  epoch) are DERIVED deterministically (:func:`derived_trace_id`), so
+  every process — and the reference engine — lands on the same
+  ``trace_id`` without a network hop, while span ids stay random.
+  Tracer spans and flight-recorder events both stamp the active
+  context (the hooks installed below), so ``/trace`` and ``/events``
+  agree on the same correlation keys.
 * **propagation** — :func:`inject`/:func:`extract` move a context
-  through any JSON payload.
+  through any JSON payload; :func:`remote_child` continues a received
+  one.
 * **span windows** — :func:`span_window_doc` / :func:`span_window_json`
   / :func:`load_span_window`: the newest tracer spans on the wall
   clock, the form a worker pushes for a fleet merge.
-
 * **coordinator-KV propagation** — :func:`publish_ctx` /
   :func:`fetch_ctx` put a context beside a control value (the elastic
   worker's per-step ``go`` decision), :func:`link_attrs` parents a local
-  span to it.
+  span to it: the client→server pair the fleet merge links.
 * **clock alignment** — :class:`ClockSync`: NTP-midpoint offset of this
   process's wall clock against the coordinator's.
-
-The fleet merge, the critical path and the straggler and barrier
-analysis wait for the CLI's backend switch (ROADMAP Queue A item 9).
+* **fleet merge** — :func:`merge_fleet_trace`: per-worker span windows
+  plus offsets into one Perfetto document, one ``pid`` per worker,
+  timestamps on the coordinator's axis, flow events for every
+  cross-process parent/child pair.
+* **analysis** — :func:`critical_path` (the longest causal chain of a
+  trace, step, reshard epoch or rid) and :func:`step_skew` /
+  :func:`barrier_waits`, the straggler primitives ``obs/fleet.py``
+  turns into ``edl_step_skew_ratio``, ``edl_barrier_wait_seconds`` and
+  ``straggler.detected``.
 
 THIS MODULE IS THE ONLY SANCTIONED ACCESSOR of the ``trace_id`` /
 ``span_id`` / ``parent_id`` keys — everything else goes through the
@@ -43,7 +49,7 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
     "TraceContext",
@@ -68,6 +74,13 @@ __all__ = [
     "span_window_doc",
     "span_window_json",
     "load_span_window",
+    "remote_child",
+    "merge_fleet_trace",
+    "critical_path",
+    "render_critical_path",
+    "step_skew",
+    "barrier_waits",
+    "barrier_waits_from_events",
 ]
 
 # the one place these literals may appear
@@ -130,6 +143,21 @@ def root(*parts: Any, trace_id: Optional[str] = None):
         yield _ctx.get()
     finally:
         exit_root(token)
+
+
+@contextlib.contextmanager
+def remote_child(ctx: Optional[TraceContext]):
+    """Continue a trace received from another process: the block runs
+    in a fresh span parented to the REMOTE span (the server half of a
+    client→server pair). No-op when ``ctx`` is None."""
+    if ctx is None:
+        yield None
+        return
+    token = _ctx.set(ctx.child())
+    try:
+        yield _ctx.get()
+    finally:
+        _ctx.reset(token)
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +424,334 @@ def load_span_window(raw: Any) -> Optional[Dict[str, Any]]:
         except (ValueError, TypeError):
             continue
     return {"meta": dict(doc.get("meta") or {}), "spans": spans}
+
+
+# ---------------------------------------------------------------------------
+# fleet merge — one offset-corrected Perfetto document
+
+
+def merge_fleet_trace(
+    windows: Dict[str, Any],
+    offsets: Optional[Dict[str, float]] = None,
+    extra_meta: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Merge per-worker span windows into one chrome-trace document.
+
+    ``windows`` maps worker name -> raw window JSON (or parsed doc);
+    ``offsets`` maps worker name -> seconds to ADD to that worker's
+    wall clock (ClockSync estimates; missing = 0). Each worker gets a
+    synthetic ``pid`` named via ``process_name`` metadata; timestamps
+    are offset-corrected and rebased so the earliest span starts at 0;
+    chrome flow events (``ph:"s"`` on the client span, ``ph:"f"`` on
+    the server span) link every parent→child span pair that crosses a
+    process boundary. Undecodable windows are skipped and counted in
+    the top-level ``skipped_windows``.
+    """
+    offsets = offsets or {}
+    docs: Dict[str, Dict[str, Any]] = {}
+    skipped = 0
+    for worker, raw in sorted(windows.items()):
+        doc = load_span_window(raw)
+        if doc is None:
+            skipped += 1
+            continue
+        docs[worker] = doc
+
+    # corrected wall time per span, then rebase to the earliest
+    corrected: List[Tuple[str, int, Dict[str, Any], float]] = []
+    for pid, (worker, doc) in enumerate(sorted(docs.items()), start=1):
+        off = float(offsets.get(worker, 0.0))
+        for s in doc["spans"]:
+            corrected.append((worker, pid, s, s["t_wall"] + off))
+    base = min((t for *_x, t in corrected), default=0.0)
+
+    events: List[Dict[str, Any]] = []
+    for pid, (worker, _doc) in enumerate(sorted(docs.items()), start=1):
+        events.append(
+            {
+                "name": "process_name",
+                "ph": "M",
+                "pid": pid,
+                "tid": 0,
+                "args": {"name": worker},
+            }
+        )
+    by_span_id: Dict[str, Dict[str, Any]] = {}
+    for worker, pid, s, t in corrected:
+        ev = {
+            "name": s["name"],
+            "ph": "X",
+            "ts": (t - base) * 1e6,
+            "dur": s["dur_s"] * 1e6,
+            "pid": pid,
+            "tid": s["tid"],
+            "seq": s["seq"],
+            "args": {"worker": worker, **s["args"]},
+        }
+        events.append(ev)
+        sid = ids_of(s["args"])[1]
+        if sid:
+            by_span_id[sid] = ev
+
+    # flow events: client span -> the server span parented to it,
+    # exactly one link per parent/child pair (dedup by child span id)
+    flows = 0
+    for ev in list(events):
+        if ev.get("ph") != "X":
+            continue
+        _tid, sid, parent = ids_of(ev["args"])
+        if not parent or parent not in by_span_id:
+            continue
+        src = by_span_id[parent]
+        # only cross-PROCESS causality gets an arrow: intra-process
+        # parent/child pairs are already visible as span nesting
+        if src is ev or src["pid"] == ev["pid"]:
+            continue
+        fid = f"f{flows}"
+        flows += 1
+        events.append(
+            {
+                "name": "rpc", "cat": "disttrace", "ph": "s", "id": fid,
+                "pid": src["pid"], "tid": src["tid"],
+                # bind the arrow tail inside the client span
+                "ts": src["ts"] + max(src["dur"] / 2, 0.0),
+            }
+        )
+        events.append(
+            {
+                "name": "rpc", "cat": "disttrace", "ph": "f", "bp": "e",
+                "id": fid, "pid": ev["pid"], "tid": ev["tid"], "ts": ev["ts"],
+            }
+        )
+    doc = {
+        "traceEvents": events,
+        "base_t_wall": base,
+        "workers": sorted(docs),
+        "flow_links": flows,
+        "skipped_windows": skipped,
+    }
+    if extra_meta:
+        doc.update(extra_meta)
+    return doc
+
+
+# ---------------------------------------------------------------------------
+# critical path — the longest causal chain
+
+
+def _doc_spans(doc: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Normalize a chrome-trace doc's X events (a merged fleet doc or
+    a process-local /trace) into span records with seconds units."""
+    pid_names = {}
+    for e in doc.get("traceEvents", []):
+        if e.get("ph") == "M" and e.get("name") == "process_name":
+            pid_names[e.get("pid")] = (e.get("args") or {}).get("name")
+    out = []
+    for e in doc.get("traceEvents", []):
+        if e.get("ph") != "X":
+            continue
+        args = e.get("args") or {}
+        out.append(
+            {
+                "name": e.get("name", "?"),
+                "t_s": float(e.get("ts", 0.0)) / 1e6,
+                "dur_s": float(e.get("dur", 0.0)) / 1e6,
+                "worker": args.get("worker")
+                or pid_names.get(e.get("pid"))
+                or str(e.get("pid", "?")),
+                "args": args,
+            }
+        )
+    return out
+
+
+def _matches(span: Dict[str, Any], rid, step, reshard_epoch, trace_id) -> bool:
+    a = span["args"]
+    if trace_id is not None and ids_of(a)[0] != trace_id:
+        return False
+    if rid is not None:
+        rids = a.get("rids") or ()
+        if a.get("rid") != rid and rid not in rids:
+            return False
+    if step is not None and a.get("step") != step:
+        return False
+    if reshard_epoch is not None and a.get("reshard_epoch") != reshard_epoch:
+        return False
+    return True
+
+
+def critical_path(
+    doc: Dict[str, Any],
+    rid: Optional[str] = None,
+    step: Optional[int] = None,
+    reshard_epoch: Optional[int] = None,
+    trace_id: Optional[str] = None,
+) -> List[Dict[str, Any]]:
+    """The longest causal chain of spans matching the filter, as hops
+    ``{name, worker, t_s, dur_s, gap_s}``.
+
+    Selection: explicit ``trace_id``, or the deterministic root id for
+    a ``reshard_epoch`` (every process derives the same one), or attr
+    match on ``rid``/``rids``/``step``. Chain construction prefers the
+    parent-link forest (maximum summed duration root→leaf, the Dapper
+    critical path); spans without links fall back to the time-ordered
+    sequence — for a single request's sequential hops the two
+    coincide."""
+    spans = _doc_spans(doc)
+    if reshard_epoch is not None and trace_id is None:
+        # accept either the derived reshard root id or an explicit attr
+        want_tid = derived_trace_id("reshard", reshard_epoch)
+        sel = [
+            s for s in spans
+            if ids_of(s["args"])[0] == want_tid
+            or s["args"].get("reshard_epoch") == reshard_epoch
+        ]
+        if rid is not None or step is not None:
+            sel = [s for s in sel if _matches(s, rid, step, None, None)]
+    else:
+        sel = [
+            s for s in spans if _matches(s, rid, step, reshard_epoch, trace_id)
+        ]
+    if not sel:
+        return []
+
+    by_id: Dict[str, Dict[str, Any]] = {}
+    children: Dict[str, List[Dict[str, Any]]] = {}
+    linked = False
+    for s in sel:
+        _t, sid, parent = ids_of(s["args"])
+        if sid:
+            by_id[sid] = s
+    for s in sel:
+        _t, _sid, parent = ids_of(s["args"])
+        if parent and parent in by_id:
+            children.setdefault(parent, []).append(s)
+            linked = True
+
+    if linked:
+        # longest-total-duration root->leaf chain over the link forest
+        memo: Dict[int, Tuple[float, List[Dict[str, Any]]]] = {}
+
+        def best_chain(s) -> Tuple[float, List[Dict[str, Any]]]:
+            key = id(s)
+            if key in memo:
+                return memo[key]
+            memo[key] = (s["dur_s"], [s])  # cycle guard
+            _t, sid, _p = ids_of(s["args"])
+            best = (s["dur_s"], [s])
+            for c in children.get(sid or "", ()):
+                d, chain = best_chain(c)
+                if s["dur_s"] + d > best[0]:
+                    best = (s["dur_s"] + d, [s] + chain)
+            memo[key] = best
+            return best
+
+        roots = [
+            s for s in sel
+            if not (ids_of(s["args"])[2] and ids_of(s["args"])[2] in by_id)
+        ]
+        chain = max((best_chain(r) for r in roots), key=lambda x: x[0])[1]
+    else:
+        chain = sorted(sel, key=lambda s: s["t_s"])
+
+    hops: List[Dict[str, Any]] = []
+    prev_end: Optional[float] = None
+    for s in chain:
+        hops.append(
+            {
+                "name": s["name"],
+                "worker": s["worker"],
+                "t_s": s["t_s"],
+                "dur_s": s["dur_s"],
+                "gap_s": max(s["t_s"] - prev_end, 0.0)
+                if prev_end is not None else 0.0,
+            }
+        )
+        prev_end = s["t_s"] + s["dur_s"]
+    return hops
+
+
+def render_critical_path(hops: List[Dict[str, Any]]) -> str:
+    if not hops:
+        return "(empty critical path: no spans matched the filter)"
+    total = sum(h["dur_s"] for h in hops)
+
+    def ms(v: float) -> str:
+        return f"{v * 1e3:.1f}ms" if v < 1.0 else f"{v:.3f}s"
+
+    lines = [f"critical path: {len(hops)} hops, {ms(total)} busy"]
+    for i, h in enumerate(hops, 1):
+        gap = f"  (+{ms(h['gap_s'])} gap)" if h["gap_s"] > 0 else ""
+        lines.append(
+            f"  {i:>2}. [{h['worker']}] {h['name']:<26} "
+            f"t={ms(h['t_s']):>9}  dur={ms(h['dur_s']):>9}{gap}"
+        )
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# straggler analysis primitives
+
+
+def step_skew(
+    per_worker_p50: Dict[str, float]
+) -> Tuple[float, Optional[str], float]:
+    """(skew_ratio, slowest_worker, fleet_median) from per-worker step
+    p50s: skew = slowest p50 / fleet median (1.0 = perfectly even).
+    Needs >= 2 reporting workers to mean anything; returns (0, None,
+    0) otherwise."""
+    vals = {w: v for w, v in per_worker_p50.items() if v > 0}
+    if len(vals) < 2:
+        return 0.0, None, 0.0
+    ordered = sorted(vals.values())
+    n = len(ordered)
+    median = (
+        ordered[n // 2]
+        if n % 2
+        else (ordered[n // 2 - 1] + ordered[n // 2]) / 2.0
+    )
+    slow = max(vals, key=lambda w: vals[w])
+    return (vals[slow] / median if median > 0 else 0.0), slow, median
+
+
+def barrier_waits(arrivals: Dict[str, float]) -> Dict[str, float]:
+    """Per-worker barrier wait attributed to the LAST arriver: each
+    worker waits ``t_last - t_self`` (the straggler itself waits 0).
+    ``arrivals`` are offset-corrected wall times of each worker's
+    arrival at the same barrier (e.g. its ``worker.join`` for one
+    membership epoch)."""
+    if not arrivals:
+        return {}
+    t_last = max(arrivals.values())
+    return {w: max(t_last - t, 0.0) for w, t in arrivals.items()}
+
+
+def barrier_waits_from_events(
+    events: Iterable[Dict[str, Any]], kind: str = "worker.join"
+) -> Dict[str, float]:
+    """Barrier waits for the LATEST epoch with >= 2 arrivals, from a
+    (merged, offset-corrected) fleet event log. Arrival = the worker's
+    ``worker.join`` for that epoch."""
+    by_epoch: Dict[Any, Dict[str, float]] = {}
+    for e in events:
+        if e.get("kind") != kind:
+            continue
+        corr = e.get("corr") or {}
+        attrs = e.get("attrs") or {}
+        w = corr.get("worker")
+        ep = attrs.get("epoch", corr.get("reshard_epoch"))
+        if w is None or ep is None:
+            continue
+        # first join per (epoch, worker) wins: re-registration isn't
+        # a barrier arrival
+        by_epoch.setdefault(ep, {}).setdefault(str(w), float(e.get("t_wall", 0.0)))
+    candidates = [
+        (ep, arr) for ep, arr in by_epoch.items() if len(arr) >= 2
+    ]
+    if not candidates:
+        return {}
+    _ep, arrivals = max(candidates, key=lambda x: max(x[1].values()))
+    return barrier_waits(arrivals)
 
 
 # ---------------------------------------------------------------------------

@@ -248,6 +248,10 @@ class FlightRecorder:
         )
         return "\n".join(lines) + "\n"
 
+    def recent_jsonl(self, last_n: int = 256) -> str:
+        """The newest ``last_n`` events as JSONL (dumps/debugging)."""
+        return self.to_jsonl(last_n=last_n)
+
     def window_json(self, last_n: int = 256) -> str:
         """The fleet push window as ONE line — coordinator KV is a
         line protocol (``PUT k v\\n``), so the pushed value must not

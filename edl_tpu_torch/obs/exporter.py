@@ -2,16 +2,21 @@
 ``edl_tpu/obs/exporter.py``: a stdlib ``http.server`` endpoint serving
 
 * ``/metrics``  — Prometheus text exposition (format 0.0.4) of a
-  :class:`~edl_tpu_torch.obs.metrics.MetricsRegistry` (or of a callable
-  that rebuilds one per scrape);
+  :class:`~edl_tpu_torch.obs.metrics.MetricsRegistry` (or of a callable that
+  rebuilds one per scrape — the coordinator's fleet aggregation mode);
 * ``/trace``    — the process tracer's chrome://tracing JSON (load in
   Perfetto / chrome://tracing) with the flight recorder's events
   merged in as instant markers, and the ring-buffer ``dropped`` count
-  in the metadata; ``?since=<seq>`` / ``?n=`` bound the span window (an
-  incremental puller reads ``max_seq`` from the metadata event and
-  fetches only the delta);
+  in the metadata; ``?since=<seq>`` / ``?n=`` bound the span window
+  (the ``/events`` paging mirror — an incremental puller reads
+  ``max_seq`` from the metadata event and fetches only the delta on
+  the next cadence tick). A ``trace_source`` callable replaces the
+  local document entirely — the coordinator serves the offset-
+  corrected FLEET merge here (obs/disttrace.py);
 * ``/events``   — the flight recorder's event log as JSONL, filterable
-  by ``?rid=``, ``?kind=``, ``?severity=`` and bounded by ``?n=``;
+  by ``?rid=``, ``?kind=``, ``?severity=`` and bounded by ``?n=``
+  (obs/events.py; the coordinator serves the worker-labeled fleet
+  union here via its events source);
 * ``/history``  — windowed queries over the process's on-disk metric
   history (obs/tsdb.py) when a ``history`` store is attached:
   ``?name=&t0=&t1=&step=`` plus any label matchers; no ``name`` lists
@@ -24,10 +29,7 @@ on a slow consumer, and a scraper outage costs nothing. The server is
 a daemon-threaded ``ThreadingHTTPServer`` bound by default to
 loopback; ``port=0`` binds an ephemeral port (tests, `--metrics-port
 0`). Scrapes read shared registries under their own family locks — a
-scrape never takes a lock the step loop holds across a dispatch. The
-reference's fleet sources (a callable registry, ``events_source``,
-``trace_source``: the coordinator's aggregated views) come with the
-fleet's port.
+scrape never takes a lock the step loop holds across a dispatch.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Callable, List, Optional, Union
 from urllib.parse import parse_qs, urlsplit
 
 from edl_tpu_torch.obs.metrics import MetricsRegistry, ensure_core_series
@@ -49,21 +51,32 @@ CONTENT_TYPE_METRICS = "text/plain; version=0.0.4; charset=utf-8"
 
 
 class MetricsExporter:
-    """Own one telemetry endpoint over ``source`` (default: the process
-    registry, with the core catalog pre-registered). ``tracer`` defaults
-    to the process-wide tracer so ``/trace`` always works; ``/events``
-    serves the process flight recorder. ``history`` is a
-    :class:`~edl_tpu_torch.obs.tsdb.TSDB` (or a string path to a history
-    directory) served on ``/history``; absent, the endpoint 404s and is
-    omitted from ``/healthz``."""
+    """Own one telemetry endpoint.
+
+    ``source`` is a registry, or a zero-arg callable returning one
+    (re-evaluated per scrape; the fleet aggregator rebuilds a merged
+    registry from coordinator KV each time). ``tracer`` defaults to
+    the process-wide tracer so ``/trace`` always works.
+    ``events_source`` is a zero-arg callable returning event RECORDS
+    (dicts) for ``/events`` — defaults to the process flight
+    recorder; the coordinator passes its fleet-union collector.
+    ``trace_source`` is a zero-arg callable returning a chrome-trace
+    document for ``/trace`` — defaults to the local tracer+recorder
+    merge; the coordinator passes the fleet trace merge.
+    ``history`` is a :class:`~edl_tpu_torch.obs.tsdb.TSDB` (or a string
+    path to a history directory) served on ``/history``; absent, the
+    endpoint 404s and is omitted from ``/healthz``.
+    """
 
     def __init__(
         self,
-        source: Optional[MetricsRegistry] = None,
+        source: Union[MetricsRegistry, Callable[[], MetricsRegistry], None] = None,
         *,
         port: int = 0,
         host: str = "127.0.0.1",
         tracer=None,
+        events_source: Optional[Callable[[], List[dict]]] = None,
+        trace_source: Optional[Callable[[], dict]] = None,
         history=None,
     ):
         if isinstance(history, str):
@@ -75,12 +88,22 @@ class MetricsExporter:
             from edl_tpu_torch.obs.metrics import default_registry
 
             source = default_registry()
-        self._registry = ensure_core_series(source)
+        self._collect: Callable[[], MetricsRegistry] = (
+            source if callable(source) else (lambda: source)
+        )
+        if isinstance(source, MetricsRegistry):
+            ensure_core_series(source)
         if tracer is None:
             from edl_tpu_torch.utils import tracing
 
             tracer = tracing.tracer()
         self.tracer = tracer
+        if events_source is None:
+            from edl_tpu_torch.obs import events as _events
+
+            events_source = lambda: _events.default_recorder().records()  # noqa: E731
+        self._events = events_source
+        self._trace_source = trace_source
         self._host = host
         self._want_port = port
         self._t0 = time.monotonic()
@@ -197,14 +220,17 @@ class MetricsExporter:
     # -- collection ---------------------------------------------------------
 
     def render_metrics(self) -> str:
-        return self._registry.render()
+        return self._collect().render()
 
     def render_trace(self, qs: Optional[dict] = None) -> dict:
         """Chrome-trace doc: tracer spans + flight-recorder events
-        merged as instant markers (one Perfetto load shows both).
-        ``?since=<seq>``/``?n=`` bound the span window — mirror of
-        ``/events`` paging — so a cadence puller doesn't reship the
-        whole ring each tick."""
+        merged as instant markers (one Perfetto load shows both), or
+        the injected ``trace_source`` document (the coordinator's
+        offset-corrected fleet merge). ``?since=<seq>``/``?n=`` bound
+        the local span window — mirror of ``/events`` paging — so a
+        cadence puller doesn't reship the whole ring each tick."""
+        if self._trace_source is not None:
+            return self._trace_source()
         qs = qs or {}
         first = lambda k: (qs.get(k) or [None])[0]  # noqa: E731
         since = last_n = None
@@ -222,15 +248,12 @@ class MetricsExporter:
         )
 
     def render_events(self, qs: Optional[dict] = None) -> str:
-        """JSONL of the flight recorder's events, filtered by ``rid``/
-        ``kind``/``severity`` query params and bounded by ``n`` (newest
-        kept)."""
+        """JSONL of the events source, filtered by ``rid``/``kind``/
+        ``severity`` query params and bounded by ``n`` (newest kept)."""
         qs = qs or {}
         first = lambda k: (qs.get(k) or [None])[0]  # noqa: E731
         rid, kind, sev = first("rid"), first("kind"), first("severity")
-        from edl_tpu_torch.obs import events as _events
-
-        recs = _events.default_recorder().records()
+        recs = self._events()
         if rid is not None:
             recs = [r for r in recs if (r.get("corr") or {}).get("rid") == rid]
         if kind is not None:
@@ -250,16 +273,20 @@ class MetricsExporter:
 
 def start_exporter(
     source=None, *, port: int = 0, host: str = "127.0.0.1", tracer=None,
-    history=None,
+    events_source=None, trace_source=None, history=None,
 ) -> MetricsExporter:
     """Convenience: construct + start (``port=0`` = ephemeral)."""
-    return MetricsExporter(source, port=port, host=host, tracer=tracer,
-                           history=history).start()
+    return MetricsExporter(
+        source, port=port, host=host, tracer=tracer,
+        events_source=events_source, trace_source=trace_source,
+        history=history,
+    ).start()
 
 
 def scrape(url: str, path: str = "/metrics", timeout_s: float = 5.0) -> str:
-    """GET one endpoint path and return the body text. ``url`` may be a
-    bare ``host:port``."""
+    """GET one endpoint path and return the body text — the client
+    side of the ``top``, ``trace`` and ``postmortem`` verbs. ``url`` may
+    be a bare ``host:port``."""
     from urllib.request import urlopen
 
     if not url.startswith("http"):

@@ -1,20 +1,31 @@
-"""The worker half of ``edl_tpu/obs/fleet.py``: the tracer → histogram
-bridge (``bridge_tracer``, which ``serve --metrics-port`` installs), the
-coordinator-KV key helpers and :class:`MetricsPusher`, which an elastic
-worker (runtime/worker_main.py) starts to push its registry snapshot,
-flight-recorder window and span window into the job coordinator's KV
-on a fixed cadence (``{job}/metrics/{worker}`` and siblings).
+"""Fleet-wide telemetry plumbing — the port's copy of
+``edl_tpu/obs/fleet.py``: worker push, coordinator aggregation, tracer
+bridging and monitor-sample exposition.
 
-The coordinator-side half — the fleet aggregation, the fleet trace and
-event collectors and the straggler pass — waits for the CLI's backend
-switch (ROADMAP Queue A item 9).
+Every elastic worker (runtime/worker_main.py) starts a
+:class:`MetricsPusher` that pushes a JSON snapshot of its process
+registry, its flight-recorder window and its span window into the job
+coordinator's KV (``{job}/metrics/{worker}`` and siblings) on a fixed
+cadence; the coordinator process (runtime/coordinator_main.py
+``--metrics-port``) re-exposes the union on ``/metrics`` with every
+series labeled by worker (:func:`collect_fleet`), the worker-labeled
+event log on ``/events`` (:func:`collect_fleet_events`) and the
+offset-corrected fleet trace on ``/trace`` (:func:`collect_fleet_trace`);
+:func:`straggler_pass` derives the skew and barrier-wait gauges.
+
+Push for the worker->coordinator hop (the KV plane already exists),
+pull for everything facing operators (Prometheus model). Snapshots are
+full-state, so a lost push costs staleness, never correctness, and
+aggregation rebuilds from scratch each scrape — no delta protocol.
 """
 
 from __future__ import annotations
 
+import json
 import random
 import threading
-from typing import Callable, Optional
+from collections import deque
+from typing import Callable, Deque, Dict, Iterable, Optional
 
 from edl_tpu_torch.obs.metrics import MetricsRegistry, default_registry
 from edl_tpu_torch.utils import faults
@@ -90,10 +101,17 @@ class MetricsPusher:
         self._recorder = recorder
         # recent tracer-span window on the same cadence: what the
         # coordinator's fleet /trace merges onto one clock axis
-        # (obs/disttrace.span_window_json — wall-anchored spans)
+        # (obs/disttrace.span_window_json — wall-anchored spans).
+        # ``trace_window`` is the floor; a push also carries every span
+        # recorded since the push before last, so each worker's window
+        # spans two push intervals whatever its span rate, and windows
+        # pushed out of phase still overlap (port-only: the reference
+        # ships the newest ``trace_window`` only, which a rank recording
+        # many spans a step fills in a fraction of an interval)
         self._trace_publish = trace_publish
         self.trace_window = trace_window
         self._tracer = tracer
+        self._trace_marks: Deque[int] = deque(maxlen=2)
         # throttled clock re-sample (disttrace.ClockSync.maybe_sample
         # closure): offsets drift, so the estimate refreshes on the
         # push cadence without a dedicated thread
@@ -154,10 +172,14 @@ class MetricsPusher:
                 self._events_publish(rec.window_json(self.events_window))
             if self._trace_publish is not None:
                 from edl_tpu_torch.obs import disttrace
+                from edl_tpu_torch.utils import tracing
 
-                self._trace_publish(
-                    disttrace.span_window_json(self._tracer, self.trace_window)
-                )
+                tr = self._tracer or tracing.tracer()
+                seq = tr._seq
+                since = self._trace_marks[0] if self._trace_marks else seq
+                self._trace_publish(disttrace.span_window_json(
+                    tr, max(self.trace_window, seq - since)))
+                self._trace_marks.append(seq)
             if self._clock_refresh is not None:
                 self._clock_refresh()
             with self._state_lock:
@@ -242,6 +264,218 @@ def _default_crosscheck() -> Optional[dict]:
     return memledger.default_ledger().crosscheck()
 
 
+def aggregate_snapshots(
+    snaps: Dict[str, str | dict], reg: Optional[MetricsRegistry] = None
+) -> MetricsRegistry:
+    """Merge per-source snapshot JSONs into one registry, labeling
+    every series ``worker=<source>``. Undecodable snapshots are
+    skipped (a half-written KV value must not kill the scrape)."""
+    reg = reg or MetricsRegistry()
+    for worker, raw in sorted(snaps.items()):
+        try:
+            snap = json.loads(raw) if isinstance(raw, str) else raw
+            reg.merge_snapshot(snap, labels={"worker": worker})
+        except (ValueError, TypeError) as e:
+            log.warn("bad metrics snapshot", worker=worker, error=str(e))
+    return reg
+
+
+def collect_fleet(
+    client, job: str, extra_sources: Iterable[str] = (),
+    straggler: bool = True,
+) -> MetricsRegistry:
+    """Coordinator-side aggregation pass: read every live member's
+    pushed snapshot (plus well-known non-member sources like the
+    epoch's dist_service host) from KV and merge. Rebuilt per scrape —
+    counters stay correct because each pass starts from an empty
+    registry. With ``straggler`` (default) the merged per-worker
+    step-time histograms additionally feed the skew gauges
+    (:func:`straggler_pass`)."""
+    names = [m.name for m in client.members()]
+    names.extend(extra_sources)
+    snaps: Dict[str, str] = {}
+    for name in names:
+        v = client.kv_get(metrics_key(job, name))
+        if v:
+            snaps[name] = v
+    reg = aggregate_snapshots(snaps)
+    g = reg.gauge("edl_fleet_reporting_workers", "workers with a pushed metrics snapshot")
+    g.set(len(snaps))
+    if straggler:
+        try:
+            straggler_pass(reg, client=client, job=job)
+        except Exception as e:  # analysis must never kill the scrape
+            log.warn("straggler pass failed", error=str(e))
+    return reg
+
+
+def load_clock_offsets(
+    client, job: str, names: Iterable[str]
+) -> Dict[str, float]:
+    """Per-worker clock offsets (seconds to ADD to a worker's wall
+    clock to land on the coordinator axis) from the estimates each
+    worker published at its register/heartbeat handshake
+    (obs/disttrace.ClockSync). Missing/undecodable -> omitted (treated
+    as 0 downstream)."""
+    from edl_tpu_torch.obs.disttrace import ClockEstimate
+
+    out: Dict[str, float] = {}
+    for name in names:
+        raw = client.kv_get(clock_key(job, name))
+        if not raw:
+            continue
+        est = ClockEstimate.from_json(raw)
+        if est is not None:
+            out[name] = est.offset_s
+    return out
+
+
+def collect_fleet_events(
+    client, job: str, extra_sources: Iterable[str] = (),
+    apply_clock: bool = True,
+) -> list:
+    """Coordinator-side fleet log: read every live member's pushed
+    flight-recorder window from KV, tag each record with its worker
+    (unless the worker already stamped its context), correct each
+    record's ``t_wall`` onto the coordinator's clock axis using the
+    published per-worker offsets (``apply_clock``), and merge in
+    causal order (corrected wall time, then per-process seq).
+    Undecodable windows are skipped like bad metric snapshots — a
+    half-written KV value must not kill the scrape."""
+    from edl_tpu_torch.obs.events import load_jsonl
+
+    names = [m.name for m in client.members()]
+    names.extend(extra_sources)
+    offsets = load_clock_offsets(client, job, names) if apply_clock else {}
+    merged: list = []
+    for name in names:
+        raw = client.kv_get(events_key(job, name))
+        if not raw:
+            continue
+        try:
+            recs = load_jsonl(raw)
+        except ValueError:
+            continue  # a window with no events yet
+        off = offsets.get(name, 0.0)
+        for r in recs:
+            r.setdefault("corr", {}).setdefault("worker", name)
+            if off and "t_wall" in r:
+                try:
+                    r["t_wall"] = float(r["t_wall"]) + off
+                except (TypeError, ValueError):
+                    pass
+        merged.extend(recs)
+    merged.sort(key=lambda r: (r.get("t_wall", 0.0), r.get("seq", 0)))
+    return merged
+
+
+def collect_fleet_trace(
+    client, job: str, extra_sources: Iterable[str] = (),
+    local_name: str = "coordinator", tracer=None,
+) -> dict:
+    """The fleet ``/trace`` document: every live member's pushed span
+    window ({job}/trace/{worker}), offset-corrected onto the
+    coordinator's clock axis and merged into ONE Perfetto doc with a
+    per-worker ``pid``, ``process_name`` metadata, and chrome flow
+    events linking RPC client→server span pairs
+    (obs/disttrace.merge_fleet_trace). The coordinator process's own
+    tracer rides along as ``local_name`` (offset 0 — it IS the
+    reference clock)."""
+    from edl_tpu_torch.obs import disttrace
+
+    names = [m.name for m in client.members()]
+    names.extend(extra_sources)
+    windows: Dict[str, str] = {}
+    for name in names:
+        raw = client.kv_get(trace_key(job, name))
+        if raw:
+            windows[name] = raw
+    offsets = load_clock_offsets(client, job, names)
+    if local_name:
+        windows[local_name] = disttrace.span_window_doc(tracer)
+        offsets[local_name] = 0.0
+    return disttrace.merge_fleet_trace(windows, offsets)
+
+
+# ---------------------------------------------------------------------------
+# straggler analysis (obs/disttrace primitives -> scrapeable gauges)
+
+
+# emit straggler.detected once per (worker, rounded skew) — a scrape
+# cadence must not flood the flight ring with identical detections
+_last_straggler: Optional[tuple] = None
+_straggler_lock = threading.Lock()
+
+
+def straggler_pass(
+    reg: MetricsRegistry,
+    client=None,
+    job: Optional[str] = None,
+    threshold: Optional[float] = None,
+) -> None:
+    """Derive straggler telemetry from a fleet-merged registry (and,
+    when a KV client is given, the fleet event log):
+
+    * ``edl_step_skew_ratio`` — slowest worker's step p50 over the
+      fleet median (1.0 = even; needs >= 2 reporting workers);
+    * ``edl_barrier_wait_seconds{worker}`` — rendezvous-barrier wait
+      attributed to the LAST arriver (from offset-corrected
+      ``worker.join`` arrivals of the latest epoch);
+    * a ``straggler.detected`` flight event naming the slow worker
+      when the skew crosses ``threshold`` (EDL_STRAGGLER_RATIO,
+      default 1.5)."""
+    import os as _os
+
+    from edl_tpu_torch.obs import disttrace
+
+    if threshold is None:
+        try:
+            threshold = float(_os.environ.get("EDL_STRAGGLER_RATIO", "1.5"))
+        except ValueError:
+            threshold = 1.5
+    fam = reg.get("edl_train_step_seconds")
+    p50s: Dict[str, float] = {}
+    if fam is not None and "worker" in fam.labelnames:
+        wi = list(fam.labelnames).index("worker")
+        for key, _s in fam.samples():
+            w = key[wi]
+            p50s[w] = fam.percentile(
+                0.5, **dict(zip(fam.labelnames, key))
+            )
+    skew, slow, median = disttrace.step_skew(p50s)
+    reg.gauge(
+        "edl_step_skew_ratio",
+        "slowest worker step p50 over the fleet median (1.0 = even)",
+    ).set(skew)
+    if slow is not None and skew >= threshold:
+        global _last_straggler
+        sig = (slow, round(skew, 1))
+        with _straggler_lock:
+            fire, _last_straggler = sig != _last_straggler, sig
+        if fire:
+            from edl_tpu_torch.obs import events as _events
+
+            _events.emit(
+                "straggler.detected", severity="warn", worker=slow,
+                skew_ratio=round(skew, 3), fleet_median_s=round(median, 6),
+                p50_s=round(p50s[slow], 6),
+            )
+    if client is not None and job is not None:
+        waits = disttrace.barrier_waits_from_events(
+            collect_fleet_events(client, job)
+        )
+        if waits:
+            g = reg.gauge(
+                "edl_barrier_wait_seconds",
+                "rendezvous-barrier wait charged to the last arriver",
+                ("worker",),
+            )
+            for w, wait in sorted(waits.items()):
+                g.set(wait, worker=w)
+
+
+# ---------------------------------------------------------------------------
+# tracer -> histogram bridge
 
 
 def bridge_tracer(
@@ -266,3 +500,46 @@ def bridge_tracer(
 
     tr.add_listener(_on_span)
     return _on_span
+
+
+# ---------------------------------------------------------------------------
+# MonitorSample -> registry (the controller/StoreSource exposition path)
+
+
+def registry_from_sample(sample, reg: Optional[MetricsRegistry] = None) -> MetricsRegistry:
+    """Map one monitor sample (the reference's ``MonitorSample`` or any
+    object with its fields: ClusterSource, StoreSource, ServingSource)
+    onto gauges — the controller daemon re-exposes its census this way;
+    the rendered text is the reference's (tests/test_torch_fleet_obs.py)."""
+    reg = reg or MetricsRegistry()
+    g = reg.gauge
+    g("edl_fleet_cpu_total_milli", "cluster CPU capacity (millicores)").set(
+        sample.cpu_total_milli
+    )
+    g("edl_fleet_cpu_request_milli", "cluster CPU requested (millicores)").set(
+        sample.cpu_request_milli
+    )
+    g("edl_fleet_chip_total", "cluster accelerator chips").set(sample.chip_total)
+    g("edl_fleet_chip_request", "cluster chips requested").set(sample.chip_request)
+    g("edl_fleet_cpu_util_pct", "CPU utilization percent").set(sample.cpu_util)
+    g("edl_fleet_chip_util_pct", "chip utilization percent").set(sample.chip_util)
+    g("edl_fleet_jobs", "job census", ("state",)).set(
+        len(sample.submitted_jobs), state="submitted"
+    )
+    reg.get("edl_fleet_jobs").set(len(sample.pending_jobs), state="pending")
+    workers = g("edl_job_workers", "running workers", ("job",))
+    target = g("edl_job_parallelism", "autoscaler target parallelism", ("job",))
+    reshards = g("edl_job_reshards", "reshard count (sampled)", ("job",))
+    stall = g("edl_job_last_reshard_stall_seconds", "last reshard stall", ("job",))
+    fallbacks = g("edl_job_reshard_fallbacks", "host-staged reshards (sampled)", ("job",))
+    for name in sample.submitted_jobs:
+        workers.set(sample.running_workers.get(name, 0), job=name)
+        target.set(sample.parallelism.get(name, 0), job=name)
+        reshards.set(sample.reshards.get(name, 0), job=name)
+        stall.set(sample.last_stall_s.get(name, 0.0), job=name)
+        fallbacks.set(sample.reshard_fallbacks.get(name, 0), job=name)
+    if sample.serving:
+        sv = g("edl_serving_snapshot", "serving engine snapshot values", ("key",))
+        for k, v in sorted(sample.serving.items()):
+            sv.set(float(v), key=k)
+    return reg

@@ -16,8 +16,11 @@ Histograms are fixed-bucket (Prometheus-style cumulative ``le``
 edges), and p50/p95/p99 are linear interpolation inside the owning
 bucket — the same estimate a PromQL ``histogram_quantile`` would give.
 ``MetricsRegistry.snapshot()`` is a JSON-able dict: what the metric
-history (``obs/tsdb.py``) stores. The reference's ``merge_snapshot``
-(the fleet's KV aggregation) waits for the rest of ``obs/fleet``.
+history (``obs/tsdb.py``) stores and a worker pushes, and
+``merge_snapshot`` folds one registry's snapshot into another under
+extra labels (worker id), which is how the coordinator aggregates the
+fleet (``obs/fleet.py``). Fixed edges make that merge exact
+bucket-count addition.
 """
 
 from __future__ import annotations
@@ -331,7 +334,7 @@ class MetricsRegistry:
             fam.render(out)
         return "\n".join(out) + "\n"
 
-    # -- snapshot (the format the metric history stores and pushes) -------
+    # -- snapshot / merge (the metric history and the fleet push) ---------
 
     def snapshot(self) -> Dict[str, Any]:
         """JSON-able full dump of every family: what the metric history
@@ -362,6 +365,56 @@ class MetricsRegistry:
                 ]
             fams.append(rec)
         return {"v": 1, "families": fams}
+
+    def merge_snapshot(
+        self, snap: Dict[str, Any], labels: Optional[Dict[str, str]] = None
+    ) -> None:
+        """Fold another registry's :meth:`snapshot` into this one,
+        tagging every series with ``labels`` (e.g. ``worker="w3"``) —
+        the coordinator-side aggregation primitive. Counters and
+        histogram buckets ADD (so repeated merges of the same worker's
+        successive snapshots must go through a fresh registry per
+        aggregation pass, which is what obs/fleet.py does); gauges
+        overwrite."""
+        extra = dict(labels or {})
+        extra_names = tuple(sorted(extra))
+        for rec in snap.get("families", []):
+            names = tuple(rec.get("labelnames", ())) + extra_names
+            kind = rec.get("kind")
+            name = rec.get("name", "")
+            try:
+                if kind == "histogram":
+                    fam = self.histogram(
+                        name, rec.get("help", ""), names,
+                        buckets=rec.get("buckets", DEFAULT_BUCKETS),
+                    )
+                elif kind == "counter":
+                    fam = self.counter(name, rec.get("help", ""), names)
+                elif kind == "gauge":
+                    fam = self.gauge(name, rec.get("help", ""), names)
+                else:
+                    continue
+            except ValueError:
+                # schema drift across fleet versions: drop rather than
+                # poison the whole scrape
+                continue
+            for s in rec.get("samples", []):
+                lv = dict(zip(rec.get("labelnames", ()), s.get("labels", [])))
+                lv.update(extra)
+                if kind == "histogram":
+                    if tuple(rec.get("buckets", ())) != fam.buckets:
+                        continue  # incompatible edges: not mergeable
+                    with fam._lock:
+                        dst = fam._sample_locked(lv)
+                        for i, c in enumerate(s.get("counts", [])):
+                            if i < len(dst.counts):
+                                dst.counts[i] += c
+                        dst.sum += s.get("sum", 0.0)
+                        dst.count += s.get("count", 0.0)
+                elif kind == "counter":
+                    fam.inc(float(s.get("value", 0.0)), **lv)
+                else:
+                    fam.set(float(s.get("value", 0.0)), **lv)
 
     def snapshot_json(self) -> str:
         """:meth:`snapshot` as one compact JSON line: the fleet push

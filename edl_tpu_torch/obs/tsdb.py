@@ -32,7 +32,17 @@ value instead of letting a windowed delta go negative — the classic
 
 The PyTorch port's copy of ``edl_tpu/obs/tsdb.py``, unchanged in
 behaviour. The exporter serves it on ``/history``; ``loadgen
---tsdb-dir`` records into it.
+--tsdb-dir`` and the coordinator (``coordinator_main --tsdb-dir``)
+record into it. One difference inside: a ``TSDB`` keeps each segment's
+parsed lines and parses only what was appended since its last query,
+where the reference parses every line on every query (a replay
+evaluates every rule at every append, so its cost grew with the square
+of the history). The parsed lines live as long as the ``TSDB`` and are
+those of the segments on disk, which retention holds to ``max_bytes``
+(16 MiB by default; as Python objects a few times that). The record
+iterators hand out the cached objects and their callers only read
+them; :meth:`TSDB.hist_points`, whose samples leave the store, returns
+copies.
 """
 
 from __future__ import annotations
@@ -73,6 +83,12 @@ def parse_series_key(key: str) -> Tuple[str, Dict[str, str]]:
             k, _, v = part.partition("=")
             labels[k] = v
     return name, labels
+
+
+def _hist_copy(h: Dict[str, Any]) -> Dict[str, Any]:
+    """A histogram sample the caller may change without touching the
+    store's parsed lines."""
+    return {k: list(v) if isinstance(v, list) else v for k, v in h.items()}
 
 
 def flatten_snapshot(
@@ -220,6 +236,11 @@ class TSDB:
         self.segment_bytes = int(segment_bytes)
         self.max_bytes = int(max_bytes)
         self._lock = threading.Lock()
+        # parsed lines by segment name: (bytes consumed, records);
+        # segments only grow, so a query parses only the complete lines
+        # appended since the last one
+        self._parsed: Dict[str, Tuple[int, List[Any]]] = {}
+        self._read_lock = threading.Lock()
         self._tiers = [_Tier(w) for w in sorted(tiers)]
         os.makedirs(path, exist_ok=True)
         # resume numbering after existing segments so a reopened dir
@@ -324,37 +345,71 @@ class TSDB:
 
     # -- read side ---------------------------------------------------
 
+    @staticmethod
+    def _parse_raw(line: bytes):
+        """One raw line as (t, scalars, hists), or None when it does
+        not parse (the truncated tail of a crashed writer)."""
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            return None
+        return (float(rec.get("t", math.nan)),
+                *flatten_snapshot(rec.get("snap", {})))
+
+    @staticmethod
+    def _parse_tier(line: bytes):
+        try:
+            return json.loads(line)
+        except ValueError:
+            return None
+
+    def _segment(self, fname: str, size: int, parse) -> List[Any]:
+        """A segment's parsed complete lines, plus its unterminated
+        tail's (parsed, not kept: a writer may still be finishing it).
+        Lines that do not parse are skipped."""
+        with self._read_lock:
+            done, recs = self._parsed.get(fname, (0, []))
+            if size < done:  # a new file under the same name
+                done, recs = 0, []
+            tail = None
+            if size > done:
+                with open(os.path.join(self.path, fname), "rb") as f:
+                    f.seek(done)
+                    data = f.read(size - done)
+                end = data.rfind(b"\n") + 1
+                recs = recs + [r for r in map(parse, data[:end].splitlines())
+                               if r is not None]
+                done += end
+                if data[end:]:
+                    tail = parse(data[end:])
+            self._parsed[fname] = (done, recs)
+        return recs + ([tail] if tail is not None else [])
+
+    def _segments_of(self, want: str):
+        """(fname, size) of every segment of kind ``want``; forgets the
+        parsed lines of segments retention removed."""
+        segs = self._segments()
+        live = {fname for fname, _, _ in segs}
+        with self._read_lock:
+            for fname in set(self._parsed) - live:
+                del self._parsed[fname]
+        return [(fname, size) for fname, kind, size in segs if kind == want]
+
     def _iter_raw(
         self, t0: float, t1: float
     ) -> Iterable[Tuple[float, Dict[str, float], Dict[str, Any]]]:
-        for fname, kind, _ in self._segments():
-            if kind != "raw":
-                continue
-            with open(os.path.join(self.path, fname)) as f:
-                for line in f:
-                    try:
-                        rec = json.loads(line)
-                    except ValueError:
-                        continue  # truncated tail of a crashed writer
-                    t = float(rec.get("t", math.nan))
-                    if t0 <= t <= t1:
-                        yield (t, *flatten_snapshot(rec.get("snap", {})))
+        for fname, size in self._segments_of("raw"):
+            for rec in self._segment(fname, size, self._parse_raw):
+                if t0 <= rec[0] <= t1:
+                    yield rec
 
     def _iter_tier(
         self, width_s: float, t0: float, t1: float
     ) -> Iterable[Dict[str, Any]]:
-        kind = f"agg{int(width_s)}"
-        for fname, k, _ in self._segments():
-            if k != kind:
-                continue
-            with open(os.path.join(self.path, fname)) as f:
-                for line in f:
-                    try:
-                        rec = json.loads(line)
-                    except ValueError:
-                        continue
-                    if rec.get("t1", 0) > t0 and rec.get("t0", 0) < t1:
-                        yield rec
+        for fname, size in self._segments_of(f"agg{int(width_s)}"):
+            for rec in self._segment(fname, size, self._parse_tier):
+                if rec.get("t1", 0) > t0 and rec.get("t0", 0) < t1:
+                    yield rec
         # the writer's open bucket is part of the history its own
         # process queries (alert engines run in the appender)
         for tier in self._tiers:
@@ -426,14 +481,14 @@ class TSDB:
         :meth:`points`."""
         key = series_key(name, labels)
         pts = [
-            (t, hists[key])
+            (t, _hist_copy(hists[key]))
             for t, _, hists in self._iter_raw(t0, t1)
             if key in hists
         ]
         covered_from = min((t for t, _ in pts), default=math.inf)
         for tier in self._tiers:
             fill = [
-                (ts, rec["hist"][key])
+                (ts, _hist_copy(rec["hist"][key]))
                 for rec in self._iter_tier(tier.width_s, t0, t1)
                 if key in rec.get("hist", {})
                 for ts in (min(rec["t1"], rec.get("tl", rec["t1"])),)

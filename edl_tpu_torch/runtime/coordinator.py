@@ -21,7 +21,8 @@ docker/paddle_k8s:26-32).
 There is no Python fallback: the server raises when the build fails,
 as the reference's does. The in-process coordinators
 (``NativeCoordinator``, ``PyCoordinator`` and its ``LeaseTable``) wait
-for ROADMAP Queue A item 9.
+for ROADMAP Queue A item 9c. ``runtime/coordinator_main.py`` runs the
+server as a process, with the fleet's telemetry endpoint beside it.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """The task record of the elastic data queue — the part of
 ``edl_tpu/runtime/data.py`` that the coordinator client needs. The queue
 classes (``ElasticDataQueue``, ``QueueBatcher``) belong to the in-process
-coordinator and are not ported yet (ROADMAP Queue A item 9).
+coordinator and are not ported yet (ROADMAP Queue A item 9c).
 """
 
 from __future__ import annotations

@@ -112,11 +112,12 @@ class WorkerConfig:
     # exporter (/metrics Prometheus text, /trace chrome-trace JSON,
     # /healthz) on that port (0 = ephemeral; the bound port is
     # published in coordinator KV at {job}/metrics_addr/{worker} so
-    # `edl top` can find it). -1 = no exporter.
+    # the top verb can find it). -1 = no exporter.
     metrics_port: int = -1
     # cadence of metric-snapshot pushes into coordinator KV
-    # ({job}/metrics/{worker}) for the coordinator's fleet-aggregated
-    # /metrics (runtime/coordinator_main.py --metrics-port). 0 = no
+    # ({job}/metrics/{worker}, with the event, span and clock windows)
+    # that the coordinator's fleet /metrics, /events and /trace read
+    # (runtime/coordinator_main.py --metrics-port, obs/fleet.py). 0 = no
     # pushes. Matches the reference collector's 10 s census period.
     metrics_push_s: float = 10.0
     # EDL_TSDB_DIR: record this worker's registry snapshot into an

@@ -55,6 +55,15 @@ Each worker serves its current RAM snapshot from one shard server
 the plane off and every restore reads the commit). Under dp each
 worker holds whole leaves, so one peer's pieces tile the state.
 
+Telemetry: every ``EDL_METRICS_PUSH_S`` seconds a worker pushes its
+registry snapshot, flight-recorder window, the spans recorded since
+its push before last (at least the newest 128) and clock estimate into the coordinator's KV, which the
+coordinator process (runtime/coordinator_main.py) serves as the fleet's
+``/metrics``, ``/events`` and ``/trace``. Each step runs under the
+derived ``("step", job, epoch, i)`` root and each regroup's restore
+under ``("reshard", epoch)``, so ``trace --step`` and ``trace
+--reshard-epoch`` select them across workers.
+
 Not ported yet: meshes other than dp and several devices a process
 (ROADMAP Queue A item 2b) raise at start.
 
@@ -730,8 +739,13 @@ class ElasticWorker:
             mesh = plan.build([self._device])
             self._local_rows = cfg.per_device_batch * plan.batch_shards() // world
             try:
-                state = self._restore_state(wl, tx, cl=cl, epoch=epoch,
-                                            rank=rank, members=members)
+                # the regroup's restore under the reshard root every
+                # member derives alike (``trace --reshard-epoch E``)
+                with disttrace.root("reshard", epoch), tracing.span(
+                        "worker.restore", reshard_epoch=epoch, rank=rank,
+                        world=world, worker=cfg.worker_id):
+                    state = self._restore_state(wl, tx, cl=cl, epoch=epoch,
+                                                rank=rank, members=members)
             except (OSError, ValueError, KeyError, RuntimeError) as e:
                 # a p2p source died between decision and fetch, the
                 # decision never came, or a torn read of a checkpoint

@@ -170,6 +170,22 @@ class Tracer:
         out["_tracer"] = {"spans": len(spans), "dropped": dropped}
         return out
 
+    def to_chrome_trace(self) -> List[Dict[str, Any]]:
+        """Catapult "X" (complete) events, microsecond units — loadable in
+        chrome://tracing and Perfetto."""
+        return [
+            {
+                "name": s.name,
+                "ph": "X",
+                "ts": s.start_s * 1e6,
+                "dur": s.dur_s * 1e6,
+                "pid": os.getpid(),
+                "tid": s.thread % 2**31,
+                "args": s.attrs,
+            }
+            for s in self.spans()
+        ]
+
     def _snapshot(self):
         """(spans, dropped) under one lock acquire: readers must see a
         consistent pair (an unguarded ``self.dropped`` read races the

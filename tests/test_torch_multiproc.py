@@ -367,3 +367,17 @@ def test_chip_smoke_elastic_phase_runs_on_the_cpu(tmp_path):
     # w000 stays rank 0 and spawns every epoch's store host
     assert all(s["store_host_boot_s"] > 0 for s in row["stalls"])
     assert {c["kind"] for c in row["commits"]} == {"reshard", "crash"}
+    # the fleet read side beside the job: a window at each world, the
+    # grow's reshard and step critical paths, coordinator_main's process
+    fleet = row["fleet"]
+    assert [w["world"] for w in fleet["windows"]] == [2, 3, 2, 1]
+    assert [w["members"] for w in fleet["windows"]] == [
+        ["w000", "w001"], ["w000", "w001", "w002"], ["w000", "w001"],
+        ["w000"]]
+    grow = fleet["windows"][1]
+    assert sorted(grow["barrier_wait_s"]) == ["w000", "w001", "w002"]
+    assert grow["step_critical_path"]["hops"] >= 1
+    assert fleet["grow_reshard"]["path"]["hops"] >= 1
+    assert fleet["grow_reshard"]["epoch"] == row["stalls"][0]["epochs"][1]
+    assert fleet["coordinator_process"]["sigterm_rc"] == 0
+    assert fleet["watch"]["pages"] == 0 and fleet["fleet_history_appends"] > 1

@@ -443,8 +443,13 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     assert len(files) > 15
     runtime = os.path.join(ROOT, "edl_tpu_torch", "runtime")
     for name in ("worker_main", "launcher", "dist_service", "coordinator",
-                 "workloads", "entrypoint", "shard_server", "p2p_restore"):
+                 "workloads", "entrypoint", "shard_server", "p2p_restore",
+                 "coordinator_main"):
         assert os.path.join(runtime, f"{name}.py") in files
+    obs = os.path.join(ROOT, "edl_tpu_torch", "obs")
+    for name in ("fleet", "disttrace", "alerts", "top", "postmortem",
+                 "exporter", "metrics", "events", "tsdb", "profile"):
+        assert os.path.join(obs, f"{name}.py") in files
     elasticity = os.path.join(ROOT, "edl_tpu_torch", "elasticity")
     for name in ("__init__", "weightpush", "broker", "controller",
                  "distbroker", "holder"):

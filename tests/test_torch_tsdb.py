@@ -110,6 +110,39 @@ def test_files_and_queries_equal_the_references(tmp_path, kw):
     assert _queries(tdb2) == _queries(jdb2)
 
 
+@pytest.mark.parametrize("kw", [
+    {}, {"segment_bytes": 2048, "max_bytes": 12 << 10, "tiers": (5.0, 20.0)},
+], ids=["default", "retained"])
+def test_queries_between_appends_equal_a_fresh_references(tmp_path, kw):
+    """The port's store keeps each segment's parsed lines and reads only
+    what was appended since its last query. Queried after appends (rolls
+    and retention included), and across a torn tail that a writer later
+    completes, it answers as the reference's store (which parses every
+    line on every query) given the same appends."""
+    tdb = ttsdb.TSDB(str(tmp_path / "t"), **kw)
+    jdb = jtsdb.TSDB(str(tmp_path / "j"), **kw)
+    snaps = _snapshots(TRegistry, 30, restart_at=20)
+    for i, snap in enumerate(snaps):
+        tdb.append(snap, t=1000.0 + 1.7 * i)
+        jdb.append(snap, t=1000.0 + 1.7 * i)
+        if i % 4 == 0 or i == len(snaps) - 1:
+            got = _queries(tdb)
+            assert got == _queries(jdb), i
+            for _, h in got["hist_points"]:  # a caller that changes what
+                h["counts"].clear()          # it was given changes no
+                h["count"] = -1.0            # later answer
+    line = json.dumps({"t": 2000.0, "snap": snaps[3]},
+                      separators=(",", ":")) + "\n"
+    raws = [sorted(p.glob("raw-*"))[-1] for p in (tmp_path / "t",
+                                                  tmp_path / "j")]
+    for cut in (slice(None, 40), slice(40, None)):
+        for raw in raws:
+            with open(raw, "a") as f:
+                f.write(line[cut])  # a writer's half-written line, then
+        assert _queries(tdb) == _queries(jdb)  # the rest of it
+    assert tdb.raw_times()[-1] == 2000.0
+
+
 def test_helpers_equal_the_references(tmp_path):
     reg_t, reg_j = _fill(TRegistry(), 4), _fill(JRegistry(), 4)
     assert ttsdb.flatten_snapshot(reg_t.snapshot()) == \
