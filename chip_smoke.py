@@ -392,10 +392,43 @@ slots and horizon, each replica's primal launches (its ``/metrics``)
 ``elasticity_warm_fetch_s`` and ``elasticity_cold_load_s`` (export, then
 ``load_export``, of the same tree).
 
+Control phase (last; ROADMAP items 9c and 9d): the control plane and
+the in-process coordination plane, one JSON line. (a) The squeeze of
+``examples/elastic_demo.py`` (10 hosts x 4 chips, max load 1.0, three
+elastic jobs submitted in turn) through ``Controller``, ``Autoscaler(
+use_native=True)``, ``FakeCluster`` and ``Collector(ClusterSource)``:
+after every settle each job's running workers and parallelism and the
+pending jobs equal ``CONTROL_SQUEEZE_TRACE`` (the reference's run;
+``tests/test_torch_control.py`` holds it), pending ends at 0 and no
+worker group is created twice. (b) A fleet of 256 hosts x 8 chips (96
+cores, 384 GiB a host) and 64 seeded elastic jobs: 4 control ticks (host
+ms of the reconcile, the autoscaler's tick and the updaters' step), then
+the Python and the native planner on one snapshot (host ms each), the
+native plan not None and equal to the Python one; chips requested and
+total. (c) The job verbs through ``cli.main`` in this process on the
+JSON forms of ``examples/ctr/job.yaml`` and ``examples/llama/job.yaml``:
+``validate``, ``submit``, ``controller --iterations 6 --tick-s 0``,
+``list``, ``status``, ``monitor --json --polls 1``, ``delete``, equal to
+``CONTROL_VERBS_EXPECT`` (the reference's verbs; without PyYAML the jobs
+are written to the store directly and ``validate`` / ``submit`` are
+reported as held on the CPU only). (d) The flagship (as in 6) trained
+from ``ElasticDataQueue(64, chunk 6)`` + ``QueueBatcher`` at B4 T2048 on
+``synthetic_tokens`` until the queue is done, ``w1`` leasing a task at
+step 2 and released at step 3: every sample trained once (``w1``'s after
+its release), each step's loss equal to a run fed the recorded sample
+ranges directly from the same init, launches of ``flash_fwd_lse`` /
+``flash_bwd_dq`` / ``flash_bwd_dkv`` equal to steps x (32, 16, 16) and
+no primal forward; ``make_coordinator()`` is the ``NativeCoordinator``
+and a membership / KV / barrier / queue script gives it the answers of
+``PyCoordinator``. (e) ``Collector(ServingSource(...))`` over the slice
+phase's serving metrics: the sample's serving block equals their
+snapshot and carries the efficiency block. The phase fails above
+``CONTROL_MAX_S`` (90 s).
+
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
 shape, and its launches on the main path; the three training kernels
-four times, at B4 T2048 with the train phase's launches, at each
+four times, at B4 T2048 with the train and control phases' launches, at each
 ladder rung's shape (the batch that fit) with that rung's launches
 and at the MoE's B4 T2048 H8 KV4 with the moe phase's 5 steps,
 each with its launches on every training path, the int8 rungs' too;
@@ -416,6 +449,7 @@ exits 1 before printing any result. Needs one card.
 """
 
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -821,8 +855,9 @@ def _slice_requests(vocab):
 
 def slice_phase(card):
     """Returns the flash launches of the run, the model's (params, cfg),
-    which the serving-modes and int8_serving phases reuse, and the
-    run's tokens/s."""
+    which the serving-modes and int8_serving phases reuse, the run's
+    tokens/s and its ``ServingMetrics`` (the control phase's serving
+    sample)."""
     import dataclasses
 
     import torch
@@ -919,7 +954,8 @@ def slice_phase(card):
         "card": card,
     }
     print(json.dumps(row), flush=True)
-    return launches, params, cfg, row["tokens_per_s"]
+    # the serving metrics: the control phase samples them at the end
+    return launches, params, cfg, row["tokens_per_s"], metrics
 
 
 OBS_FAULT_PLAN = "serve.dispatch:raise@n=2;serve.drain:raise@n=5"
@@ -5935,7 +5971,584 @@ def serving_modes_depths(card, depths):
     return 0
 
 
+# -- 12. control phase --------------------------------------------------------
+# The control plane (ROADMAP items 9c and 9d): the TrainingJob API, the
+# fake cluster, the autoscaler with its native planner, the controller,
+# the job verbs, the in-process coordinators and the lease/ack data
+# queue. Parts (a)-(c) and (e) are host work; (d) trains the flagship
+# on the card from the queue.
+
+# (a) examples/elastic_demo.py: 10 hosts x 4 chips, max load 1.0, three
+# elastic jobs submitted in turn (name, min, max, chips a worker)
+CONTROL_SQUEEZE = {"hosts": 10, "chips_per_host": 4, "cpu_milli": 16000,
+                   "mem_mega": 32000, "max_load": 1.0, "ticks": 6,
+                   "jobs": (("example", 2, 10, 4), ("example1", 2, 8, 4),
+                            ("example2", 2, 4, 4))}
+# after each settle (idle, then each submission): {job: [running
+# workers, parallelism]} and the pending jobs — the reference's run
+# (tests/test_torch_control.py holds this literal to it)
+CONTROL_SQUEEZE_TRACE = (
+    ({}, []),
+    ({"example": [10, 10]}, []),
+    ({"example": [8, 8], "example1": [2, 2]}, []),
+    ({"example": [6, 6], "example1": [2, 2], "example2": [2, 2]}, []),
+)
+# (b) the fleet at the controller verb's host shape (96 cores, 384 GiB)
+CONTROL_FLEET = {"hosts": 256, "chips_per_host": 8, "cpu_milli": 96_000,
+                 "mem_mega": 393_216, "jobs": 64, "seed": 0, "ticks": 4,
+                 "max_load": 0.97}
+# (c) the JSON forms of examples/ctr/job.yaml and examples/llama/job.yaml
+CONTROL_MANIFESTS = {
+    "ctr": {
+        "apiVersion": "edl-tpu.org/v1", "kind": "TrainingJob",
+        "metadata": {"name": "ctr", "namespace": "default"},
+        "spec": {
+            "fault_tolerant": True, "passes": 1, "data_dir": "/data/ctr",
+            "checkpoint_dir": "/ckpt/ctr", "checkpoint_every": 200,
+            "volumes": [
+                {"name": "dataset",
+                 "persistentVolumeClaim": {"claimName": "ctr-dataset"}},
+                {"name": "ckpt",
+                 "persistentVolumeClaim": {"claimName": "ctr-ckpt"}}],
+            "volume_mounts": [
+                {"name": "dataset", "mount_path": "/data",
+                 "read_only": True},
+                {"name": "ckpt", "mount_path": "/ckpt"}],
+            "worker": {
+                "entrypoint": "python examples/ctr/train.py",
+                "min_replicas": 2, "max_replicas": 8,
+                "resources": {"requests": {"cpu": "2", "memory": "8Gi",
+                                           "tpu": 1},
+                              "limits": {"tpu": 1}}}}},
+    "llama-fsdp": {
+        "apiVersion": "edl-tpu.org/v1", "kind": "TrainingJob",
+        "metadata": {"name": "llama-fsdp", "namespace": "default"},
+        "spec": {
+            "fault_tolerant": True, "passes": 1, "accelerator_type": "v5e",
+            "mesh": {"fsdp": 2, "tp": 2},
+            "worker": {
+                "entrypoint": "python examples/llama/train.py",
+                "min_replicas": 1, "max_replicas": 4,
+                "resources": {"requests": {"cpu": "8", "memory": "64Gi",
+                                           "tpu": 4},
+                              "limits": {"tpu": 4}}}}},
+}
+CONTROL_VERB_ITERATIONS = 6
+# what the reference's verbs give on these manifests (validate / submit
+# / delete exit codes; after `controller --iterations 6 --tick-s 0`:
+# each job's phase, parallelism and running workers from `status`, the
+# rows of `list`, the census `monitor --json` polls; `list` after the
+# deletes) — tests/test_torch_control.py holds it to the reference
+CONTROL_VERBS_EXPECT = {
+    "validate": [
+        [0, "valid: default/ctr workers=2-8 chips_per_worker=1 "
+            "elastic=True\n"],
+        [0, "valid: default/llama-fsdp workers=1-4 chips_per_worker=4 "
+            "elastic=True\n"]],
+    "submit": [[0, "trainingjob default/ctr submitted\n"],
+               [0, "trainingjob default/llama-fsdp submitted\n"]],
+    "controller": 0,
+    "list": [0, "NAMESPACE  NAME        PHASE    WORKERS  TARGET  RANGE  "
+                "RESHARDS\n"
+                "default    ctr         running  8        8       2-8    1\n"
+                "default    llama-fsdp  running  4        4       1-4    "
+                "1\n"],
+    # [exit code, phase, parallelism, running, pending]
+    "status": {"ctr": [0, "running", 8, 8, 0],
+               "llama-fsdp": [0, "running", 4, 4, 0]},
+    # [exit code, running workers, parallelism, pending jobs, chips
+    # requested, chips total]
+    "monitor": [0, {"ctr": 8, "llama-fsdp": 4}, {"ctr": 8, "llama-fsdp": 4},
+                [], 24, 32],
+    "delete": [[0, "trainingjob default/ctr deleted\n"],
+               [0, "trainingjob default/llama-fsdp deleted\n"]],
+    "delete_again": 1,
+    "list_after": [0, "NAMESPACE  NAME  PHASE  WORKERS  TARGET  RANGE  "
+                      "RESHARDS\n"],
+}
+# (d) the lease/ack queue feeding the flagship: 64 samples in chunks of
+# 6 (not a multiple of the batch), B4 x T2048; w1 leases a task at step
+# 2 and is released at step 3
+CONTROL_QUEUE = {"n_samples": 64, "chunk": 6, "batch": 4, "seq": 2048,
+                 "seed": 0, "w1_lease_step": 2, "w1_release_step": 3}
+CONTROL_MAX_S = 90.0
+
+
+def _control_modules(pkg):
+    """The control-plane modules of ``pkg`` (this script passes the
+    port's; the CPU tests pass the reference's to compare)."""
+    import importlib
+    import types
+
+    names = {"job": "api.job", "fake": "cluster.fake",
+             "controller": "controller.controller",
+             "autoscaler": "scheduler.autoscaler",
+             "native": "scheduler.native", "collector": "monitor.collector"}
+    return types.SimpleNamespace(**{
+        k: importlib.import_module(f"{pkg}.{v}") for k, v in names.items()})
+
+
+def _elastic_job(m, name, lo, hi, chips, cpu="1", memory="1Gi"):
+    return m.job.TrainingJob.from_dict({
+        "metadata": {"name": name},
+        "spec": {"fault_tolerant": True, "worker": {
+            "entrypoint": "python train.py", "min_replicas": lo,
+            "max_replicas": hi,
+            "resources": {"requests": {"cpu": cpu, "memory": memory,
+                                       "tpu": chips},
+                          "limits": {"tpu": chips}}}}})
+
+
+def _counting_groups(cluster):
+    """Count each worker group's creations on ``cluster``."""
+    created = {}
+    create = cluster.create_worker_group
+
+    def counted(plan):
+        created[plan.name] = created.get(plan.name, 0) + 1
+        return create(plan)
+
+    cluster.create_worker_group = counted
+    return created
+
+
+def control_squeeze(pkg="edl_tpu_torch", use_native=True, c=CONTROL_SQUEEZE):
+    """(a) The elastic squeeze: returns the trace (after each settle,
+    {job: [running, parallelism]} and the pending jobs) and the worker
+    groups' creation counts."""
+    m = _control_modules(pkg)
+    cluster = m.fake.FakeCluster(hosts=[
+        m.fake.FakeHost(f"h{i}", c["cpu_milli"], c["mem_mega"],
+                        c["chips_per_host"]) for i in range(c["hosts"])])
+    created = _counting_groups(cluster)
+    ctl = m.controller.Controller(cluster, autoscaler=m.autoscaler.Autoscaler(
+        cluster, max_load_desired=c["max_load"], use_native=use_native))
+    collector = m.collector.Collector(
+        m.collector.ClusterSource(cluster), interval_s=0)
+    trace = []
+
+    def settle(ticks):
+        for _ in range(ticks):
+            cluster.reconcile()
+            ctl.autoscaler.tick()
+            ctl.step()
+        s = collector.poll()
+        trace.append(({k: [s.running_workers[k], s.parallelism[k]]
+                       for k in s.submitted_jobs}, list(s.pending_jobs)))
+        return s
+
+    settle(1)
+    for name, lo, hi, chips in c["jobs"]:
+        cluster.submit_job(_elastic_job(m, name, lo, hi, chips))
+        s = settle(c["ticks"])
+    return trace, created, s
+
+
+def _squeeze_check(trace, created):
+    if [list(x) for x in trace] != [list(x) for x in CONTROL_SQUEEZE_TRACE]:
+        raise AssertionError(f"squeeze trace {trace} != "
+                             f"{CONTROL_SQUEEZE_TRACE}")
+    if trace[-1][1]:
+        raise AssertionError(f"squeeze left jobs pending: {trace[-1][1]}")
+    if sorted(created.values()) != [1] * len(CONTROL_SQUEEZE["jobs"]):
+        raise AssertionError(f"worker groups recreated: {created}")
+
+
+def _fleet_jobs(m, c):
+    """64 seeded elastic jobs: min 1-4 workers, max 2-32, 1-8 chips a
+    worker, 4 cores and 16 GiB a chip."""
+    rng = np.random.RandomState(c["seed"])
+    jobs = []
+    for i in range(c["jobs"]):
+        lo = int(rng.randint(1, 5))
+        hi = max(lo + 1, int(rng.randint(2, 33)))
+        chips = int(rng.randint(1, 9))
+        jobs.append(_elastic_job(m, f"job{i:02d}", lo, hi, chips,
+                                 cpu=str(4 * chips),
+                                 memory=f"{16 * chips}Gi"))
+    return jobs
+
+
+def _planner_snapshot(a, cluster):
+    """The census and candidates ``Autoscaler.tick`` plans over."""
+    a.drain_events()
+    r = cluster.inquiry_resource()
+    for j in a.jobs.values():
+        try:
+            j.group = cluster.get_worker_group(j.config)
+        except KeyError:
+            j.group = None
+    return r, a._reschedulable(a._find_pending_job())
+
+
+def control_fleet(pkg="edl_tpu_torch", c=CONTROL_FLEET):
+    """(b) The fleet: ``c["ticks"]`` control ticks (host ms each: the
+    fake cluster's reconcile, the autoscaler's tick with the native
+    planner, the updaters' step), then both planners on the same
+    snapshot, timed, with their plans asserted equal."""
+    import logging
+
+    m = _control_modules(pkg)
+    cluster = m.fake.FakeCluster(hosts=[
+        m.fake.FakeHost(f"host{i}", c["cpu_milli"], c["mem_mega"],
+                        c["chips_per_host"]) for i in range(c["hosts"])])
+    a = m.autoscaler.Autoscaler(cluster, max_load_desired=c["max_load"],
+                                use_native=True)
+    ctl = m.controller.Controller(cluster, autoscaler=a)
+    # the jobs whose coordinators wait for room warn every tick
+    quiet = logging.getLogger(pkg)
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)
+    try:
+        for job in _fleet_jobs(m, c):
+            cluster.submit_job(job)
+        ticks, retargeted = [], []
+        for _ in range(c["ticks"]):
+            t0 = time.perf_counter()
+            cluster.reconcile()
+            t1 = time.perf_counter()
+            target = a.tick()
+            t2 = time.perf_counter()
+            ctl.step()
+            t3 = time.perf_counter()
+            ticks.append({"reconcile_ms": 1e3 * (t1 - t0),
+                          "autoscaler_ms": 1e3 * (t2 - t1),
+                          "step_ms": 1e3 * (t3 - t2)})
+            retargeted.append(len(target))
+        r, cands = _planner_snapshot(a, cluster)
+    finally:
+        quiet.setLevel(level)
+    resolved = [m.autoscaler.resolve_policy(a.slice_policy, j) for j in cands]
+    t0 = time.perf_counter()
+    py = m.autoscaler.scale_all_jobs_dry_run(cands, r.copy(), c["max_load"],
+                                             a.slice_policy)
+    t1 = time.perf_counter()
+    nat = m.native.plan_native(cands, r, c["max_load"], resolved)
+    t2 = time.perf_counter()
+    _fleet_check(py, nat, r, cands)
+    return {"ticks_host_ms": ticks, "retargeted_per_tick": retargeted,
+            "planner_python_host_ms": 1e3 * (t1 - t0),
+            "planner_native_host_ms": 1e3 * (t2 - t1),
+            "candidates": len(cands),
+            "plan_changes": sum(1 for d in py.values() if d),
+            "chips_requested": r.chip_request, "chips_total": r.chip_total}
+
+
+def _fleet_check(py, nat, r, cands):
+    if nat is None:
+        raise AssertionError("plan_native returned None: the native "
+                             "planner did not plan")
+    # the Python plan names the elastic jobs it touched, the native one
+    # every candidate: a job either leaves out moves by 0
+    diff = {k: (py.get(k, 0), nat.get(k, 0)) for k in set(py) | set(nat)
+            if py.get(k, 0) != nat.get(k, 0)}
+    if diff:
+        raise AssertionError(f"native plan != Python plan: {diff}")
+    if not cands or r.chip_request > r.chip_total:
+        raise AssertionError(f"{len(cands)} candidates, chips "
+                             f"{r.chip_request} / {r.chip_total}")
+
+
+def _call_verb(main, argv):
+    """One verb through ``main`` in this process: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, out.getvalue()
+
+
+def control_verbs(main, workdir, have_yaml=True, store_cls=None,
+                  job_cls=None):
+    """(c) The job verbs through ``main`` on the two manifests:
+    validate, submit, controller, list, status, monitor --json, delete,
+    list. Without PyYAML (``from_yaml`` raises, as the reference's does)
+    the jobs are written with ``store_cls(DIR).submit(job_cls.from_dict(
+    ...))`` and validate / submit are not run. Returns the record
+    :data:`CONTROL_VERBS_EXPECT` holds."""
+    os.makedirs(workdir, exist_ok=True)
+    store = os.path.join(workdir, "store")
+    paths = {}
+    for name, doc in CONTROL_MANIFESTS.items():
+        paths[name] = os.path.join(workdir, f"{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(doc, f)
+    rec = {}
+    if have_yaml:
+        rec["validate"] = [_call_verb(main, ["validate", paths[n]])
+                           for n in CONTROL_MANIFESTS]
+        rec["submit"] = [_call_verb(main, ["submit", paths[n], "--store",
+                                           store])
+                         for n in CONTROL_MANIFESTS]
+    else:
+        st = store_cls(store)
+        for doc in CONTROL_MANIFESTS.values():
+            st.submit(job_cls.from_dict(doc))
+    rc, _ = _call_verb(main, ["controller", "--store", store, "--iterations",
+                              str(CONTROL_VERB_ITERATIONS), "--tick-s", "0"])
+    rec["controller"] = rc
+    rec["list"] = _call_verb(main, ["list", "--store", store])
+    status = {}
+    for n in CONTROL_MANIFESTS:
+        rc, out = _call_verb(main, ["status", n, "--store", store])
+        doc = json.loads(out)
+        status[n] = [rc, doc["phase"], doc["parallelism"], doc["running"],
+                     doc["pending"]]
+    rec["status"] = status
+    rc, out = _call_verb(main, ["monitor", "--store", store, "--json",
+                                "--polls", "1"])
+    s = json.loads(out)
+    rec["monitor"] = [rc, s["running_workers"], s["parallelism"],
+                      s["pending_jobs"], s["chip_request"], s["chip_total"]]
+    rec["delete"] = [_call_verb(main, ["delete", n, "--store", store])
+                     for n in CONTROL_MANIFESTS]
+    rec["delete_again"] = _call_verb(main, ["delete", "ctr", "--store",
+                                            store])[0]
+    rec["list_after"] = _call_verb(main, ["list", "--store", store])
+    # tuples as lists, so the record compares with its JSON form
+    return json.loads(json.dumps(rec))
+
+
+def _verbs_check(rec):
+    want = {k: v for k, v in CONTROL_VERBS_EXPECT.items() if k in rec}
+    if rec != want:
+        bad = {k: (rec.get(k), want.get(k)) for k in set(rec) | set(want)
+               if rec.get(k) != want.get(k)}
+        raise AssertionError(f"the job verbs differ from the reference's: "
+                             f"{bad}")
+
+
+def _coordinator_script(coord):
+    """One membership, KV, barrier and queue script; every answer, with
+    tasks as (id, start, end, epoch)."""
+    def task(t):
+        return None if t is None else [t.task_id, t.start, t.end, t.epoch]
+
+    out = [coord.register("w0", 1), coord.register("w1", 1),
+           coord.register("w1", 1), coord.register("w1", 0),
+           coord.heartbeat("w0"), coord.heartbeat("ghost"), coord.epoch(),
+           [(x.name, x.incarnation, x.rank) for x in coord.members()]]
+    coord.kv_put("k", "v 1")
+    out += [coord.kv_get("k"), coord.kv_get("none")]
+    coord.kv_del("k")
+    out += [coord.kv_get("k"), coord.barrier_arrive("b", "w0"),
+            coord.barrier_arrive("b", "w1"), coord.barrier_arrive("b", "w0"),
+            coord.barrier_count("b"), coord.barrier_count("none")]
+    coord.queue_init(20, 6, passes=2)
+    leased = [coord.lease("w0"), coord.lease("w1"), coord.lease("w1")]
+    out += [task(t) for t in leased]
+    out += [coord.ack(leased[0].task_id), coord.nack(leased[1].task_id),
+            coord.release_worker("w1"), coord.queue_stats()]
+    while True:
+        t = coord.lease("w0")
+        if t is None:
+            break
+        out += [task(t), coord.ack(t.task_id)]
+    out += [coord.queue_done(), coord.queue_stats(), coord.leave("w1"),
+            coord.leave("w1"), coord.epoch(),
+            [(x.name, x.incarnation, x.rank) for x in coord.members()]]
+    return json.loads(json.dumps(out))
+
+
+def _coordinator_check():
+    """``make_coordinator()`` is the native one, and it answers the
+    script as ``PyCoordinator`` does."""
+    from edl_tpu_torch.runtime import coordinator as co
+
+    made = co.make_coordinator()
+    if type(made) is not co.NativeCoordinator:
+        raise AssertionError(f"make_coordinator() gave {type(made).__name__}"
+                             f", not the native coordinator")
+    native = _coordinator_script(made)
+    made.close()
+    python = _coordinator_script(co.PyCoordinator())
+    if native != python:
+        raise AssertionError(f"native coordinator {native} != Python "
+                             f"{python}")
+    return len(native)
+
+
+def _ranges(idx):
+    """Contiguous [start, end) runs of a batch's sample indices."""
+    runs = []
+    for i in idx.tolist():
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    return runs
+
+
+def _queue_check(seen, n_samples, losses, direct, counts, steps, n_layers,
+                 released):
+    got = sorted(seen)
+    if got != list(range(n_samples)):
+        dup = sorted({i for i in seen if seen.count(i) > 1})
+        raise AssertionError(f"samples trained {len(seen)} of {n_samples}, "
+                             f"repeated {dup}, missing "
+                             f"{sorted(set(range(n_samples)) - set(seen))}")
+    if released != 1:
+        raise AssertionError(f"release_worker('w1') released {released} "
+                             f"tasks, not 1")
+    if losses != direct:
+        raise AssertionError(f"queue-fed losses {losses} != directly fed "
+                             f"{direct}")
+    want = {"flash_fwd": 0, "flash_fwd_lse": 2 * n_layers * steps,
+            "flash_bwd_dq": n_layers * steps,
+            "flash_bwd_dkv": n_layers * steps}
+    if counts != want or not steps:
+        raise AssertionError(f"flash launches {counts} over {steps} steps, "
+                             f"want {want}")
+
+
+def control_queue(card, cfg=None, device="cuda", c=CONTROL_QUEUE):
+    """(d) The flagship (``cfg``: bench.py:69 unless given) trained on
+    ``device`` from ``ElasticDataQueue`` + ``QueueBatcher`` until the
+    queue is done, then the same steps fed the recorded sample ranges
+    directly from the same init. Returns the queue run's launches."""
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.runtime.data import ElasticDataQueue, QueueBatcher
+    from edl_tpu_torch.train import trainer
+
+    cfg = cfg or _flagship_train_config()
+    data = llama.synthetic_tokens(np.random.RandomState(c["seed"]),
+                                  c["n_samples"], c["seq"],
+                                  cfg.vocab)["tokens"]
+
+    def run(batches):
+        params = trainer.trainable(llama.init_params(
+            cfg, seed=0, device=device, dtype=torch.float32))
+        tx = trainer.adamw(1e-3)
+        state = trainer.TrainState.create(params, tx)
+        step = trainer.make_train_step(llama.make_loss_fn(cfg), tx)
+        losses = []
+        for tokens in batches:
+            state, met = step(state, {"tokens": torch.from_numpy(
+                tokens).to(device)})
+            losses.append(float(met["loss"]))
+        del state, params
+        return losses
+
+    queue = ElasticDataQueue(c["n_samples"], c["chunk"])
+    batcher = QueueBatcher(queue, lambda t: {
+        "tokens": data[t.start:t.end],
+        "idx": np.arange(t.start, t.end)}, worker="w0")
+    ranges, seen, released, w1_task = [], [], None, None
+
+    def fed():
+        nonlocal released, w1_task
+        n = 0
+        while not queue.done():
+            if n == c["w1_lease_step"]:
+                w1_task = queue.get_task("w1")
+            if n == c["w1_release_step"]:
+                released = queue.release_worker("w1")
+            batch = batcher.next_batch(c["batch"])
+            ranges.append(_ranges(batch["idx"]))
+            seen.extend(batch["idx"].tolist())
+            n += 1
+            yield batch["tokens"]
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    losses = run(fed())
+    _sync(device)
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    steps = len(losses)
+    direct = run(np.concatenate([data[s:e] for s, e in r]) for r in ranges)
+    _queue_check(seen, c["n_samples"], losses, direct, counts, steps,
+                 cfg.n_layers, released)
+    later = {i for rs in ranges[c["w1_release_step"]:] for s, e in rs
+             for i in range(s, e)}
+    if w1_task is None or not set(range(w1_task.start,
+                                        w1_task.end)) <= later:
+        raise AssertionError(f"w1's task {w1_task} was not redelivered "
+                             f"after its release")
+    row = {"steps": steps, "batch": c["batch"], "seq": c["seq"],
+           "n_samples": c["n_samples"], "chunk": c["chunk"],
+           "w1_task": [w1_task.start, w1_task.end], "ranges": ranges,
+           "losses": losses, "losses_equal_direct": losses == direct,
+           "launches": counts, "queue_run_s": wall,
+           "queue_stats": queue.progress(),
+           "coordinator_script_answers": _coordinator_check()}
+    return counts, row
+
+
+def control_serving(metrics):
+    """(e) ``Collector(ServingSource(metrics))`` over the slice phase's
+    serving metrics: the sample's serving block is the snapshot, and it
+    carries the efficiency block."""
+    from edl_tpu_torch.monitor.collector import Collector, ServingSource
+
+    s = Collector(ServingSource(metrics), interval_s=0).poll()
+    snap = metrics.snapshot()
+    if s.serving != snap:
+        raise AssertionError(f"serving sample {s.serving} != snapshot {snap}")
+    if not any(k.startswith("mfu_") for k in s.efficiency):
+        raise AssertionError(f"no efficiency block: {s.efficiency}")
+    return {"serving_keys": len(s.serving), "efficiency": s.efficiency,
+            "render_lines": len(s.render().splitlines())}
+
+
+def control_phase(card, slice_metrics, device="cuda", cfg=None,
+                  fleet_c=CONTROL_FLEET, queue_c=CONTROL_QUEUE):
+    """The control phase, (a)-(e); one JSON row. ``cfg``, ``fleet_c``
+    and ``queue_c`` cut the phase for a CPU rehearsal."""
+    import importlib.util
+    import tempfile
+
+    from edl_tpu_torch import cli, cli_store
+    from edl_tpu_torch.api.job import TrainingJob
+    from edl_tpu_torch.scheduler import native
+
+    marks = [time.perf_counter()]
+
+    def lap():
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    if not native.available():
+        raise AssertionError("the native planner did not build")
+    trace, created, last = control_squeeze()
+    _squeeze_check(trace, created)
+    squeeze = {"trace": trace, "groups_created": created,
+               "chip_util": last.chip_util, "host_s": lap()}
+    fleet = control_fleet(c=fleet_c)
+    fleet["host_s"] = lap()
+    have_yaml = importlib.util.find_spec("yaml") is not None
+    with tempfile.TemporaryDirectory() as d:
+        record = control_verbs(cli.main, d, have_yaml, cli_store.JobStore,
+                               TrainingJob)
+    _verbs_check(record)
+    verbs = {"have_yaml": have_yaml,
+             "held_on_cpu_only": [] if have_yaml else ["validate", "submit"],
+             "record": record, "host_s": lap()}
+    counts, queue = control_queue(card, cfg, device=device, c=queue_c)
+    queue["s"] = lap()
+    serving = control_serving(slice_metrics)
+    wall = marks[-1] - marks[0] + lap()
+    print(json.dumps({
+        "phase": "control", "squeeze": squeeze,
+        # host numbers: the control plane does no device work
+        "fleet_host": fleet, "verbs": verbs, "queue": queue,
+        "serving": serving, "phase_s": wall, "max_s": CONTROL_MAX_S,
+        "card": card}), flush=True)
+    if wall > CONTROL_MAX_S:
+        raise AssertionError(f"control phase took {wall:.1f} s > "
+                             f"{CONTROL_MAX_S}")
+    return counts
+
+
 def main() -> int:
+    # a crash in native code (a kernel's host side, ctypes) prints every
+    # thread's Python stack before the process dies
+    faulthandler.enable(all_threads=True)
     try:
         import torch
     except ImportError:
@@ -6001,7 +6614,8 @@ def main() -> int:
     rows = timed("kernel", kernel_phase, card)
     train_rows = timed("train_kernels", train_kernel_phase, card)
     timed("int8_products", int8_products_phase, card)
-    launches, params, cfg, float_tps = timed("slice", slice_phase, card)
+    launches, params, cfg, float_tps, slice_metrics = timed(
+        "slice", slice_phase, card)
     obs_launches = timed("obs", obs_phase, card, params, cfg, float_tps)
     # serving_modes at the first SM_LAYERS of the slice's 32 layers (the
     # same weights; a cut of depth that keeps the script's time)
@@ -6042,6 +6656,7 @@ def main() -> int:
     # version
     if load_shape not in rows:
         rows[load_shape] = primal_kernel_row(load_shape, card)
+    control_counts = timed("control", control_phase, card, slice_metrics)
     print(json.dumps({"phase": "seconds", **seconds,
                       "total": time.perf_counter() - t0}), flush=True)
 
@@ -6064,17 +6679,21 @@ def main() -> int:
                 f"{'causal' if causal else 'full'} bf16")
 
     # each training kernel three times: at the flagship's B4 T2048
-    # (launches: the train phase's 5 steps) and at each ladder rung's
+    # (launches: the train phase's 5 steps and the control phase's
+    # queue-fed steps) and at each ladder rung's
     # shape (launches: that rung's run); launches of every training path
     # beside them
     by_path = {"train (adamw, full remat, 5 steps)": train_counts,
+               "control (queue-fed, adamw, full remat)": control_counts,
                **{f"train_ladder {kind} T{t}": c
                   for (t, kind), (_, c) in ladder_runs.items()},
                f"moe (adamw, {MOE_STEPS} steps)": moe_launches["train"],
                "moe int8_mxu (1 step)": moe_launches["int8"]}
     remat = {f"remat_policies {p} (1 step)": n for p, n in remat_lse.items()}
     trainers = []
-    for shape, launched in ((TRAIN_MAIN, train_counts),
+    # B4 T2048 is the train phase's shape and the control phase's
+    at_main = {k: train_counts[k] + control_counts[k] for k in train_counts}
+    for shape, launched in ((TRAIN_MAIN, at_main),
                             *((ladder_shapes[key], c)
                               for key, (_, c) in ladder_runs.items()
                               if key[1] == "bf16"),

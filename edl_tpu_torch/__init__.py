@@ -18,6 +18,32 @@ process (``runtime.coordinator_main``) serving the job's aggregated
 (``obs.fleet``, ``obs.disttrace``, ``obs.alerts``). ``python -m
 edl_tpu_torch VERB`` is the command-line entry: ``serve``,
 ``generate``, ``predict``, ``loadgen``, ``fleet`` and ``elasticity``,
-and the operator verbs ``top``, ``watch``, ``postmortem``, ``trace``,
-``profile``, ``export-status`` and ``job-status``.
+the operator verbs ``top``, ``watch``, ``postmortem``, ``trace``,
+``profile``, ``export-status`` and ``job-status``, and the control-plane
+verbs ``controller``, ``submit``, ``delete``, ``list``, ``status``,
+``monitor`` and ``validate``.
+
+The control plane — the ``TrainingJob`` API (``api``), the fake
+cluster (``cluster``), the autoscaler and its native planner
+(``scheduler``), the controller (``controller``), the fleet monitor
+(``monitor``) and the job store (``cli_store``) — and the in-process
+coordinators with the lease/ack data queue (``runtime.coordinator``,
+``runtime.data``, ``runtime.lease_table``) import no torch, and neither
+does this package's top level: it re-exports the job API's names as
+the reference's does.
 """
+
+__version__ = "0.1.0"
+
+from edl_tpu_torch.api.job import (  # noqa: F401
+    JobPhase,
+    MasterSpec,
+    PserverSpec,
+    ResourceRequirements,
+    ResourceSpec,
+    TrainingJob,
+    TrainingJobSpec,
+    TrainingJobStatus,
+    WorkerSpec,
+)
+from edl_tpu_torch.api.parser import JobParser  # noqa: F401

@@ -59,6 +59,18 @@ an endpoint or a ``BENCH_r*.json`` (``--dryrun`` trains through
 shows and fetches the latest export; ``job-status`` reads a running
 job's progress and queue from its coordinator.
 
+The control-plane verbs import neither torch nor jax: ``controller``
+runs the control loop (job store sync, the fake cluster's reconcile,
+the autoscaler's tick with the native planner unless
+``--no-native-scheduler``, the job updaters) over a synthetic fleet of
+``--hosts`` × ``--chips-per-host`` and publishes each job's status into
+the store; ``--metrics-port`` serves the fleet census. ``--kube`` and
+``--kube-url`` are not ported yet (ROADMAP item 9d-kube) and exit 1.
+``submit``, ``delete``, ``list``, ``status``, ``monitor`` and
+``validate`` read and write the job store (``cli_store.py``, the
+reference's on-disk format) with the reference's printed lines,
+``--json`` records and exit codes.
+
 ``serve`` reads the same JSONL request feed and the same export directory as the
 reference verb and prints the same per-request JSON records on stdout
 (submit order): ``id``, ``tokens``, ``outcome``, ``ttft_s``,
@@ -77,6 +89,10 @@ import json
 import sys
 import time
 from typing import List, Optional
+
+from edl_tpu_torch.utils.logging import kv_logger
+
+log = kv_logger("cli")
 
 # flags of the reference verb whose serving paths are not ported yet
 _NOT_PORTED_FLAGS = {
@@ -1311,6 +1327,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="machine-readable ledger")
     el.set_defaults(fn=run_elasticity)
     _add_operator_parsers(sub)
+    _add_control_parsers(sub)
     return p
 
 
@@ -2098,6 +2115,445 @@ def _add_operator_parsers(sub) -> None:
     )
     g.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     g.set_defaults(fn=run_generate)
+
+
+# -- the control-plane verbs -------------------------------------------------
+# controller, submit, delete, list, status, monitor and validate import
+# neither torch nor jax: the control plane needs no device
+
+
+def _start_fleet_exporter(args, cluster):
+    """The controller's telemetry endpoint (``--metrics-port``): each
+    scrape of /metrics samples the live cluster through the collector
+    that ``monitor`` uses and re-exposes the census as gauges
+    (``obs.fleet.registry_from_sample``). Returns the exporter or
+    None."""
+    if getattr(args, "metrics_port", None) is None:
+        return None
+    from edl_tpu_torch import obs
+    from edl_tpu_torch.monitor.collector import ClusterSource
+
+    src = ClusterSource(cluster)
+    exp = obs.start_exporter(
+        lambda: obs.registry_from_sample(src.sample()), port=args.metrics_port
+    )
+    log.info("fleet metrics endpoint up", url=exp.url)
+    return exp
+
+
+def _slice_policy(args):
+    """The ``--slice-policy`` choice as the Autoscaler takes it ("auto"
+    stays a string; the names resolve to the callables)."""
+    from edl_tpu_torch.cluster import topology
+
+    name = getattr(args, "slice_policy", "flexible")
+    return "auto" if name == "auto" else topology.POLICIES[name]
+
+
+def _build_cluster(args):
+    from edl_tpu_torch.cluster.fake import FakeCluster, FakeHost
+
+    hosts = [
+        FakeHost(
+            name=f"host{i}",
+            cpu_milli=args.host_cpu_milli,
+            mem_mega=args.host_mem_mega,
+            chips=args.chips_per_host,
+        )
+        for i in range(args.hosts)
+    ]
+    return FakeCluster(hosts=hosts)
+
+
+def _job_status_record(cluster, job) -> dict:
+    total, running, pending = cluster.job_pods(job)
+    st = job.status
+    return {
+        "name": job.name,
+        "namespace": job.namespace,
+        "phase": str(st.phase.value),
+        "reason": st.reason,
+        "parallelism": st.parallelism,
+        "total": total,
+        "running": running,
+        "pending": pending,
+        "reshard_count": st.reshard_count,
+        "last_reshard_stall_s": st.last_reshard_stall_s,
+        "reshard_fallbacks": st.reshard_fallbacks,
+        "min_replicas": job.spec.worker.min_replicas,
+        "max_replicas": job.spec.worker.max_replicas,
+        "chips_per_worker": job.chips_per_worker(),
+    }
+
+
+def run_controller(args) -> int:
+    """The daemon main loop (reference: Controller.Run
+    pkg/controller.go:64-76 + the autoscaler 5 s ticker
+    pkg/autoscaler.go:451-485), run synchronously per tick: sync desired
+    state from the store, let the fake pod controller reconcile,
+    autoscale, step the updaters, publish observed state back to the
+    store. The in-cluster mode (``--kube``, ``--kube-url``) is not
+    ported yet and exits 1."""
+    from edl_tpu_torch.api.parser import JobParser
+    from edl_tpu_torch.cli_store import JobStore
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.scheduler.autoscaler import Autoscaler
+
+    if args.kube or args.kube_url:
+        flag = "--kube" if args.kube else "--kube-url"
+        print(f"{flag} is not ported yet (ROADMAP Queue A item 9d-kube)",
+              file=sys.stderr)
+        return 1
+    if not args.store:
+        print(
+            "error: --store is required (or pass --kube for in-cluster mode)",
+            file=sys.stderr,
+        )
+        return 2
+    store = JobStore(args.store)
+    cluster = _build_cluster(args)
+    controller = Controller(
+        cluster,
+        autoscaler=Autoscaler(
+            cluster,
+            max_load_desired=args.max_load_desired,
+            slice_policy=_slice_policy(args),
+            use_native=not args.no_native_scheduler,
+        ),
+    )
+    parser = JobParser()
+    known = set()
+    exporter = _start_fleet_exporter(args, cluster)
+
+    log.info(
+        "controller started",
+        store=args.store,
+        hosts=args.hosts,
+        chips_per_host=args.chips_per_host,
+        max_load_desired=args.max_load_desired,
+    )
+
+    i = 0
+    while args.iterations is None or i < args.iterations:
+        # 1. desired-state sync (the informer-watch analog)
+        desired = set(store.list_keys())
+        for ns, name in sorted(desired - known):
+            job = store.load(ns, name)
+            if job is None:
+                continue
+            try:
+                parser.validate(job)
+            except ValueError as e:
+                log.error("rejecting job", job=name, err=str(e))
+                store.write_status(
+                    ns, name, {"name": name, "namespace": ns,
+                               "phase": "failed", "reason": f"validation: {e}"}
+                )
+                known.add((ns, name))
+                continue
+            cluster.submit_job(job)
+            known.add((ns, name))
+        for ns, name in sorted(known - desired):
+            try:
+                cluster.delete_job(ns, name)
+            except KeyError:
+                pass
+            store.clear_status(ns, name)
+            known.discard((ns, name))
+
+        # 2. advance the world + control loops
+        cluster.reconcile()
+        controller.autoscaler.tick()
+        controller.step()
+
+        # 3. publish observed state (and clear statuses orphaned by jobs
+        # deleted while the daemon was down)
+        for ns, name in set(store.list_statuses()) - desired:
+            store.clear_status(ns, name)
+        for job in cluster.list_jobs():
+            store.write_status(job.namespace, job.name,
+                               _job_status_record(cluster, job))
+        r = cluster.inquiry_resource()
+        store.write_cluster(
+            {
+                "ts": time.time(),
+                "chip_total": r.chip_total,
+                "chip_request": r.chip_request,
+                "cpu_total_milli": r.cpu_total_milli,
+                "cpu_request_milli": r.cpu_request_milli,
+                "mem_total_mega": r.mem_total_mega,
+                "mem_request_mega": r.mem_request_mega,
+            }
+        )
+
+        i += 1
+        if args.iterations is not None and i >= args.iterations:
+            break
+        time.sleep(args.tick_s)
+    if exporter is not None:
+        exporter.stop()
+    return 0
+
+
+def run_submit(args) -> int:
+    from edl_tpu_torch.api.job import TrainingJob
+    from edl_tpu_torch.api.parser import JobParser
+    from edl_tpu_torch.cli_store import JobStore
+
+    job = TrainingJob.from_yaml_file(args.manifest)
+    if args.name:
+        job.name = args.name
+    JobParser().validate(job)  # reject before spooling, like admission
+    store = JobStore(args.store)
+    store.submit(job)
+    print(f"trainingjob {job.namespace}/{job.name} submitted")
+    return 0
+
+
+def run_delete(args) -> int:
+    from edl_tpu_torch.cli_store import JobStore
+
+    store = JobStore(args.store)
+    if store.delete(args.namespace, args.name):
+        print(f"trainingjob {args.namespace}/{args.name} deleted")
+        return 0
+    print(f"trainingjob {args.namespace}/{args.name} not found",
+          file=sys.stderr)
+    return 1
+
+
+def run_list(args) -> int:
+    from edl_tpu_torch.cli_store import JobStore
+
+    store = JobStore(args.store)
+    statuses = store.list_statuses()
+    rows = [("NAMESPACE", "NAME", "PHASE", "WORKERS", "TARGET", "RANGE",
+             "RESHARDS")]
+    for ns, name in store.list_keys():
+        st = statuses.get((ns, name), {})
+        job = store.load(ns, name)
+        rng = (
+            f"{job.spec.worker.min_replicas}-{job.spec.worker.max_replicas}"
+            if job
+            else "?"
+        )
+        rows.append(
+            (
+                ns,
+                name,
+                st.get("phase", "none"),
+                str(st.get("running", 0)),
+                str(st.get("parallelism", 0)),
+                rng,
+                str(st.get("reshard_count", 0)),
+            )
+        )
+    widths = [max(len(r[c]) for r in rows) for c in range(len(rows[0]))]
+    for r in rows:
+        print("  ".join(v.ljust(w) for v, w in zip(r, widths)).rstrip())
+    return 0
+
+
+def run_status(args) -> int:
+    from edl_tpu_torch.cli_store import JobStore
+
+    store = JobStore(args.store)
+    st = store.read_status(args.namespace, args.name)
+    if st is None:
+        print(f"no status for {args.namespace}/{args.name}", file=sys.stderr)
+        return 1
+    print(json.dumps(st, indent=2))
+    return 0
+
+
+def run_monitor(args) -> int:
+    from edl_tpu_torch.cli_store import JobStore
+    from edl_tpu_torch.monitor.collector import Collector, StoreSource
+
+    store = JobStore(args.store)
+    alerts_source = None
+    if getattr(args, "tsdb", None):
+        # each poll evaluates the alert rules over the history dir and
+        # the sample carries the alerts block inline
+        from edl_tpu_torch.obs import alerts as obs_alerts
+        from edl_tpu_torch.obs.tsdb import TSDB
+
+        try:
+            engine = obs_alerts.engine_from_doc(
+                obs_alerts.load_rules_doc(args.rules),
+                time_scale=args.time_scale,
+            )
+        except (OSError, ValueError) as e:
+            print(f"bad rules: {e}", file=sys.stderr)
+            return 2
+        db = TSDB(args.tsdb)
+
+        def alerts_source() -> dict:
+            engine.evaluate(db, time.time())
+            return engine.to_block()
+
+    Collector(
+        StoreSource(store),
+        interval_s=args.interval,
+        jsonl=getattr(args, "json", False),
+        alerts_source=alerts_source,
+    ).run(n_polls=args.polls)
+    return 0
+
+
+def run_validate(args) -> int:
+    from edl_tpu_torch.api.job import TrainingJob
+    from edl_tpu_torch.api.parser import JobParser
+
+    try:
+        job = TrainingJob.from_yaml_file(args.manifest)
+        JobParser().validate(job)
+    except ValueError as e:
+        print(f"INVALID: {e}", file=sys.stderr)
+        return 1
+    print(
+        f"valid: {job.namespace}/{job.name} "
+        f"workers={job.spec.worker.min_replicas}-"
+        f"{job.spec.worker.max_replicas} "
+        f"chips_per_worker={job.chips_per_worker()} elastic={job.elastic()}"
+    )
+    return 0
+
+
+def _add_store(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--store", required=True, help="job store (spool) directory")
+
+
+def _add_control_parsers(sub) -> None:
+    """The parsers of the control-plane verbs, with the reference's
+    flags."""
+    c = sub.add_parser("controller", help="run the controller daemon")
+    c.add_argument(
+        "--store",
+        default=None,
+        help="job store (spool) directory for the synthetic-fleet mode",
+    )
+    c.add_argument(
+        "--kube",
+        action="store_true",
+        help="in-cluster mode: not ported yet (ROADMAP item 9d-kube), "
+        "exits 1",
+    )
+    c.add_argument(
+        "--kube-url",
+        default=None,
+        help="API server URL of the in-cluster mode: not ported yet, "
+        "exits 1",
+    )
+    c.add_argument(
+        "--namespace",
+        default="",
+        help="kube mode: restrict the TrainingJob watch to one namespace",
+    )
+    c.add_argument(
+        "--worker-image",
+        default="edl-tpu/worker:latest",
+        help="kube mode: image for worker/coordinator pods when a job "
+        "spec omits one",
+    )
+    c.add_argument(
+        "--max-load-desired",
+        type=float,
+        default=0.97,
+        help="keep cluster load under this fraction "
+        "(reference: -max_load_desired cmd/edl/edl.go:19)",
+    )
+    c.add_argument("--hosts", type=int, default=4,
+                   help="synthetic fleet: host count")
+    c.add_argument("--chips-per-host", type=int, default=8)
+    c.add_argument("--host-cpu-milli", type=int, default=96_000)
+    c.add_argument("--host-mem-mega", type=int, default=393_216)
+    c.add_argument(
+        "--tick-s",
+        type=float,
+        default=5.0,
+        help="control period (reference: pkg/autoscaler.go:31)",
+    )
+    c.add_argument(
+        "--iterations", type=int, default=None,
+        help="stop after N ticks (testing)"
+    )
+    c.add_argument(
+        "--no-native-scheduler",
+        action="store_true",
+        help="plan in Python instead of the C++ core (native/scheduler)",
+    )
+    c.add_argument(
+        "--slice-policy",
+        choices=["flexible", "pow2", "auto"],
+        default="flexible",
+        help="slice-shape legality: flexible (reference parity), pow2, "
+        "or auto (per job from spec.accelerator_type: catalog-capped "
+        "pow2 with ICI-contiguous placement for TPU families)",
+    )
+    c.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        help="expose the fleet census as Prometheus text on this port "
+        "(0 = ephemeral): chip/CPU utilization, per-job workers/"
+        "reshards/stall — the scrapeable twin of `monitor`",
+    )
+    c.set_defaults(fn=run_controller)
+
+    s = sub.add_parser("submit", help="submit a TrainingJob manifest")
+    s.add_argument("manifest")
+    s.add_argument("--name", default=None, help="override metadata.name")
+    _add_store(s)
+    s.set_defaults(fn=run_submit)
+
+    d = sub.add_parser("delete", help="delete a submitted job")
+    d.add_argument("name")
+    d.add_argument("--namespace", default="default")
+    _add_store(d)
+    d.set_defaults(fn=run_delete)
+
+    ls = sub.add_parser("list", help="list jobs and their observed state")
+    _add_store(ls)
+    ls.set_defaults(fn=run_list)
+
+    st = sub.add_parser("status", help="print one job's observed status")
+    st.add_argument("name")
+    st.add_argument("--namespace", default="default")
+    _add_store(st)
+    st.set_defaults(fn=run_status)
+
+    m = sub.add_parser("monitor",
+                       help="poll and print fleet state (collector)")
+    _add_store(m)
+    m.add_argument("--interval", type=float, default=10.0)
+    m.add_argument("--polls", type=int, default=None,
+                   help="stop after N polls")
+    m.add_argument(
+        "--json",
+        action="store_true",
+        help="emit one JSON object per poll (JSONL) instead of the "
+        "text table",
+    )
+    m.add_argument(
+        "--tsdb", default=None,
+        help="metric-history directory to evaluate alert rules over "
+        "each poll; every sample then carries an `alerts` block",
+    )
+    m.add_argument(
+        "--rules", default=None,
+        help="alert rules JSON for --tsdb (default: the shipped rules, "
+        "obs/alerts.py)",
+    )
+    m.add_argument(
+        "--time-scale", type=float, default=None,
+        help="window scale for --rules (see `watch`)",
+    )
+    m.set_defaults(fn=run_monitor)
+
+    v = sub.add_parser("validate", help="parse + validate a manifest")
+    v.add_argument("manifest")
+    v.set_defaults(fn=run_validate)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -13,21 +13,29 @@ docker/paddle_k8s:26-32).
 - :class:`CoordinatorServer` — spawns and owns an ``edl-coordinator``
   process (durable with a WAL; ``lease_recover_s`` sets the window a
   restarted lease pool waits for its holders to re-confirm).
-- :func:`ensure_native_built` — builds the server with the sources'
-  own Makefile into ``edl_tpu_torch/_build/coordinator`` (``make
-  BUILD=...``), so the port shares no build directory with the
+- :class:`NativeCoordinator` — the same C++ core in process, through
+  ctypes over ``libedl_coord.so``.
+- :class:`PyCoordinator` — the pure-Python fallback with the same
+  interface, its chip leases in a :class:`~edl_tpu_torch.runtime.
+  lease_table.LeaseTable` and its task queue an
+  :class:`~edl_tpu_torch.runtime.data.ElasticDataQueue`.
+- :func:`make_coordinator` — the best in-process coordinator: native,
+  else Python.
+- :func:`ensure_native_built` — builds the library and the server with
+  the sources' own Makefile into ``edl_tpu_torch/_build/coordinator``
+  (``make BUILD=...``), so the port shares no build directory with the
   reference and writes nothing into ``native/``.
 
-There is no Python fallback: the server raises when the build fails,
-as the reference's does. The in-process coordinators
-(``NativeCoordinator``, ``PyCoordinator`` and its ``LeaseTable``) wait
-for ROADMAP Queue A item 9c. ``runtime/coordinator_main.py`` runs the
-server as a process, with the fleet's telemetry endpoint beside it.
+The server raises when the build fails, as the reference's does;
+``make_coordinator`` then returns a ``PyCoordinator``.
+``runtime/coordinator_main.py`` runs the server as a process, with the
+fleet's telemetry endpoint beside it.
 """
 
 from __future__ import annotations
 
-import fcntl
+import ctypes
+import json
 import os
 import random
 import socket
@@ -40,8 +48,9 @@ from typing import Dict, List, Optional, Tuple
 
 from edl_tpu_torch.obs import disttrace
 from edl_tpu_torch.obs import metrics as obs_metrics
-from edl_tpu_torch.runtime.data import Task
-from edl_tpu_torch.utils import faults, tracing
+from edl_tpu_torch.runtime.data import ElasticDataQueue, Task
+from edl_tpu_torch.runtime.lease_table import LeaseTable
+from edl_tpu_torch.utils import faults, native_build, tracing
 from edl_tpu_torch.utils.logging import kv_logger
 
 log = kv_logger("coordinator")
@@ -51,6 +60,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 NATIVE_DIR = os.path.join(_REPO, "native", "coordinator")
 BUILD_DIR = os.path.join(_REPO, "edl_tpu_torch", "_build", "coordinator")
 BIN_PATH = os.path.join(BUILD_DIR, "edl-coordinator")
+LIB_PATH = os.path.join(BUILD_DIR, "libedl_coord.so")
 _SOURCES = ("coordinator.h", "coordinator.cc", "capi.cc", "server_main.cc",
             "Makefile")
 
@@ -84,35 +94,16 @@ def _emit_rpc_error(op: str, err: Exception) -> None:
 
 
 def _fresh() -> bool:
-    """The built server is newer than every source (the Makefile too)."""
-    if not os.path.exists(BIN_PATH):
-        return False
-    built = os.path.getmtime(BIN_PATH)
-    return all(os.path.getmtime(os.path.join(NATIVE_DIR, s)) <= built
-               for s in _SOURCES if os.path.exists(os.path.join(NATIVE_DIR, s)))
+    """The built library and server are both newer than every source."""
+    return native_build.fresh((LIB_PATH, BIN_PATH), NATIVE_DIR, _SOURCES)
 
 
 def ensure_native_built() -> bool:
-    """Build the server on demand into :data:`BUILD_DIR`; False (and a
-    warning) when the build fails. A file lock serializes concurrent
-    builds across processes."""
-    if _fresh():
-        return True
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with _build_lock, open(os.path.join(BUILD_DIR, "lock"), "w") as lk:
-        fcntl.flock(lk, fcntl.LOCK_EX)
-        if _fresh():
-            return True
-        try:
-            subprocess.run(
-                ["make", "-C", NATIVE_DIR, f"BUILD={BUILD_DIR}",
-                 f"{BUILD_DIR}/edl-coordinator"],
-                check=True, capture_output=True, timeout=120,
-            )
-            return True
-        except (OSError, subprocess.SubprocessError) as e:
-            log.warn("native coordinator build failed", error=str(e))
-            return False
+    """Build the library and the server on demand into
+    :data:`BUILD_DIR`; False (and a warning) when the build fails."""
+    return native_build.ensure_built((LIB_PATH, BIN_PATH), NATIVE_DIR,
+                                     BUILD_DIR, _SOURCES, _build_lock,
+                                     "coordinator")
 
 
 @dataclass
@@ -157,6 +148,274 @@ def _parse_lease_snap(s: str) -> Dict:
                 }
             )
     return out
+
+
+class NativeCoordinator:
+    """ctypes wrapper over the C++ core (in-process mode)."""
+
+    def __init__(self, member_ttl_s: float = 10.0, wal_path: str = ""):
+        if not ensure_native_built():
+            raise RuntimeError("native coordinator unavailable")
+        lib = ctypes.CDLL(LIB_PATH)
+        lib.edl_coord_new.restype = ctypes.c_void_p
+        lib.edl_coord_new.argtypes = [ctypes.c_double]
+        lib.edl_coord_new_wal.restype = ctypes.c_void_p
+        lib.edl_coord_new_wal.argtypes = [ctypes.c_double, ctypes.c_char_p]
+        lib.edl_coord_free.argtypes = [ctypes.c_void_p]
+        lib.edl_kv_put.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
+        lib.edl_kv_get.restype = ctypes.c_longlong
+        lib.edl_kv_get.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_char_p,
+            ctypes.c_longlong,
+        ]
+        lib.edl_kv_del.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.edl_member_register.restype = ctypes.c_longlong
+        lib.edl_member_register.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_longlong,
+        ]
+        lib.edl_member_heartbeat.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.edl_member_leave.restype = ctypes.c_longlong
+        lib.edl_member_leave.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.edl_member_expire.restype = ctypes.c_longlong
+        lib.edl_member_expire.argtypes = [ctypes.c_void_p]
+        lib.edl_epoch.restype = ctypes.c_longlong
+        lib.edl_epoch.argtypes = [ctypes.c_void_p]
+        lib.edl_members.restype = ctypes.c_longlong
+        lib.edl_members.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_longlong,
+        ]
+        lib.edl_barrier_arrive.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_char_p,
+        ]
+        lib.edl_barrier_count.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.edl_queue_init.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_longlong,
+            ctypes.c_longlong,
+            ctypes.c_int,
+            ctypes.c_double,
+            ctypes.c_int,
+        ]
+        lib.edl_queue_lease.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_longlong * 4,
+        ]
+        lib.edl_queue_ack.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.edl_queue_nack.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.edl_queue_release_worker.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.edl_queue_done.argtypes = [ctypes.c_void_p]
+        lib.edl_queue_stats.argtypes = [ctypes.c_void_p, ctypes.c_longlong * 5]
+        lib.edl_lease_init.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.edl_lease_grant.restype = ctypes.c_longlong
+        lib.edl_lease_grant.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_longlong,
+            ctypes.c_char_p,
+            ctypes.c_longlong * 2,
+        ]
+        lib.edl_lease_recall.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.edl_lease_free.restype = ctypes.c_longlong
+        lib.edl_lease_free.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        lib.edl_lease_confirm.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_longlong,
+            ctypes.c_longlong,
+        ]
+        lib.edl_lease_crashed.restype = ctypes.c_longlong
+        lib.edl_lease_crashed.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.edl_lease_expire.argtypes = [ctypes.c_void_p, ctypes.c_longlong * 2]
+        lib.edl_lease_set_recover_window.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_double,
+        ]
+        lib.edl_lease_snap.restype = ctypes.c_longlong
+        lib.edl_lease_snap.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_char_p,
+            ctypes.c_longlong,
+        ]
+        lib.edl_wal_compact.argtypes = [ctypes.c_void_p]
+        lib.edl_wal_set_compact_bytes.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_longlong,
+        ]
+        lib.edl_wal_stats.argtypes = [ctypes.c_void_p, ctypes.c_longlong * 2]
+        self._lib = lib
+        # wal_path makes the coordinator durable: mutations append to a
+        # write-ahead log; a new instance on the same path replays it
+        if wal_path:
+            # preflight the path so an unwritable WAL raises here
+            # instead of running silently non-durable
+            with open(wal_path, "a"):
+                pass
+            self._h = lib.edl_coord_new_wal(member_ttl_s, wal_path.encode())
+        else:
+            self._h = lib.edl_coord_new(member_ttl_s)
+
+    def close(self):
+        if self._h:
+            self._lib.edl_coord_free(self._h)
+            self._h = None
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        # edl: no-lint[silent-failure] __del__ during interpreter shutdown: nothing to report to, must never raise
+        except Exception:
+            pass
+
+    # KV
+    def kv_put(self, k: str, v: str) -> None:
+        self._lib.edl_kv_put(self._h, k.encode(), v.encode())
+
+    def kv_get(self, k: str) -> Optional[str]:
+        buf = ctypes.create_string_buffer(65536)
+        n = self._lib.edl_kv_get(self._h, k.encode(), buf, len(buf))
+        return None if n < 0 else buf.value.decode()
+
+    def kv_del(self, k: str) -> None:
+        self._lib.edl_kv_del(self._h, k.encode())
+
+    # membership
+    def register(self, worker: str, incarnation: int) -> int:
+        return self._lib.edl_member_register(self._h, worker.encode(), incarnation)
+
+    def heartbeat(self, worker: str) -> bool:
+        return bool(self._lib.edl_member_heartbeat(self._h, worker.encode()))
+
+    def leave(self, worker: str) -> int:
+        return self._lib.edl_member_leave(self._h, worker.encode())
+
+    def expire(self) -> int:
+        return self._lib.edl_member_expire(self._h)
+
+    def epoch(self) -> int:
+        return self._lib.edl_epoch(self._h)
+
+    def members(self) -> List[Member]:
+        buf = ctypes.create_string_buffer(65536)
+        self._lib.edl_members(self._h, buf, len(buf))
+        return _parse_members(buf.value.decode())
+
+    def time(self) -> float:
+        """In-process: the reference clock IS this process's clock."""
+        return time.time()
+
+    # barriers
+    def barrier_arrive(self, name: str, worker: str) -> int:
+        return self._lib.edl_barrier_arrive(self._h, name.encode(), worker.encode())
+
+    def barrier_count(self, name: str) -> int:
+        return self._lib.edl_barrier_count(self._h, name.encode())
+
+    # queue
+    def queue_init(
+        self,
+        n_samples: int,
+        chunk: int,
+        passes: int = 1,
+        lease_timeout_s: float = 16.0,
+        max_failures: int = 3,
+    ) -> None:
+        self._lib.edl_queue_init(
+            self._h, n_samples, chunk, passes, lease_timeout_s, max_failures
+        )
+
+    def lease(self, worker: str) -> Optional[Task]:
+        out = (ctypes.c_longlong * 4)()
+        if not self._lib.edl_queue_lease(self._h, worker.encode(), out):
+            return None
+        return Task(task_id=out[0], start=out[1], end=out[2], epoch=out[3])
+
+    def ack(self, task_id: int) -> bool:
+        return bool(self._lib.edl_queue_ack(self._h, task_id))
+
+    def nack(self, task_id: int) -> bool:
+        return bool(self._lib.edl_queue_nack(self._h, task_id))
+
+    def release_worker(self, worker: str) -> int:
+        return self._lib.edl_queue_release_worker(self._h, worker.encode())
+
+    def queue_done(self) -> bool:
+        return bool(self._lib.edl_queue_done(self._h))
+
+    def queue_stats(self) -> Dict[str, int]:
+        out = (ctypes.c_longlong * 5)()
+        self._lib.edl_queue_stats(self._h, out)
+        return {
+            "todo": out[0],
+            "leased": out[1],
+            "done": out[2],
+            "dead": out[3],
+            "epoch": out[4],
+        }
+
+    # chip leases (the distributed ChipLeaseBroker backend; WAL-logged,
+    # so a SIGKILLed broker resumes with exact lease accounting)
+    def lease_init(self, total_chips: int) -> bool:
+        return bool(self._lib.edl_lease_init(self._h, total_chips))
+
+    def lease_grant(self, holder: str, chips: int, token: str = "") -> Dict:
+        token = token or uuid.uuid4().hex
+        out = (ctypes.c_longlong * 2)()
+        lid = self._lib.edl_lease_grant(
+            self._h, holder.encode(), chips, token.encode(), out
+        )
+        if lid == -2:
+            return {"ok": False, "reason": "nopool", "free": 0}
+        if lid == -1:
+            return {"ok": False, "reason": "nochips", "free": out[1]}
+        return {"ok": True, "id": lid, "epoch": out[0], "chips": out[1]}
+
+    def lease_recall(self, lease_id: int) -> str:
+        rc = self._lib.edl_lease_recall(self._h, lease_id)
+        return {0: "ok", -1: "unknown", -2: "freed"}[rc]
+
+    def lease_free(self, lease_id: int) -> int:
+        return self._lib.edl_lease_free(self._h, lease_id)
+
+    def lease_confirm(self, lease_id: int, epoch: int) -> str:
+        rc = self._lib.edl_lease_confirm(self._h, lease_id, epoch)
+        return {0: "ok", 1: "stale_epoch", 2: "freed", 3: "unknown"}[rc]
+
+    def lease_crashed(self, holder: str) -> int:
+        return self._lib.edl_lease_crashed(self._h, holder.encode())
+
+    def lease_expire(self) -> Tuple[int, int]:
+        out = (ctypes.c_longlong * 2)()
+        self._lib.edl_lease_expire(self._h, out)
+        return (out[0], out[1])
+
+    def lease_set_recover_window(self, seconds: float) -> None:
+        self._lib.edl_lease_set_recover_window(self._h, seconds)
+
+    def lease_snap(self) -> Dict:
+        buf = ctypes.create_string_buffer(262144)
+        self._lib.edl_lease_snap(self._h, buf, len(buf))
+        return _parse_lease_snap(buf.value.decode())
+
+    # WAL compaction (snapshot+truncate: replay cost O(state), not
+    # O(history) — the compacted-etcd-durability analog)
+    def wal_compact(self) -> None:
+        self._lib.edl_wal_compact(self._h)
+
+    def set_wal_compact_bytes(self, n: int) -> None:
+        self._lib.edl_wal_set_compact_bytes(self._h, n)
+
+    def wal_stats(self) -> Dict[str, int]:
+        out = (ctypes.c_longlong * 2)()
+        self._lib.edl_wal_stats(self._h, out)
+        return {"appended_bytes": out[0], "compactions": out[1]}
 
 
 class CoordinatorClient:
@@ -488,3 +747,183 @@ class CoordinatorServer:
     def __exit__(self, *exc):
         self.stop()
         return False
+
+
+class PyCoordinator:
+    """Pure-Python fallback with the same interface (no toolchain needed)."""
+
+    def __init__(self, member_ttl_s: float = 10.0):
+        self._ttl = member_ttl_s
+        self._lock = threading.Lock()
+        self._kv: Dict[str, str] = {}
+        self._members: Dict[str, Tuple[int, float]] = {}
+        self._epoch = 0
+        self._barriers: Dict[str, set] = {}
+        self._queue: Optional[ElasticDataQueue] = None
+        # chip leases: the shared state machine, persisting its doc
+        # into this KV (the memory-only analog of the native WAL)
+        self._lease_table = LeaseTable(persist=self._lease_persist)
+
+    def kv_put(self, k, v):
+        with self._lock:
+            self._kv[k] = v
+
+    def kv_get(self, k):
+        with self._lock:
+            return self._kv.get(k)
+
+    def kv_del(self, k):
+        with self._lock:
+            self._kv.pop(k, None)
+
+    def register(self, worker, incarnation):
+        with self._lock:
+            cur = self._members.get(worker)
+            if cur and cur[0] > incarnation:
+                return self._epoch  # zombie with stale incarnation
+            if cur is None or cur[0] != incarnation:
+                self._epoch += 1
+            self._members[worker] = (incarnation, time.monotonic() + self._ttl)
+            return self._epoch
+
+    def heartbeat(self, worker):
+        with self._lock:
+            if worker not in self._members:
+                return False
+            inc, _ = self._members[worker]
+            self._members[worker] = (inc, time.monotonic() + self._ttl)
+            return True
+
+    def leave(self, worker):
+        with self._lock:
+            if self._members.pop(worker, None) is not None:
+                self._epoch += 1
+            return self._epoch
+
+    def expire(self):
+        with self._lock:
+            now = time.monotonic()
+            dead = [w for w, (_, exp) in self._members.items() if exp <= now]
+            for w in dead:
+                del self._members[w]
+            if dead:
+                self._epoch += 1
+            return self._epoch
+
+    def epoch(self):
+        with self._lock:
+            return self._epoch
+
+    def members(self):
+        with self._lock:
+            return [
+                Member(name, inc, rank)
+                for rank, (name, (inc, _)) in enumerate(
+                    sorted(self._members.items())
+                )
+            ]
+
+    def time(self):
+        """Duck-typed clock-sync parity: in-process fallback, so the
+        reference clock is the local one."""
+        return time.time()
+
+    def barrier_arrive(self, name, worker):
+        with self._lock:
+            self._barriers.setdefault(name, set()).add(worker)
+            return len(self._barriers[name])
+
+    def barrier_count(self, name):
+        with self._lock:
+            return len(self._barriers.get(name, ()))
+
+    def queue_init(self, n_samples, chunk, passes=1, lease_timeout_s=16.0,
+                   max_failures=3):
+        self._queue = ElasticDataQueue(
+            n_samples, chunk, passes=passes, lease_timeout_s=lease_timeout_s
+        )
+
+    def lease(self, worker):
+        return self._queue.get_task(worker) if self._queue else None
+
+    def ack(self, task_id):
+        self._queue.ack(task_id)
+        return True
+
+    def nack(self, task_id):
+        self._queue.nack(task_id)
+        return True
+
+    def release_worker(self, worker):
+        return self._queue.release_worker(worker) if self._queue else 0
+
+    def queue_done(self):
+        return self._queue.done() if self._queue else False
+
+    def queue_stats(self):
+        return self._queue.progress() if self._queue else {}
+
+    # chip leases: delegate to the shared LeaseTable (same return
+    # values as the native bindings, so the client adapter can't tell
+    # the backends apart)
+    def _lease_persist(self, doc):
+        self.kv_put("lease/table", json.dumps(doc, sort_keys=True))
+
+    def lease_restore(self):
+        """Simulate a broker restart: rebuild the lease table from the
+        persisted KV doc. Live leases come back unconfirmed and the
+        table enters RECOVERING — the WAL-replay analog for the
+        memory-only fallback (tests crash the table, then restore)."""
+        doc = self.kv_get("lease/table")
+        window = self._lease_table.recover_window_s
+        self._lease_table = LeaseTable(
+            persist=self._lease_persist, recover_window_s=window
+        )
+        if doc:
+            self._lease_table.restore(json.loads(doc))
+
+    def lease_init(self, total_chips):
+        return self._lease_table.init(total_chips)
+
+    def lease_grant(self, holder, chips, token=""):
+        return self._lease_table.grant(holder, chips, token or uuid.uuid4().hex)
+
+    def lease_recall(self, lease_id):
+        return self._lease_table.recall(lease_id)
+
+    def lease_free(self, lease_id):
+        return self._lease_table.free(lease_id)
+
+    def lease_confirm(self, lease_id, epoch):
+        return self._lease_table.confirm(lease_id, epoch)
+
+    def lease_crashed(self, holder):
+        return self._lease_table.crashed(holder)
+
+    def lease_expire(self):
+        return self._lease_table.expire()
+
+    def lease_set_recover_window(self, seconds):
+        self._lease_table.recover_window_s = seconds
+
+    def lease_snap(self):
+        return self._lease_table.snap()
+
+    # WAL interface parity (duck-typed with NativeCoordinator): the
+    # Python fallback is memory-only, so these are honest no-ops
+    def wal_compact(self):
+        pass
+
+    def set_wal_compact_bytes(self, n):
+        pass
+
+    def wal_stats(self):
+        return {"appended_bytes": 0, "compactions": 0}
+
+
+def make_coordinator(member_ttl_s: float = 10.0):
+    """Best available in-process coordinator: native, else Python."""
+    try:
+        return NativeCoordinator(member_ttl_s)
+    except RuntimeError:
+        return PyCoordinator(member_ttl_s)

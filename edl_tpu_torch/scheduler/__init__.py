@@ -1,2 +1,2 @@
-"""The port's share of ``edl_tpu/scheduler``: the scale gates the
-serving fleet damps its replica scaling with."""
+"""The scheduler (the port of ``edl_tpu/scheduler``): the cluster
+autoscaler, its native planner and the scale gates."""

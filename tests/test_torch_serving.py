@@ -454,6 +454,13 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     for name in ("__init__", "weightpush", "broker", "controller",
                  "distbroker", "holder"):
         assert os.path.join(elasticity, f"{name}.py") in files
+    for name in ("api/job", "api/parser", "api/resources", "cluster/fake",
+                 "cluster/base", "cluster/resource", "cluster/topology",
+                 "controller/controller", "controller/updater",
+                 "monitor/collector", "scheduler/autoscaler",
+                 "scheduler/native", "runtime/lease_table", "runtime/data",
+                 "utils/native_build", "cli_store"):
+        assert os.path.join(ROOT, "edl_tpu_torch", f"{name}.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
