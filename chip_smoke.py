@@ -392,7 +392,7 @@ slots and horizon, each replica's primal launches (its ``/metrics``)
 ``elasticity_warm_fetch_s`` and ``elasticity_cold_load_s`` (export, then
 ``load_export``, of the same tree).
 
-Control phase (last; ROADMAP items 9c and 9d): the control plane and
+Control phase (ROADMAP items 9c and 9d): the control plane and
 the in-process coordination plane, one JSON line. (a) The squeeze of
 ``examples/elastic_demo.py`` (10 hosts x 4 chips, max load 1.0, three
 elastic jobs submitted in turn) through ``Controller``, ``Autoscaler(
@@ -424,6 +424,25 @@ and a membership / KV / barrier / queue script gives it the answers of
 phase's serving metrics: the sample's serving block equals their
 snapshot and carries the efficiency block. The phase fails above
 ``CONTROL_MAX_S`` (90 s).
+
+kube_check phase (last; ROADMAP items 9d-kube and 9f): the in-cluster
+backend and the project's own checkers, host work only, one JSON line.
+(a) ``tests/fake_kube.py``'s ``FakeKubeServer`` with 256 nodes x 8 chips
+(the control phase's fleet) and its 64 seeded jobs as ``TrainingJob``
+CRDs, its pod reconciler running; ``controller --kube-url URL
+--iterations 8 --tick-s 0`` through ``cli.main`` in this process, once
+with the Python planner (``--no-native-scheduler``) and once with the
+native one: per tick, the host ms of the CRD poll, the autoscaler's
+tick, the updaters' step and the status writes, with chips requested
+and pods. Gates: exit 0, every CRD has a status with a phase, chips
+requested <= the fleet's 2048, and in the native run ``plan_native``
+returned a plan every time it was called (never None). (b) ``check``
+over ``edl_tpu_torch/`` with ``edl_tpu_torch/analysis/baseline.json``:
+findings by rule, files read, seconds; exit 0. (c) ``schedcheck`` with
+every harness at its own budget, seed 0: each harness's schedules,
+distinct traces, races and seconds, and each static site's verdict;
+exit 0 and no site ``REGRESSED``. The phase fails above
+``KUBE_CHECK_MAX_S`` (240 s). It launches no kernel.
 
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
@@ -6545,6 +6564,246 @@ def control_phase(card, slice_metrics, device="cuda", cfg=None,
     return counts
 
 
+# -- 13. kube_check phase -----------------------------------------------------
+# The in-cluster backend (cluster/kube.py behind `controller --kube`) and
+# the project's own checkers (analysis/, the `check` and `schedcheck`
+# verbs), all host work: (a) the kube loop over tests/fake_kube.py at the
+# control phase's fleet, both planners; (b) check; (c) schedcheck.
+KUBE_CHECK = {"nodes": 256, "chips_per_node": 8, "cpu": "96",
+              "memory": "384Gi", "jobs": 64, "seed": 0, "iterations": 8,
+              "max_load": 0.97}
+# schedcheck's every harness at its own budget took 50-110 s on an x86
+# CPU host (mut-lease-broker's schedule minimization most of it, the
+# reference's as the port's): the phase's bound leaves that room
+KUBE_CHECK_MAX_S = 240.0
+
+
+def _kube_census(server, chip_key):
+    """Pods and chips requested on the fake API server, read from its
+    state (no request)."""
+    with server.state.lock:
+        pods = list(server.state.objects[("v1", "pods")].values())
+    chips = 0
+    for pod in pods:
+        if pod.get("status", {}).get("phase") in ("Succeeded", "Failed"):
+            continue
+        for ct in pod.get("spec", {}).get("containers", []):
+            res = ct.get("resources", {})
+            chips += int(res.get("limits", {}).get(
+                chip_key, res.get("requests", {}).get(chip_key, 0)))
+    return len(pods), chips
+
+
+def _kube_run(c, native):
+    """One ``controller --kube`` run over a fresh fake API server: its
+    exit code, per-tick host ms and census, the native planner's
+    answers, each CRD's phase and the final census."""
+    import collections
+    import importlib.util
+    import logging
+
+    from edl_tpu_torch import cli
+    from edl_tpu_torch.cluster import kube
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.scheduler import native as native_mod
+    from edl_tpu_torch.scheduler.autoscaler import Autoscaler
+
+    # the test suite's in-memory API server, loaded by path (no
+    # `tests` package is imported)
+    spec = importlib.util.spec_from_file_location("fake_kube", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests", "fake_kube.py"))
+    fake_kube = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake_kube)
+    m = _control_modules("edl_tpu_torch")
+    server = fake_kube.FakeKubeServer()
+    ticks, plans, sources = [], collections.Counter(), []
+    tick = {}
+
+    def close_tick():
+        if tick:
+            tick["pods"], tick["chips_requested"] = _kube_census(
+                server, kube.CHIP_RESOURCE_KEY)
+            ticks.append(dict(tick))
+            tick.clear()
+
+    def timed(cls, name, key, first=False):
+        fn = getattr(cls, name)
+
+        def wrapper(self, *a, **k):
+            if first:
+                close_tick()
+                tick.update(poll_ms=0.0, tick_ms=0.0, step_ms=0.0,
+                            status_ms=0.0, status_writes=0)
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                tick[key] += 1e3 * (time.perf_counter() - t0)
+                if key == "status_ms":
+                    tick["status_writes"] += 1
+        return fn, wrapper
+
+    def planned(*a, **k):
+        out = plan_native(*a, **k)
+        plans["plan" if out is not None else "none"] += 1
+        return out
+
+    def source_init(self, *a, **k):
+        init(self, *a, **k)
+        sources.append(self)
+
+    plan_native, init = native_mod.plan_native, kube.KubeJobSource.__init__
+    patches = [(kube.KubeJobSource, "poll", "poll_ms", True),
+               (Autoscaler, "tick", "tick_ms", False),
+               (Controller, "step", "step_ms", False),
+               (kube.KubeCluster, "update_training_job_status", "status_ms",
+                False)]
+    saved = []
+    quiet = logging.getLogger("edl_tpu_torch")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)  # jobs waiting for room warn every tick
+    try:
+        for i in range(c["nodes"]):
+            server.add_node(f"node{i:03d}", cpu=c["cpu"], memory=c["memory"],
+                            tpu=c["chips_per_node"])
+        for job in _fleet_jobs(m, {"jobs": c["jobs"], "seed": c["seed"]}):
+            server.create_training_job(job.to_dict())
+        server.start_reconciler()
+        for cls, name, key, first in patches:
+            fn, wrapper = timed(cls, name, key, first)
+            saved.append((cls, name, fn))
+            setattr(cls, name, wrapper)
+        native_mod.plan_native = planned
+        kube.KubeJobSource.__init__ = source_init
+        argv = ["controller", "--kube-url", server.url, "--iterations",
+                str(c["iterations"]), "--tick-s", "0", "--max-load-desired",
+                str(c["max_load"])]
+        if not native:
+            argv.append("--no-native-scheduler")
+        t0 = time.perf_counter()
+        rc, _ = _call_verb(cli.main, argv)
+        wall = time.perf_counter() - t0
+        close_tick()
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+        native_mod.plan_native = plan_native
+        kube.KubeJobSource.__init__ = init
+        for src in sources:  # the verb leaves its watch thread running
+            src.close()
+        quiet.setLevel(level)
+        with server.state.lock:
+            crds = {n: (o.get("status") or {}).get("phase")
+                    for (_, n), o in sorted(server.state.objects[
+                        ("edl-tpu.org/v1", "trainingjobs")].items())}
+        pods, chips = _kube_census(server, kube.CHIP_RESOURCE_KEY)
+        server.close()
+    return {"planner": "native" if native else "python", "rc": rc,
+            "verb_s": wall, "ticks": ticks, "native_plans": plans["plan"],
+            "native_declined": plans["none"], "jobs": len(crds),
+            "phases": dict(collections.Counter(crds.values())),
+            "statuses": crds, "pods": pods, "chips_requested": chips,
+            "chips_total": c["nodes"] * c["chips_per_node"]}
+
+
+def _kube_check_gate(row):
+    if row["rc"] != 0:
+        raise AssertionError(f"controller --kube ({row['planner']}) exited "
+                             f"{row['rc']}")
+    if row["planner"] == "native" and (row["native_plans"] == 0
+                                       or row["native_declined"]):
+        raise AssertionError(
+            f"the native run did not plan natively: plan_native returned "
+            f"{row['native_plans']} plans and {row['native_declined']} None")
+    missing = [n for n, ph in row["statuses"].items() if not ph]
+    if missing or not row["statuses"]:
+        raise AssertionError(f"CRDs without a status phase: {missing}")
+    if row["chips_requested"] > row["chips_total"]:
+        raise AssertionError(f"{row['chips_requested']} chips requested of "
+                             f"{row['chips_total']}")
+
+
+def kube_check_kube(c=KUBE_CHECK):
+    """(a) ``controller --kube`` with the Python planner, then the native
+    one; a row each, gated."""
+    rows = []
+    for native in (False, True):
+        row = _kube_run(c, native)
+        _kube_check_gate(row)
+        del row["statuses"]
+        rows.append(row)
+    return rows
+
+
+def kube_check_check():
+    """(b) ``check`` over the port with its baseline."""
+    from edl_tpu_torch import cli
+
+    baseline = os.path.join(os.path.dirname(os.path.abspath(cli.__file__)),
+                            "analysis", "baseline.json")
+    rc, out = _call_verb(cli.main, ["check", "--baseline", baseline,
+                                    "--json"])
+    doc = json.loads(out)
+    if rc != 0:
+        raise AssertionError(f"check exited {rc}: {doc['findings']} "
+                             f"{doc['errors']}")
+    return {"rc": rc, "rules": doc["rules"], "files": doc["files"],
+            "suppressed": doc["suppressed"],
+            "baselined": len(doc["baselined"]),
+            "duration_s": doc["duration_s"]}
+
+
+def kube_check_schedcheck(harnesses=()):
+    """(c) ``schedcheck`` at every harness's own budget, seed 0 (or only
+    ``harnesses``, for a rehearsal)."""
+    from edl_tpu_torch import cli
+
+    rc, out = _call_verb(cli.main, ["schedcheck", *harnesses, "--seed", "0",
+                                    "--json"])
+    doc = json.loads(out)
+    verdicts = {v["site"]: v["verdict"] for v in doc["verdicts"]}
+    bad = {k: v for k, v in verdicts.items()
+           if v not in ("CONFIRMED", "UNWITNESSED")}
+    if rc != 0 or (not harnesses and bad):
+        raise AssertionError(f"schedcheck exited {rc}; verdicts {bad}; "
+                             f"failed {[h['harness'] for h in doc['harnesses'] if not h['ok']]}")
+    return {"rc": rc, "elapsed_s": doc["elapsed_s"], "verdicts": verdicts,
+            "harnesses": {h["harness"]: {
+                "schedules": h["schedules"],
+                "distinct_traces": h["distinct_traces"],
+                "races": len(h["races"]),
+                "failure": (h["failure"] or {}).get("kind"),
+                "s": h["elapsed_s"], "ok": h["ok"]}
+                for h in doc["harnesses"]}}
+
+
+def kube_check_phase(card, c=KUBE_CHECK, harnesses=()):
+    """The kube_check phase, (a)-(c); one JSON row. ``c`` and
+    ``harnesses`` cut it for a CPU rehearsal."""
+    marks = [time.perf_counter()]
+
+    def lap():
+        marks.append(time.perf_counter())
+        return marks[-1] - marks[-2]
+
+    kube_rows = kube_check_kube(c)
+    kube_s = lap()
+    check = kube_check_check()
+    check["s"] = lap()
+    sched = kube_check_schedcheck(harnesses)
+    sched["s"] = lap()
+    wall = marks[-1] - marks[0]
+    print(json.dumps({
+        "phase": "kube_check",
+        # host numbers: the phase does no device work
+        "kube": kube_rows, "kube_s": kube_s, "check": check,
+        "schedcheck": sched, "phase_s": wall, "max_s": KUBE_CHECK_MAX_S,
+        "card": card}), flush=True)
+    if wall > KUBE_CHECK_MAX_S:
+        raise AssertionError(f"kube_check phase took {wall:.1f} s > "
+                             f"{KUBE_CHECK_MAX_S}")
+
+
 def main() -> int:
     # a crash in native code (a kernel's host side, ctypes) prints every
     # thread's Python stack before the process dies
@@ -6657,6 +6916,7 @@ def main() -> int:
     if load_shape not in rows:
         rows[load_shape] = primal_kernel_row(load_shape, card)
     control_counts = timed("control", control_phase, card, slice_metrics)
+    timed("kube_check", kube_check_phase, card)
     print(json.dumps({"phase": "seconds", **seconds,
                       "total": time.perf_counter() - t0}), flush=True)
 

@@ -19,14 +19,17 @@ process (``runtime.coordinator_main``) serving the job's aggregated
 edl_tpu_torch VERB`` is the command-line entry: ``serve``,
 ``generate``, ``predict``, ``loadgen``, ``fleet`` and ``elasticity``,
 the operator verbs ``top``, ``watch``, ``postmortem``, ``trace``,
-``profile``, ``export-status`` and ``job-status``, and the control-plane
-verbs ``controller``, ``submit``, ``delete``, ``list``, ``status``,
-``monitor`` and ``validate``.
+``profile``, ``export-status`` and ``job-status``, the control-plane
+verbs ``controller`` (``--kube``: ``cluster.kube``), ``submit``,
+``delete``, ``list``, ``status``, ``monitor`` and ``validate``, and the
+project's own checkers ``check`` and ``schedcheck`` (``analysis``).
 
 The control plane — the ``TrainingJob`` API (``api``), the fake
 cluster (``cluster``), the autoscaler and its native planner
-(``scheduler``), the controller (``controller``), the fleet monitor
-(``monitor``) and the job store (``cli_store``) — and the in-process
+(``scheduler``), the controller (``controller``), the Kubernetes
+backend (``cluster.kube``), the checkers (``analysis``; the schedcheck
+harnesses import the classes they drive when they run), the fleet
+monitor (``monitor``) and the job store (``cli_store``) — and the in-process
 coordinators with the lease/ack data queue (``runtime.coordinator``,
 ``runtime.data``, ``runtime.lease_table``) import no torch, and neither
 does this package's top level: it re-exports the job API's names as

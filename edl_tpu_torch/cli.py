@@ -64,12 +64,24 @@ runs the control loop (job store sync, the fake cluster's reconcile,
 the autoscaler's tick with the native planner unless
 ``--no-native-scheduler``, the job updaters) over a synthetic fleet of
 ``--hosts`` × ``--chips-per-host`` and publishes each job's status into
-the store; ``--metrics-port`` serves the fleet census. ``--kube`` and
-``--kube-url`` are not ported yet (ROADMAP item 9d-kube) and exit 1.
+the store; ``--metrics-port`` serves the fleet census. ``--kube`` (with
+``--kube-url`` or the in-cluster service account) runs the same loop
+against a Kubernetes API server (``cluster/kube.py``): TrainingJobs come
+from the CRD, child resources are real Jobs, Deployments and Services,
+and each job's status goes to the CRD's status subresource.
 ``submit``, ``delete``, ``list``, ``status``, ``monitor`` and
 ``validate`` read and write the job store (``cli_store.py``, the
 reference's on-disk format) with the reference's printed lines,
 ``--json`` records and exit codes.
+
+The project's own checkers (``analysis/``) import neither torch nor jax
+at ``check``: ``check [PATHS]`` runs the static rules over the
+``edl_tpu_torch`` package (``--baseline
+edl_tpu_torch/analysis/baseline.json`` holds the triaged findings);
+``schedcheck [HARNESS...]`` explores seeded thread interleavings of the
+port's concurrent classes under the deterministic scheduler and labels
+the static lockset-race sites. Both keep the reference verbs' flags,
+printed lines, ``--json`` documents and exit codes (0 / 1 / 2).
 
 ``serve`` reads the same JSONL request feed and the same export directory as the
 reference verb and prints the same per-request JSON records on stdout
@@ -1328,6 +1340,7 @@ def build_parser() -> argparse.ArgumentParser:
     el.set_defaults(fn=run_elasticity)
     _add_operator_parsers(sub)
     _add_control_parsers(sub)
+    _add_analysis_parsers(sub)
     return p
 
 
@@ -2186,24 +2199,105 @@ def _job_status_record(cluster, job) -> dict:
     }
 
 
+def run_controller_kube(args) -> int:
+    """In-cluster daemon: source TrainingJobs from the CRD
+    (deploy/crd.yaml), drive real child resources through the
+    Kubernetes API, publish status to the CRD status subresource —
+    the deployment mode of the reference controller
+    (reference: cmd/edl/edl.go:31-50 in-cluster config path)."""
+    from edl_tpu_torch.cluster.kube import KubeApi, KubeCluster, KubeJobSource
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.scheduler.autoscaler import Autoscaler
+
+    api = KubeApi(args.kube_url) if args.kube_url else KubeApi.from_env()
+    cluster = KubeCluster(api, worker_image=args.worker_image)
+    controller = Controller(
+        cluster,
+        autoscaler=Autoscaler(
+            cluster,
+            max_load_desired=args.max_load_desired,
+            slice_policy=_slice_policy(args),
+            use_native=not args.no_native_scheduler,
+        ),
+    )
+    source = KubeJobSource(cluster, args.namespace)
+    exporter = _start_fleet_exporter(args, cluster)
+    log.info(
+        "controller started (kube mode)",
+        api=api.base_url,
+        namespace=args.namespace or "<all>",
+        max_load_desired=args.max_load_desired,
+    )
+
+    published: dict = {}  # last status pushed per job (dirty check)
+
+    def _status_key(job):
+        st = job.status
+        return (
+            st.phase.value, st.reason, st.parallelism, st.reshard_count,
+            st.last_reshard_stall_s, st.worker.state.value,
+            st.worker.replicas, st.worker.ready_replicas,
+            st.worker.succeeded, st.worker.failed, st.master.state.value,
+            st.master.ready_replicas,
+        )
+
+    i = 0
+    while args.iterations is None or i < args.iterations:
+        # informer-poll analog (reference: WatchTrainingJobs
+        # pkg/controller.go:79-108); a transient API error must not kill
+        # the daemon — retry next tick
+        try:
+            source.poll(
+                controller.on_add, controller.on_update, controller.on_delete
+            )
+        except Exception as e:
+            log.error("trainingjob poll failed", error=str(e))
+        try:
+            controller.autoscaler.tick()
+            controller.step()
+        except Exception as e:
+            log.error("control tick failed", error=str(e))
+        for u in list(controller.updaters.values()):
+            key = _status_key(u.job)
+            if published.get(u.job.qualified_name) == key:
+                continue  # unchanged: don't spam the status subresource
+            try:
+                cluster.update_training_job_status(u.job)
+                published[u.job.qualified_name] = key
+            except Exception as e:
+                log.error(
+                    "status update failed",
+                    job=u.job.qualified_name,
+                    error=str(e),
+                )
+        published = {
+            name: v for name, v in published.items()
+            if name in controller.updaters
+        }
+        i += 1
+        if args.iterations is not None and i >= args.iterations:
+            break
+        time.sleep(args.tick_s)
+    if exporter is not None:
+        exporter.stop()
+    return 0
+
+
 def run_controller(args) -> int:
     """The daemon main loop (reference: Controller.Run
     pkg/controller.go:64-76 + the autoscaler 5 s ticker
     pkg/autoscaler.go:451-485), run synchronously per tick: sync desired
     state from the store, let the fake pod controller reconcile,
     autoscale, step the updaters, publish observed state back to the
-    store. The in-cluster mode (``--kube``, ``--kube-url``) is not
-    ported yet and exits 1."""
+    store. ``--kube`` / ``--kube-url`` run the in-cluster loop
+    (``run_controller_kube``)."""
     from edl_tpu_torch.api.parser import JobParser
     from edl_tpu_torch.cli_store import JobStore
     from edl_tpu_torch.controller.controller import Controller
     from edl_tpu_torch.scheduler.autoscaler import Autoscaler
 
     if args.kube or args.kube_url:
-        flag = "--kube" if args.kube else "--kube-url"
-        print(f"{flag} is not ported yet (ROADMAP Queue A item 9d-kube)",
-              file=sys.stderr)
-        return 1
+        return run_controller_kube(args)
     if not args.store:
         print(
             "error: --store is required (or pass --kube for in-cluster mode)",
@@ -2436,14 +2530,14 @@ def _add_control_parsers(sub) -> None:
     c.add_argument(
         "--kube",
         action="store_true",
-        help="in-cluster mode: not ported yet (ROADMAP item 9d-kube), "
-        "exits 1",
+        help="in-cluster mode: source TrainingJobs from the CRD and drive "
+        "real child resources via the Kubernetes API (cluster/kube.py)",
     )
     c.add_argument(
         "--kube-url",
         default=None,
-        help="API server URL of the in-cluster mode: not ported yet, "
-        "exits 1",
+        help="API server URL (default: in-cluster service account, "
+        "or $EDL_KUBE_URL)",
     )
     c.add_argument(
         "--namespace",
@@ -2554,6 +2648,276 @@ def _add_control_parsers(sub) -> None:
     v = sub.add_parser("validate", help="parse + validate a manifest")
     v.add_argument("manifest")
     v.set_defaults(fn=run_validate)
+
+
+# -- the project's own checkers ----------------------------------------------
+# check imports neither torch nor jax: the analyzer is stdlib ast only
+
+
+def run_check(args) -> int:
+    """Project-invariant static analysis (edl_tpu_torch/analysis/): the
+    rules — donation-safety, kv-block, lockset-race, recompile-hazard,
+    silent-failure, telemetry-conventions — over the given paths
+    (default: the edl_tpu_torch package this file is in). Device-free:
+    pure stdlib-ast work. Exit 0 iff no non-baselined findings;
+    --write-baseline freezes the current findings as the new baseline
+    after a triage."""
+    import os
+
+    from edl_tpu_torch import analysis
+
+    paths = args.paths or [os.path.dirname(os.path.abspath(__file__))]
+    root = args.root or os.path.dirname(os.path.abspath(paths[0]))
+    try:
+        report = analysis.run_check(
+            paths,
+            rules=args.rule or None,
+            baseline=args.baseline,
+            root=root,
+        )
+    except (ValueError, OSError) as e:
+        print(f"edl check: {e}", file=sys.stderr)
+        return 2
+    if args.write_baseline:
+        analysis.write_baseline(
+            args.write_baseline, report.findings + report.baselined
+        )
+        print(
+            f"baseline written: {args.write_baseline} "
+            f"({len(report.findings) + len(report.baselined)} findings)"
+        )
+        return 0
+    if args.json:
+        print(analysis.render_json(report))
+    else:
+        print(analysis.render_text(report, verbose=args.verbose))
+    return 1 if report.failed else 0
+
+
+def run_schedcheck(args) -> int:
+    """Dynamic concurrency verification (edl_tpu_torch/analysis/sched.py):
+    run the subsystem harnesses under the deterministic scheduler,
+    exploring seeded interleavings with the vector-clock happens-before
+    detector on, and label the static lockset-race sites CONFIRMED /
+    UNWITNESSED from the evidence. Exit 0 iff every harness met its
+    expectation (clean harnesses race-free, mutation corpus reproduced)
+    and no guarded site REGRESSED."""
+    import logging as pylog
+    import os
+
+    from edl_tpu_torch.analysis import harnesses as H
+    from edl_tpu_torch.analysis import sched as S
+
+    if args.list:
+        for n, h in H.HARNESSES.items():
+            tag = " [mutation]" if h.mutation else ""
+            print(f"{n}{tag}: {h.description}")
+        return 0
+    names = args.harness or [
+        n for n, h in H.HARNESSES.items()
+        if not (args.no_mutations and h.mutation)
+    ]
+    unknown = sorted(set(names) - set(H.HARNESSES))
+    if unknown:
+        print(
+            f"edl schedcheck: unknown harness(es) {unknown}; "
+            f"have {sorted(H.HARNESSES)}",
+            file=sys.stderr,
+        )
+        return 2
+
+    # import the harnessed modules and warm shared singletons BEFORE the
+    # shim goes up (their locks must be real), and silence
+    # harness-internal warn/error logs — races are reported through the
+    # explorer, not the log stream
+    H.warm_globals()
+    prev_disable = pylog.root.manager.disable
+    pylog.disable(pylog.ERROR)
+    results: dict = {}
+    records = []
+    ok = True
+    t0 = time.monotonic()
+    try:
+        for n in names:
+            h = H.HARNESSES[n]
+            res = S.explore(
+                h.fn,
+                n,
+                schedules=args.budget or h.schedules,
+                seed=args.seed,
+                max_ops=args.max_ops or h.max_ops,
+                trace_dir=args.trace_dir,
+            )
+            results[n] = res
+            missing = [
+                k for k in h.expect_keys if not H._evidence_matches(res, k)
+            ]
+            if h.expect_evidence:
+                good = res.evidence and not missing
+            else:
+                good = not res.evidence
+            ok = ok and good
+            rec = res.to_record()
+            rec["expected_evidence"] = h.expect_evidence
+            rec["missing_keys"] = missing
+            rec["ok"] = good
+            records.append(rec)
+            if args.json:
+                continue
+            status = "OK  " if good else "FAIL"
+            line = (
+                f"[{status}] {n}: {res.schedules} schedules, "
+                f"{res.distinct_traces} distinct "
+                f"({res.equivalent_pruned} equivalent pruned), "
+                f"{len(res.races)} race(s)"
+            )
+            if res.failure is not None:
+                line += f", failure={res.failure['kind']}"
+            print(line + f" [{res.elapsed_s:.2f}s]")
+            if missing:
+                print(f"    expected evidence NOT found for: {missing}")
+            for r in res.races:
+                print(f"    race: {r['message']}")
+                print(
+                    f"      repro: seed {r['seed']} (schedule "
+                    f"#{r['schedule']} of --seed {args.seed}), forced "
+                    f"prefix {len(r.get('forced_prefix', []))} choice(s)"
+                )
+                sched_ops = r.get("minimal_schedule", [])
+                if sched_ops:
+                    print(
+                        f"      minimal schedule (op window, "
+                        f"{len(sched_ops)} ops):"
+                    )
+                for t in sched_ops:
+                    loc = f" @ {t['loc']}" if t.get("loc") else ""
+                    print(
+                        f"        {t['i']:>5} {t['task']:<18} "
+                        f"{t['op']:<12} {t['obj']}{loc}"
+                    )
+            if res.failure is not None:
+                fl = res.failure
+                print(f"    failure: {fl['kind']}: {fl['detail']}")
+                print(
+                    f"      repro: seed {fl['seed']} (schedule "
+                    f"#{fl['schedule']} of --seed {args.seed})"
+                )
+    finally:
+        pylog.disable(prev_disable)
+
+    vs = H.verdicts(results)
+    regressed = [v for v in vs if v["verdict"] == "REGRESSED"]
+    ok = ok and not regressed
+    elapsed = time.monotonic() - t0
+    if args.json:
+        print(
+            json.dumps(
+                {
+                    "seed": args.seed,
+                    "harnesses": records,
+                    "verdicts": vs,
+                    "elapsed_s": round(elapsed, 3),
+                    "ok": ok,
+                },
+                indent=2,
+            )
+        )
+    else:
+        print("-- static lockset-race sites: dynamic verdicts --")
+        for v in vs:
+            print(f"  {v['verdict']:<12} {v['site']}")
+            print(f"      {v['detail']}")
+        n_ok = sum(1 for r in records if r["ok"])
+        print(
+            f"edl schedcheck: {n_ok}/{len(records)} harnesses ok, "
+            f"{len(regressed)} regressed verdict(s) "
+            f"[{elapsed:.1f}s, seed {args.seed}]"
+        )
+        if args.trace_dir:
+            print(f"repro traces: {os.path.abspath(args.trace_dir)}/*.jsonl")
+    return 0 if ok else 1
+
+
+def _add_analysis_parsers(sub) -> None:
+    """The parsers of ``check`` and ``schedcheck``, with the reference's
+    flags."""
+    ck = sub.add_parser(
+        "check",
+        help="project-invariant static analysis (donation safety, "
+        "lockset races, recompile hazards, silent failures, telemetry "
+        "conventions)",
+    )
+    ck.add_argument(
+        "paths", nargs="*",
+        help="files/dirs to analyze (default: the edl_tpu_torch package)",
+    )
+    ck.add_argument(
+        "--rule", action="append", default=[],
+        help="run only this rule id (repeatable; default: all)",
+    )
+    ck.add_argument(
+        "--baseline", default=None,
+        help="baseline JSON: findings covered there do not fail the run "
+        "(the package's: edl_tpu_torch/analysis/baseline.json)",
+    )
+    ck.add_argument(
+        "--write-baseline", default=None, metavar="PATH",
+        help="triage workflow: write the current findings (incl. "
+        "currently-baselined ones) as the new baseline and exit 0",
+    )
+    ck.add_argument("--json", action="store_true", help="machine-readable report")
+    ck.add_argument(
+        "--verbose", action="store_true",
+        help="also list baselined findings",
+    )
+    ck.add_argument(
+        "--root", default=None,
+        help="repo root anchoring relative paths and the tests//scripts/ "
+        "reference corpus (default: parent of the first path)",
+    )
+    ck.set_defaults(fn=run_check)
+
+    sc = sub.add_parser(
+        "schedcheck",
+        help="dynamic concurrency verification: explore seeded thread "
+        "interleavings of the subsystem harnesses under a vector-clock "
+        "happens-before detector; label static lockset-race sites "
+        "CONFIRMED/UNWITNESSED",
+    )
+    sc.add_argument(
+        "harness", nargs="*",
+        help="harness names to run (default: all; see --list)",
+    )
+    sc.add_argument(
+        "--list", action="store_true",
+        help="list available harnesses and exit",
+    )
+    sc.add_argument(
+        "--budget", type=int, default=None, metavar="N",
+        help="schedules to explore per harness (default: each "
+        "harness's own budget)",
+    )
+    sc.add_argument(
+        "--seed", type=int, default=0,
+        help="base exploration seed (child schedule k runs at seed "
+        "seed*10007+k; same seed => identical schedules)",
+    )
+    sc.add_argument(
+        "--max-ops", type=int, default=None,
+        help="per-schedule op cap before the run is cut off "
+        "(default: each harness's own cap)",
+    )
+    sc.add_argument(
+        "--trace-dir", default=None, metavar="DIR",
+        help="dump per-harness flight-recorder JSONL (summary + each "
+        "race with repro seed, forced prefix, and minimal schedule)",
+    )
+    sc.add_argument(
+        "--no-mutations", action="store_true",
+        help="skip the mutation corpus (run only the guarded harnesses)",
+    )
+    sc.add_argument("--json", action="store_true", help="machine-readable report")
+    sc.set_defaults(fn=run_schedcheck)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -9,12 +9,19 @@ pserver), the state machine is driven by explicit ``step()`` calls
 (the controller owns the clock — no goroutine per job), and a
 ``SCALING`` phase surfaces in-flight reshards.
 
-The port of ``edl_tpu/controller/updater.py``, unchanged in behaviour; it imports
-no torch.
+The port of ``edl_tpu/controller/updater.py``; it imports no torch. One
+repair (ROADMAP Queue C item 11): ``step``, ``convert``,
+``release_resources``, ``on_scale``, ``on_reshard_done`` and ``delete``
+hold the updater's lock, and a deleted updater steps no more. The controller steps a new job's updater on the watch thread
+(``Controller.on_add``) while its ticker steps the same updater, so the
+reference's two steps can both create the coordinator or the worker
+group (the loser raises "already exists" out of ``on_add``), and a step
+racing ``delete`` can create children again after the teardown.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import List, Optional
 
@@ -57,6 +64,12 @@ class JobUpdater:
         # control plane infers completion from pod convergence.
         self.runtime_attached = False
         self._scaling_since: Optional[float] = None
+        # the watch thread (on_add's first step, delete), the ticker
+        # (step) and the autoscaler (on_scale) drive one updater: its
+        # transitions serialize on this lock (reentrant: convert() ends a
+        # reshard through on_reshard_done)
+        self._lock = threading.RLock()
+        self._deleted = False
 
     # -- phase helpers -----------------------------------------------------
 
@@ -79,16 +92,20 @@ class JobUpdater:
     # -- lifecycle ---------------------------------------------------------
 
     def step(self) -> JobPhase:
-        """Advance one notch. Safe to call repeatedly at any cadence."""
-        if self.phase == JobPhase.NONE:
-            self._parse()
-        if self.phase == JobPhase.CREATING:
-            self._create()
-        if self.phase in (JobPhase.RUNNING, JobPhase.SCALING):
-            self.convert()
-        if self.phase.terminal():
-            self.release_resources()
-        return self.phase
+        """Advance one notch. Safe to call repeatedly at any cadence,
+        from any thread; a no-op after ``delete``."""
+        with self._lock:
+            if self._deleted:
+                return self.phase
+            if self.phase == JobPhase.NONE:
+                self._parse()
+            if self.phase == JobPhase.CREATING:
+                self._create()
+            if self.phase in (JobPhase.RUNNING, JobPhase.SCALING):
+                self._convert()
+            if self.phase.terminal():
+                self._release_resources()
+            return self.phase
 
     def _parse(self) -> None:
         """reference: parseTrainingJob via InitResource :417-429."""
@@ -142,6 +159,10 @@ class JobUpdater:
     def convert(self) -> None:
         """Fold worker-group status into the job phase
         (reference: Convert + GetStatus :343-414)."""
+        with self._lock:
+            self._convert()
+
+    def _convert(self) -> None:
         try:
             group = self.cluster.get_worker_group(self.job)
         except KeyError:
@@ -186,23 +207,30 @@ class JobUpdater:
         """Autoscaler retarget notification: surface the reshard window
         (new in the TPU design; the reference has no visible state for
         an in-flight rescale)."""
-        if self.phase == JobPhase.RUNNING:
-            self._set_phase(JobPhase.SCALING, f"resharding to {new_parallelism}")
-            self.job.status.reshard_count += 1
-            self._scaling_since = time.monotonic()
+        with self._lock:
+            if self.phase == JobPhase.RUNNING:
+                self._set_phase(JobPhase.SCALING,
+                                f"resharding to {new_parallelism}")
+                self.job.status.reshard_count += 1
+                self._scaling_since = time.monotonic()
 
     def on_reshard_done(self, stall_s: float, fallback: bool = False) -> None:
-        if self.phase == JobPhase.SCALING:
-            self.job.status.last_reshard_stall_s = stall_s
-            if fallback:
-                self.job.status.reshard_fallbacks += 1
-            self._scaling_since = None
-            self._set_phase(JobPhase.RUNNING)
+        with self._lock:
+            if self.phase == JobPhase.SCALING:
+                self.job.status.last_reshard_stall_s = stall_s
+                if fallback:
+                    self.job.status.reshard_fallbacks += 1
+                self._scaling_since = None
+                self._set_phase(JobPhase.RUNNING)
 
     def release_resources(self) -> None:
         """Terminal-state release: coordinator goes away, the worker group
         record remains for status (reference: Convert's release of
         master/pserver :400-412 — trainer Job is already done)."""
+        with self._lock:
+            self._release_resources()
+
+    def _release_resources(self) -> None:
         if self._released:
             return
         ns = self.job.namespace
@@ -215,11 +243,14 @@ class JobUpdater:
     def delete(self) -> None:
         """Full teardown on job deletion
         (reference: deleteTrainingJob :156-207)."""
-        ns = self.job.namespace
-        self.cluster.delete_worker_group(ns, f"{self.job.name}-worker")
-        try:
-            self.cluster.delete_coordinator(ns, f"{self.job.name}-coordinator")
-        except KeyError:
-            pass
-        self._released = True
+        with self._lock:
+            self._deleted = True
+            ns = self.job.namespace
+            self.cluster.delete_worker_group(ns, f"{self.job.name}-worker")
+            try:
+                self.cluster.delete_coordinator(
+                    ns, f"{self.job.name}-coordinator")
+            except KeyError:
+                pass
+            self._released = True
         log.info("deleted training job", job=self.job.name)

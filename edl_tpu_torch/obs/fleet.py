@@ -176,10 +176,15 @@ class MetricsPusher:
 
                 tr = self._tracer or tracing.tracer()
                 seq = tr._seq
-                since = self._trace_marks[0] if self._trace_marks else seq
+                # the marks are shared by the pusher thread and stop()'s
+                # last-gasp push, like the streak state
+                with self._state_lock:
+                    since = (self._trace_marks[0] if self._trace_marks
+                             else seq)
                 self._trace_publish(disttrace.span_window_json(
                     tr, max(self.trace_window, seq - since)))
-                self._trace_marks.append(seq)
+                with self._state_lock:
+                    self._trace_marks.append(seq)
             if self._clock_refresh is not None:
                 self._clock_refresh()
             with self._state_lock:
@@ -206,8 +211,7 @@ class MetricsPusher:
         an alert rule can watch instead of a manual call."""
         try:
             res = self._crosscheck()
-        # the crosscheck needs live device state; without it there is no
-            # reading, never a failed push
+        # edl: no-lint[silent-failure] the crosscheck needs live device state; without it there is no reading, never a failed push
         except Exception:
             res = None
         if res is None:

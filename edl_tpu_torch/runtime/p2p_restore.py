@@ -100,7 +100,8 @@ class P2PRestorePlane:
             client.kv_put(self._k("p2p_token"), secrets.token_hex(16))
             tok = client.kv_get(self._k("p2p_token"))
         # written once at bring-up before any probe/server thread can
-        # read it (start() precedes roster publication)
+        # read it (start() precedes roster publication); immutable after
+        # edl: no-lint[lockset-race]
         self.token = tok
         self.server = ShardServer(
             self._get_snapshot,

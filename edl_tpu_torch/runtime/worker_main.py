@@ -256,7 +256,9 @@ class ElasticWorker:
     # -- SIGTERM: graceful drain ---------------------------------------------
     def _on_sigterm(self, signum, frame):
         # delivered on the main thread; _leaving is a monotonic flag the
-        # beat thread only polls
+        # beat thread only polls — a stale read costs one extra
+        # heartbeat, never correctness
+        # edl: no-lint[lockset-race]
         self._leaving = True
         try:
             # separate connection: the main client may be mid-call

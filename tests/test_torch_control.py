@@ -777,11 +777,37 @@ def test_monitor_text_and_alerts_match(tmp_path, capsys):
     assert any("PENDING-JOBS" in x for x in got["port"][0])
 
 
-def test_controller_kube_flags_exit_1_naming_the_roadmap_item(capsys):
-    for argv in (["controller", "--kube"],
-                 ["controller", "--kube-url", "http://localhost:1"]):
-        assert tcli(argv) == 1
-        assert "ROADMAP Queue A item 9d-kube" in capsys.readouterr().err
+def test_controller_kube_flags_exit_1_naming_the_roadmap_item(monkeypatch):
+    """The in-cluster mode is ported (ROADMAP item 9d-kube): ``--kube``
+    outside a cluster fails as the reference's does, and ``--kube-url``
+    runs the kube loop against tests/fake_kube.py and exits 0, on both
+    packages (tests/test_torch_kube.py holds the loop to the
+    reference's)."""
+    from edl_tpu.cluster import kube as jkube
+    from edl_tpu_torch.cluster import kube as tkube
+    from tests.fake_kube import FakeKubeServer
+
+    for var in ("EDL_KUBE_URL", "KUBERNETES_SERVICE_HOST"):
+        monkeypatch.delenv(var, raising=False)
+    assert _outcome(tcli, ["controller", "--kube"]) == \
+        _outcome(jcli, ["controller", "--kube"])
+    assert _outcome(tcli, ["controller", "--kube"])[1] == "RuntimeError"
+    sources = []  # the verbs leave their watch threads running
+    for mod in (jkube, tkube):
+        def init(self, *a, _init=mod.KubeJobSource.__init__, **k):
+            _init(self, *a, **k)
+            sources.append(self)
+        monkeypatch.setattr(mod.KubeJobSource, "__init__", init)
+    server = FakeKubeServer()
+    try:
+        argv = ["controller", "--kube-url", server.url, "--iterations", "1",
+                "--tick-s", "0"]
+        assert tcli(argv) == 0 and jcli(argv) == 0
+    finally:
+        for src in sources:
+            src.close()
+        server.close()
+    assert len(sources) == 2
 
 
 def test_controller_metrics_port_serves_the_census():

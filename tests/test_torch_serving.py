@@ -459,7 +459,13 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                  "controller/controller", "controller/updater",
                  "monitor/collector", "scheduler/autoscaler",
                  "scheduler/native", "runtime/lease_table", "runtime/data",
-                 "utils/native_build", "cli_store"):
+                 "utils/native_build", "cli_store", "cluster/kube",
+                 "analysis/__init__", "analysis/core", "analysis/hb",
+                 "analysis/sched", "analysis/harnesses",
+                 "analysis/rules/__init__", "analysis/rules/_util",
+                 "analysis/rules/donation", "analysis/rules/kvblock",
+                 "analysis/rules/lockset", "analysis/rules/recompile",
+                 "analysis/rules/silentfail", "analysis/rules/telemetry"):
         assert os.path.join(ROOT, "edl_tpu_torch", f"{name}.py") in files
     for path in files:
         for mod in _imports(path):
