@@ -12,6 +12,9 @@
                                       # the serving-modes phase at each
                                       # depth, with its gates, then each
                                       # kv_quant's worst margin by depth
+    python3 chip_smoke.py --mesh-only # only: the build, the mesh
+                                      # shapes' kernel rows and the mesh
+                                      # phase
 
 1. Builds every kernel of the serving and training paths from the
    sources in this checkout (``edl_tpu_torch/ops/csrc/*.cu``, one nvcc
@@ -425,7 +428,7 @@ phase's serving metrics: the sample's serving block equals their
 snapshot and carries the efficiency block. The phase fails above
 ``CONTROL_MAX_S`` (90 s).
 
-kube_check phase (last; ROADMAP items 9d-kube and 9f): the in-cluster
+kube_check phase (ROADMAP items 9d-kube and 9f): the in-cluster
 backend and the project's own checkers, host work only, one JSON line.
 (a) ``tests/fake_kube.py``'s ``FakeKubeServer`` with 256 nodes x 8 chips
 (the control phase's fleet) and its 64 seeded jobs as ``TrainingJob``
@@ -443,6 +446,26 @@ every harness at its own budget, seed 0: each harness's schedules,
 distinct traces, races and seconds, and each static site's verdict;
 exit 0 and no site ``REGRESSED``. The phase fails above
 ``KUBE_CHECK_MAX_S`` (240 s). It launches no kernel.
+
+mesh phase (last; ROADMAP item 2b's first half): a
+``utils/platform.ProcessPool`` of 4 processes on the card(s), gloo on a
+shared ``cuda:0`` (every collective staged through pinned host memory
+and counted), NCCL with a card a rank; the row prints the backend and
+why, the card count and the card. (a) The flagship at full width (cut
+to ``MESH["layers"]`` of its 16 layers, printed as the row's ``cut``),
+f32 masters, adamw, B4 T2048, on fsdp2 x tp2, dp2 x tp2 and dp2 x fsdp2
+in the same 4 processes, each held to the one-rank step from the same
+params and batches: the first loss within 1e-3 relative, the loss of
+the 4th step within 1e-2, every rank's losses equal, each leaf's
+gathered gradient of the first batch within 1e-2 relative L2 and that
+batch's loss within 1e-3, both in f32 with the dense attention on both
+sides (``mesh_check.grad_cfg``), and 2L/L/L flash launches a step on
+every rank; each plan's step seconds, collective share, staged bytes
+and peak memory a rank. (b) ``ElasticTrainer(MeshSpec(tp=2),
+chips_per_worker=2, per_chip_batch=1)`` 1 -> 2 -> 1 workers, 2 steps
+each: the state's digests equal across each rescale, the step never
+resets, two events on the device path, and the first loss after each
+rescale within 1e-3 of the one-rank loss of the gathered params.
 
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
@@ -475,6 +498,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -766,7 +790,8 @@ def train_kernel_phase(card):
     """lse forward, dQ and dK/dV kernels against their plain versions at
     TRAIN_SHAPES and MOE_TRAIN_SHAPE; returns the rows by shape."""
     return {shape: train_kernel_row(shape, card)
-            for shape in (*TRAIN_SHAPES, MOE_TRAIN_SHAPE)}
+            for shape in (*TRAIN_SHAPES, MOE_TRAIN_SHAPE, MESH_TP_SHAPE,
+                          MESH_FSDP_SHAPE)}
 
 
 def train_kernel_row(shape, card):
@@ -6804,6 +6829,159 @@ def kube_check_phase(card, c=KUBE_CHECK, harnesses=()):
                              f"{KUBE_CHECK_MAX_S}")
 
 
+# the mesh phase: a pool of 4 processes on the machine's card(s) (gloo on
+# a shared cuda:0, NCCL with a card a rank), the flagship at full width
+# over three plans, then ElasticTrainer 1 -> 2 -> 1 workers of 2 ranks
+# depth cut 16 -> 4 for time: on an H100 80GB HBM3 at 700 W the phase
+# took 278.1 s at 16 layers and 154.7-222.7 s at 8 (the 4 ranks'
+# gloo-staged collectives 0.94-0.98 of a step), in a script of up to
+# 946 s; widths stay the flagship's
+MESH = {"world": 4, "batch": 4, "seq": 2048, "steps": 4, "lr": 1e-3,
+        "seed": 0, "layers": 4,
+        "plans": ({"fsdp": 2, "tp": 2}, {"dp": 2, "tp": 2},
+                  {"dp": 2, "fsdp": 2}),
+        "elastic": ((1, 2), (2, 2), (1, 2)), "timeout_s": 900}
+MESH_LOSS_RTOL = 1e-3  # first loss vs the one-rank step (bf16, flash)
+# each leaf's gathered gradient of the first batch, in f32 with the dense
+# attention on both sides (mesh_check.grad_cfg: the same math, so only
+# the collectives' summation order differs), within 1e-2 relative L2 of
+# the one-rank gradient; the f32 loss of that batch within MESH_LOSS_RTOL
+MESH_GRAD_REL_L2 = 1e-2
+MESH_LAST_RTOL = 1e-2  # the loss after 3 steps (the 4th step's)
+# each rank's attention: tp 2 of the flagship's heads at 2 rows (fsdp2 x
+# tp2, dp2 x tp2 and the elastic job), and all heads at 1 row (dp2 x fsdp2)
+MESH_TP_SHAPE = (2, 2048, 8, 4, True, 128)
+MESH_FSDP_SHAPE = (1, 2048, 16, 8, True, 128)
+
+
+def _mesh_plan_name(sizes):
+    return "x".join(f"{a}{n}" for a, n in sizes.items())
+
+
+def mesh_phase(card, device="cuda", cfg_kw=None, c=MESH,
+               expect_launches=True):
+    """The mesh phase (see the module doc): returns the flash launches
+    of each rank attention shape, summed over the pool's ranks."""
+    import numpy as np
+    import torch
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.train import mesh_check
+    from edl_tpu_torch.utils.platform import ProcessPool
+
+    t0 = time.perf_counter()
+    cfg_kw = cfg_kw or dict(
+        vocab=32768, d_model=2048, n_layers=c["layers"], n_heads=16,
+        n_kv_heads=8, d_ff=6144, dtype="bfloat16", use_flash=True,
+        remat=True)
+    n_layers = cfg_kw["n_layers"]
+    rng = np.random.RandomState(c["seed"])
+    batches = [llama.synthetic_tokens(rng, c["batch"], c["seq"],
+                                      cfg_kw["vocab"])
+               for _ in range(c["steps"])]
+    with ProcessPool(c["world"], device=device,
+                     timeout_s=c["timeout_s"]) as pool:
+        boot_s = time.perf_counter() - t0
+        backend, why = pool.backend, pool.why
+        ta = time.perf_counter()
+        a = pool.run(mesh_check.plan_checks, cfg_kw, batches, c["plans"],
+                     c["lr"], c["seed"], device)
+        a_s = time.perf_counter() - ta
+        tb = time.perf_counter()
+        b = pool.run(mesh_check.elastic_check, cfg_kw, c["elastic"],
+                     c["seq"], c["lr"], c["seed"], device)
+        b_s = time.perf_counter() - tb
+    gates = {}
+    ref = a[0]["one_rank"]["losses"]
+    plans = {}
+    per_step = {"flash_fwd_lse": 2 * n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers}
+    n_steps = len(batches)  # the gradient check runs the dense attention
+    for sizes in c["plans"]:
+        name = _mesh_plan_name(sizes)
+        rk = [r["plans"][name] for r in a]
+        got = rk[0]["losses"]
+        errs = rk[0]["grad_rel_l2"]
+        worst = max(errs, key=errs.get)
+        g_loss, g_ref = rk[0]["grad_loss"]
+        share = [sum(v["seconds"] for v in r["collectives"].values())
+                 / sum(r["step_s"]) for r in rk]
+        plans[name] = {
+            "losses": got, "one_rank_losses": ref,
+            "loss_rel_err": abs(got[0] - ref[0]) / abs(ref[0]),
+            "last_loss_rel_err": abs(got[-1] - ref[-1]) / abs(ref[-1]),
+            "grad_rel_l2": errs, "grad_worst_leaf": worst,
+            "grad_f32_loss": g_loss, "grad_f32_one_rank_loss": g_ref,
+            "step_s": rk[0]["step_s"], "grad_step_s": rk[0]["grad_s"],
+            "collective_share": share,
+            "collectives_rank0": rk[0]["collectives"],
+            "staged_bytes": [sum(v["staged_bytes"] for v in
+                                 r["collectives"].values()) for r in rk],
+            "peak_gib": [r["peak_bytes"] / 2 ** 30 for r in rk],
+            "launches": [r["launches"] for r in rk]}
+        gates[f"{name} loss"] = plans[name]["loss_rel_err"] <= MESH_LOSS_RTOL
+        gates[f"{name} f32 grads"] = errs[worst] <= MESH_GRAD_REL_L2
+        gates[f"{name} f32 loss"] = \
+            abs(g_loss - g_ref) / abs(g_ref) <= MESH_LOSS_RTOL
+        gates[f"{name} loss after 3 steps"] = \
+            plans[name]["last_loss_rel_err"] <= MESH_LAST_RTOL
+        gates[f"{name} same losses on every rank"] = all(
+            r["losses"] == got for r in rk)
+        if expect_launches:
+            gates[f"{name} launches {per_step} a step"] = all(
+                r["launches"][k] == v * n_steps for r in rk
+                for k, v in per_step.items())
+    e0 = b[0]
+    evs = e0["events"]
+    gates["elastic events (1, 2), (2, 1) on the device path"] = [
+        (e["from_workers"], e["to_workers"], e["fallback"]) for e in evs
+    ] == [(1, 2, False), (2, 1, False)]
+    gates["elastic state bit-equal across each rescale"] = bool(
+        e0["digests"]) and all(x == y for x, y in e0["digests"])
+    total = sum(n for _, n in c["elastic"])
+    steps = [s for s in e0["state_steps"] if s is not None]
+    gates["elastic step never resets"] = (
+        steps == sorted(steps) and steps[-1] == total
+        and e0["steps"] == total)
+    gates["elastic first loss after each rescale"] = len(
+        e0["first_losses"]) == 2 and all(
+        abs(x - y) / abs(y) <= MESH_LOSS_RTOL for x, y in e0["first_losses"])
+    if expect_launches:
+        gates["elastic flash launches on every rank"] = all(
+            r["launches"][k] > 0 for r in b for k in per_step)
+    tp_launch = {k: sum(r["plans"][_mesh_plan_name(s)]["launches"][k]
+                        for r in a for s in c["plans"] if "tp" in s)
+                 + sum(r["launches"][k] for r in b) for k in per_step}
+    fsdp_launch = {k: sum(r["plans"][_mesh_plan_name(s)]["launches"][k]
+                          for r in a for s in c["plans"] if "tp" not in s)
+                   for k in per_step}
+    row = {
+        "phase": "mesh", "card": card, "backend": backend, "why": why,
+        "device_count": (torch.cuda.device_count()
+                         if device != "cpu" else 0),
+        "world": c["world"], "layers": n_layers,
+        "batch": [c["batch"], c["seq"]], "boot_s": boot_s,
+        "plans": plans,
+        "one_rank_step_s": a[0]["one_rank"]["step_s"],
+        "cut": (f"depth {n_layers} of the flagship's 16 layers for time"
+                if n_layers < 16 else None),
+        "elastic": {"events": evs, "losses": e0["losses"],
+                    "first_losses": e0["first_losses"],
+                    "state_steps": e0["state_steps"],
+                    "stall_s": [e["stall_s"] for e in evs],
+                    "launches": [r["launches"] for r in b],
+                    "plan_at_end": e0["plans"]},
+        "launches": {"B2 T2048 H8 KV4": tp_launch,
+                     "B1 T2048 H16 KV8": fsdp_launch},
+        "plans_s": a_s, "elastic_s": b_s, "gates": gates,
+        "seconds": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    if not all(gates.values()):
+        raise AssertionError(
+            f"mesh gates failed: {[k for k, v in gates.items() if not v]}")
+    return {MESH_TP_SHAPE: tp_launch, MESH_FSDP_SHAPE: fsdp_launch}
+
+
 def main() -> int:
     # a crash in native code (a kernel's host side, ctypes) prints every
     # thread's Python stack before the process dies
@@ -6860,6 +7038,13 @@ def main() -> int:
         _bytecode_seconds(bytecode)
         return serving_modes_depths(
             card, [int(x) for x in sm_depths.split(",")])
+    if "--mesh-only" in argv:
+        _bytecode_seconds(bytecode)
+        for shape in (MESH_TP_SHAPE, MESH_FSDP_SHAPE):
+            train_kernel_row(shape, card)
+        print(json.dumps({"phase": "mesh_launches", **{
+            str(k): v for k, v in mesh_phase(card).items()}}), flush=True)
+        return 0
 
     seconds = {}
 
@@ -6917,6 +7102,7 @@ def main() -> int:
         rows[load_shape] = primal_kernel_row(load_shape, card)
     control_counts = timed("control", control_phase, card, slice_metrics)
     timed("kube_check", kube_check_phase, card)
+    mesh_launches = timed("mesh", mesh_phase, card)
     print(json.dumps({"phase": "seconds", **seconds,
                       "total": time.perf_counter() - t0}), flush=True)
 
@@ -6953,11 +7139,15 @@ def main() -> int:
     trainers = []
     # B4 T2048 is the train phase's shape and the control phase's
     at_main = {k: train_counts[k] + control_counts[k] for k in train_counts}
+    by_path["mesh (4 ranks, 3 plans and the elastic job)"] = {
+        k: sum(v[k] for v in mesh_launches.values())
+        for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
     for shape, launched in ((TRAIN_MAIN, at_main),
                             *((ladder_shapes[key], c)
                               for key, (_, c) in ladder_runs.items()
                               if key[1] == "bf16"),
-                            (MOE_TRAIN_SHAPE, moe_launches["train"])):
+                            (MOE_TRAIN_SHAPE, moe_launches["train"]),
+                            *mesh_launches.items()):
         tr = train_rows[shape]
         for name, source, replaces, errs, ms, plain, library in (
                 # with_lse=True: the fwd rule _flash_fwd (:363) of the

@@ -43,7 +43,8 @@ reference verb's document.
 published llama export and prints them comma-separated; ``--int8``
 serves the weight-only int8 records; greedy tokens are the reference's,
 sampled ones come from a ``torch.Generator`` seeded with ``--seed``.
-``--mesh`` is not ported yet (ROADMAP item 2b).
+``--mesh`` is not ported yet (ROADMAP item 2f, of item 2b's second
+half: sharded loading).
 
 The operator verbs read telemetry and import neither torch nor jax
 (``export-status`` loads the export module, which imports torch):
@@ -54,8 +55,9 @@ rebuilds timelines and incidents from a flight-recorder dump or a live
 ``/events``; ``trace`` prints the critical path of a step, reshard epoch
 or request from a trace document or a live ``/trace`` (the coordinator's
 is the fleet merge); ``profile SOURCE`` renders the roofline report of
-an endpoint or a ``BENCH_r*.json`` (``--dryrun`` trains through
-``ElasticTrainer``, ROADMAP item 2b, and exits 1); ``export-status``
+an endpoint or a ``BENCH_r*.json`` (``--dryrun`` trains a tiny llama
+through ``ElasticTrainer`` and serves it, then asserts the efficiency
+telemetry; on the card unless ``--device cpu``); ``export-status``
 shows and fetches the latest export; ``job-status`` reads a running
 job's progress and queue from its coordinator.
 
@@ -372,7 +374,8 @@ def run_predict(args) -> int:
     from edl_tpu_torch.utils.device import resolve_device
 
     if args.mesh:
-        print("--mesh is not ported yet (ROADMAP Queue A)", file=sys.stderr)
+        print("--mesh is not ported yet (ROADMAP Queue A item 2f)",
+              file=sys.stderr)
         return 1
     try:
         rows = load_rows(args.input, args.data_dir, n_rows=args.rows)
@@ -1695,17 +1698,19 @@ def run_trace(args) -> int:
 def run_profile(args) -> int:
     """Roofline report (achieved vs peak per phase + the HBM ledger +
     compile activity) from a live ``/metrics`` endpoint or a committed
-    ``BENCH_r*.json`` round. ``--dryrun`` trains through
-    ``ElasticTrainer``, which is not ported yet (ROADMAP item 2b): it
-    exits 1."""
+    ``BENCH_r*.json`` round, or ``--dryrun``: a tiny train window
+    through ``ElasticTrainer`` and a serving workload, self-scraped, with
+    the reference's hard assertions (exit 1 when one fails, or when no
+    card is there and ``--device cpu`` was not given)."""
     from edl_tpu_torch.obs import profile as prof
 
     if args.dryrun:
         try:
             report = prof.run_dryrun(
-                metrics_port=args.metrics_port, steps=args.steps
+                metrics_port=args.metrics_port, steps=args.steps,
+                device=args.device,
             )
-        except NotImplementedError as e:
+        except (AssertionError, RuntimeError) as e:
             print(f"PROFILE DRYRUN FAIL: {e}", file=sys.stderr)
             return 1
     elif args.source:
@@ -1828,7 +1833,7 @@ def run_generate(args) -> int:
     Greedy tokens are the reference's; sampling draws from a
     ``torch.Generator`` seeded with ``--seed``, deterministic per seed
     but not the reference's ``jax.random`` draws. ``--mesh`` is not
-    ported yet (ROADMAP item 2b)."""
+    ported yet (ROADMAP item 2f, of item 2b's second half)."""
     # argv-only validation FIRST: a pure flag mistake must not cost a
     # multi-GB export load + quantization before it is reported
     if args.temperature <= 0 and (args.top_k or args.top_p < 1.0):
@@ -1846,7 +1851,8 @@ def run_generate(args) -> int:
         return 1
     if args.mesh:
         print("--int8 and --mesh are mutually exclusive" if args.int8 else
-              "--mesh is not ported yet (ROADMAP item 2b)", file=sys.stderr)
+              "--mesh is not ported yet (ROADMAP item 2f, of item 2b's "
+              "second half: sharded loading)", file=sys.stderr)
         return 1
     from edl_tpu_torch.utils.device import resolve_device
 
@@ -2059,7 +2065,12 @@ def _add_operator_parsers(sub) -> None:
     )
     pf.add_argument(
         "--dryrun", action="store_true",
-        help="not ported yet (ROADMAP item 2b): exits 1",
+        help="train a tiny llama through ElasticTrainer, serve it, and "
+        "assert the efficiency telemetry",
+    )
+    pf.add_argument(
+        "--device", default=None,
+        help="with --dryrun: cpu, or a CUDA device (default the card)",
     )
     pf.add_argument(
         "--metrics-port", type=int, default=None,
@@ -2118,7 +2129,7 @@ def _add_operator_parsers(sub) -> None:
     )
     g.add_argument(
         "--mesh", default="",
-        help="not ported yet (ROADMAP item 2b): exits 1",
+        help="not ported yet (ROADMAP item 2f): exits 1",
     )
     g.add_argument(
         "--int8", action="store_true",

@@ -35,6 +35,18 @@ so ``torch.einsum`` copied each layer's whole cache before its
 ``bmm``; head-major, both products are strided ``bmm`` calls over the
 cache as it lies (:func:`_gqa_attend`). Values are the same; only the
 axis order differs.
+
+Over a mesh with fsdp and tp (``parallel/mesh.Mesh``; the layout is
+:func:`param_pspecs`, the reference's 2D TP x FSDP one) the training
+forward takes each rank's slices (:func:`make_loss_fn` with a plan and
+mesh): a layer gathers its weights over fsdp before use (the backward
+reduce-scatters their gradients), wq, wk, wv, w1 and w3 are
+column-parallel and wo and w2 row-parallel over tp (each followed by an
+all-reduce), so a tp rank's attention — the flash kernels on CUDA — runs
+on its own ``n_heads / tp`` query and ``n_kv_heads / tp`` KV heads
+(whole GQA groups: local query head j reads local KV head j // group).
+The embedding is the vocab-sharded lookup and the loss a vocab-parallel
+cross entropy over the tp ranks' ``vocab / tp`` logits each.
 """
 
 from __future__ import annotations
@@ -58,8 +70,7 @@ from edl_tpu_torch.models.losses import row_mean
 from edl_tpu_torch.obs import compilewatch, costmodel
 from edl_tpu_torch.ops.flash_attention import attention_auto, flash_supported
 from edl_tpu_torch.ops.int8_matmul import absmax_quant, int8_matmul
-from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
-                                        resolve_device)
+from edl_tpu_torch.utils.device import DeviceLike, resolve_device
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -212,6 +223,41 @@ def _layer_params(params: Dict, i: int) -> Dict:
 
 def _embed(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig):
     return params["embed"][tokens].to(cfg.dtype)
+
+
+def param_pspecs(cfg: LlamaConfig, plan) -> Dict:
+    """The reference's 2D TP x FSDP layout: tp on head/ffn width, fsdp on
+    the other large dim, vocab-dim tp for embed/lm_head, the stacked
+    layer axis over pp; an axis that does not divide a dim is dropped
+    from it (``sharding.fit_pspec``). Specs are tuples, ``()``-style."""
+    from edl_tpu_torch.parallel.sharding import fit_pspec
+
+    tp = "tp" if plan.axis_size("tp") > 1 else None
+    fs = "fsdp" if plan.axis_size("fsdp") > 1 else None
+    pp = "pp" if plan.axis_size("pp") > 1 else None
+    d, h, kv, hd, ff, L, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.head_dim, cfg.d_ff, cfg.n_layers,
+                              cfg.vocab)
+
+    def fit(shape, *axes):
+        return fit_pspec(plan, shape, *axes)
+
+    return {
+        "embed": fit((V, d), tp, fs),
+        "layers": {
+            "ln1": fit((L, d), pp, None),
+            "wq": fit((L, d, h * hd), pp, fs, tp),
+            "wk": fit((L, d, kv * hd), pp, fs, tp),
+            "wv": fit((L, d, kv * hd), pp, fs, tp),
+            "wo": fit((L, h * hd, d), pp, tp, fs),
+            "ln2": fit((L, d), pp, None),
+            "w1": fit((L, d, ff), pp, fs, tp),
+            "w3": fit((L, d, ff), pp, fs, tp),
+            "w2": fit((L, ff, d), pp, tp, fs),
+        },
+        "ln_f": (None,),
+        "lm_head": fit((d, V), fs, tp),
+    }
 
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -454,6 +500,37 @@ def _layer_out(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
     return _layer(cfg, x, lp, rope)[0]
 
 
+def _sharded_mesh(plan, mesh, what: str):
+    """The port mesh whose fsdp/tp slices the params are, or None for
+    whole params (one process, or dp). sp and pp raise (items 2c, 2d)."""
+    from edl_tpu_torch.parallel.mesh import Mesh, foreign_mesh, require_ported
+
+    require_ported(plan, what)
+    if mesh is None:
+        if any(n > 1 and a != "dp" for a, n in getattr(plan, "axes", ())):
+            raise ValueError(f"{what}: plan {dict(plan.axes)} shards; pass "
+                             f"its mesh (MeshPlan.build)")
+        return None
+    if not isinstance(mesh, Mesh):
+        raise foreign_mesh(mesh, what)
+    require_ported(mesh.layout, what)
+    if all(n == 1 or a == "dp" for a, n in mesh.layout.axes):
+        return None
+    return mesh
+
+
+def _check_remat(cfg: LlamaConfig, t: int) -> None:
+    if (cfg.remat and cfg.remat_policy == "attn" and cfg.use_flash
+            and not flash_supported(t)):
+        # attention() would take the dense path, the flash op would
+        # never run, and the policy would degrade to full remat
+        raise ValueError(
+            f'remat_policy="attn" needs the flash kernel, but '
+            f"seq len {t} is not flash-supported "
+            f"(flash_supported() is False) — pad T or switch policy"
+        )
+
+
 def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
             mesh=None, plan=None):
     """tokens [B, T] → logits [B, T, vocab] (f32). Differentiable: with
@@ -461,18 +538,14 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     each layer is checkpointed (non-reentrant) and recomputed in the
     backward. Serving params do not require grad, so serving builds no
     graph. ``cfg.remat_policy`` picks what the remat saves
-    (:func:`_remat_policy`). A sharding ``plan``/``mesh`` raises (not
-    ported yet)."""
-    require_unsharded(plan, mesh, "llama.forward")
-    if (cfg.remat and cfg.remat_policy == "attn" and cfg.use_flash
-            and not flash_supported(tokens.shape[1])):
-        # attention() would take the dense path, the flash op would
-        # never run, and the policy would degrade to full remat
-        raise ValueError(
-            f'remat_policy="attn" needs the flash kernel, but '
-            f"seq len {tokens.shape[1]} is not flash-supported "
-            f"(flash_supported() is False) — pad T or switch policy"
-        )
+    (:func:`_remat_policy`). Over a mesh with fsdp or tp the params are
+    this rank's slices and the result is this tp rank's ``vocab / tp``
+    logits (:func:`_mesh_forward`)."""
+    m = _sharded_mesh(plan, mesh, "llama.forward")
+    if m is not None:
+        x, lm, _ = _mesh_forward(params, tokens, cfg, m)
+        return _matw(x, lm).float()
+    _check_remat(cfg, tokens.shape[1])
     context_fn = _remat_policy(cfg) if cfg.remat else None
     x = _embed(params, tokens, cfg)
     rope = _rope_tables(cfg, tokens.shape[1], x.device)
@@ -1262,12 +1335,117 @@ def train_flops_per_token(cfg: LlamaConfig, seq: int) -> float:
     return costmodel.train_flops_per_token(cfg, seq)
 
 
+def _mesh_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope,
+                infos: Dict, mesh):
+    """One decoder layer on this rank's slices: ``lp`` holds the layer's
+    views of the stacked slices, ``infos`` their stacked leaves'
+    ``ShardInfo``. The weights are gathered over fsdp here (inside the
+    remat, so the backward gathers them again); the tp regions are
+    entered with ``copy_to`` and left with ``reduce_from``."""
+    from edl_tpu_torch.parallel import collectives as coll
+    from edl_tpu_torch.parallel import sharding as shd
+
+    tp = mesh.group("tp")
+    w = {k: shd.gather(v, infos[k], ("fsdp",), dim_offset=1)
+         for k, v in lp.items()}
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    a = coll.copy_to(_rmsnorm(x, w["ln1"], cfg.norm_eps), tp)
+    q = _rope(_matw(a, w["wq"]).reshape(b, t, -1, hd), rope)
+    k = _rope(_matw(a, w["wk"]).reshape(b, t, -1, hd), rope)
+    v = _matw(a, w["wv"]).reshape(b, t, -1, hd)
+    o = attention(q, k, v, cfg).reshape(b, t, -1)
+    x = x + coll.reduce_from(_matw(o, w["wo"]), tp)
+    m = coll.copy_to(_rmsnorm(x, w["ln2"], cfg.norm_eps), tp)
+    with _site("mlp"):
+        gate, up = _matw(m, w["w1"]), _matw(m, w["w3"])
+    return x + coll.reduce_from(
+        _matw(torch.nn.functional.silu(gate) * up, w["w2"]), tp)
+
+
+def _mesh_forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                  mesh):
+    """The forward over this rank's slices up to the lm_head: (the final
+    normed activations [B, T, d] inside the lm_head's tp region, the
+    lm_head gathered over fsdp [d, vocab / tp or vocab], the first vocab
+    id of this rank's logits)."""
+    from edl_tpu_torch.ops.embedding import sharded_embedding_lookup
+    from edl_tpu_torch.parallel import collectives as coll
+    from edl_tpu_torch.parallel import sharding as shd
+
+    lay = mesh.layout
+    ntp = lay.axis_size("tp")
+    if ntp > 1 and (cfg.n_heads % ntp or cfg.n_kv_heads % ntp
+                    or cfg.d_ff % ntp):
+        raise ValueError(
+            f"tp={ntp} must divide n_heads {cfg.n_heads}, n_kv_heads "
+            f"{cfg.n_kv_heads} and d_ff {cfg.d_ff} (whole heads a rank)")
+    if cfg.int8_mxu:
+        raise NotImplementedError(
+            "int8_mxu over a mesh with fsdp or tp is not ported yet "
+            "(ROADMAP Queue A item 2j: the int8 path under a 3D mesh)")
+    _check_remat(cfg, tokens.shape[1])
+    infos = {k: shd.info(v) for k, v in params["layers"].items()}
+    if any(i is None for i in infos.values()):
+        raise ValueError("llama mesh forward: the params are not placed "
+                         "on the mesh (trainer.shard_state)")
+    tp = mesh.group("tp")
+    emb_inf = shd.info(params["embed"])
+    emb = shd.gather(params["embed"], emb_inf, ("fsdp",))
+    if "tp" in emb_inf.dim_axes(0):
+        x = sharded_embedding_lookup(emb, tokens, mesh, "tp")
+    else:
+        x = emb[tokens]
+    x = x.to(cfg.dtype)
+    rope = _rope_tables(cfg, tokens.shape[1], x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    context_fn = _remat_policy(cfg) if cfg.remat else None
+    for lp in _unbind_layers(params):
+        if remat:
+            x = checkpoint(_mesh_layer, cfg, x, lp, rope, infos, mesh,
+                           use_reentrant=False, context_fn=context_fn)
+        else:
+            x = _mesh_layer(cfg, x, lp, rope, infos, mesh)
+    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    lm_inf = shd.info(params["lm_head"])
+    lm = shd.gather(params["lm_head"], lm_inf, ("fsdp",))
+    start = 0
+    if "tp" in lm_inf.dim_axes(1):
+        x = coll.copy_to(x, tp)
+        start = tp.rank * lm.shape[1]
+    return x, lm, start
+
+
 def make_loss_fn(cfg: LlamaConfig, plan=None, mesh=None):
     """Next-token cross entropy; batch = {tokens [B, T+1]} (plus the
     runtime's optional real-row weights ``_w`` [B]). Per-row mean over T
     of ``logsumexp − target logit`` on the f32 logits, then
-    :func:`row_mean`. A sharding ``plan``/``mesh`` raises."""
-    require_unsharded(plan, mesh, "llama.make_loss_fn")
+    :func:`row_mean`.
+
+    With a plan and mesh that have fsdp or tp (the reference's
+    ``make_loss(plan, mesh)`` contract) the loss takes this rank's
+    slices (it is marked ``local_shards`` for the step): the forward of
+    :func:`_mesh_forward` and, over tp, the vocab-parallel cross entropy
+    (``losses.vocab_parallel_ce``) — the mean over this rank's rows,
+    which the step weighs into the global batch's loss."""
+    m = _sharded_mesh(plan, mesh, "llama.make_loss_fn")
+    if m is not None:
+        from edl_tpu_torch.models.losses import vocab_parallel_ce
+
+        def mesh_loss_fn(params, batch):
+            tokens = batch["tokens"]
+            inputs, targets = tokens[:, :-1], tokens[:, 1:]
+            x, lm, start = _mesh_forward(params, inputs, cfg, m)
+            logits = _matw(x, lm).float()
+            b, t, v = logits.shape
+            ce = vocab_parallel_ce(logits.reshape(b * t, v),
+                                   targets.reshape(b * t).long(), start,
+                                   m.group("tp") if start or v < cfg.vocab
+                                   else None)
+            return row_mean(ce.reshape(b, t).mean(dim=-1), batch)
+
+        mesh_loss_fn.local_shards = True
+        return mesh_loss_fn
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]

@@ -9,7 +9,7 @@ the training loss with coefficient ``aux_coef``. Params are the
 reference's scan-stacked tree: per-layer leaves [L, ...], expert weights
 [L, E, ...]; training holds them as f32 masters and casts at each use,
 as the reference does. The expert dimension's ``ep`` sharding needs a
-mesh, which is not ported yet (ROADMAP Queue A item 2b).
+mesh axis the port's mesh does not run yet (ROADMAP Queue A item 2e).
 """
 
 from __future__ import annotations

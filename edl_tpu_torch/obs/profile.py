@@ -200,15 +200,128 @@ def render_report(report: dict) -> str:
 # the dryrun lane
 
 
-def run_dryrun(metrics_port: Optional[int] = None, steps: int = 4) -> dict:
+def run_dryrun(metrics_port: Optional[int] = None, steps: int = 4,
+               device=None) -> dict:
     """The reference's self-contained efficiency exercise: a short
-    ``ElasticTrainer`` window, then a warmed serving workload and hard
-    assertions over the process's own telemetry. ``ElasticTrainer`` is
-    not ported yet (ROADMAP Queue A item 2b), so this raises."""
-    raise NotImplementedError(
-        "profile --dryrun trains through ElasticTrainer, which is not "
-        "ported yet (ROADMAP Queue A item 2b)"
+    ``ElasticTrainer`` window (a pool of one: this process) with the
+    analytic per-example cost, then a warmed serving workload, then
+    hard assertions over the process's own telemetry. Runs on the card
+    unless ``device`` names the CPU. Returns the report; raises
+    AssertionError when an acceptance series is missing or zero, or the
+    steady-state loop recompiled."""
+    import numpy as np
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.obs import compilewatch
+    from edl_tpu_torch.obs import costmodel as cm
+    from edl_tpu_torch.obs import events as flight
+    from edl_tpu_torch.obs import memledger
+    from edl_tpu_torch.obs import metrics as om
+    from edl_tpu_torch.runtime.elastic import ElasticTrainer
+    from edl_tpu_torch.serving.engine import ContinuousBatchingEngine
+    from edl_tpu_torch.train.trainer import adam
+    from edl_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    exporter = None
+    if metrics_port is not None:
+        from edl_tpu_torch.obs.exporter import start_exporter
+
+        exporter = start_exporter(port=metrics_port)
+        print(f"# metrics endpoint {exporter.url}/metrics")
+
+    cfg = llama.LlamaConfig.tiny(vocab=128)
+    seq = 32
+
+    # -- train window through the elastic trainer ----------------------
+    trainer = ElasticTrainer(
+        llama.make_loss_fn(cfg),
+        adam(1e-3),  # real moments: the ledger's "opt" category
+        chips_per_worker=1,
+        per_chip_batch=2,
+        flops_per_example=seq * cm.train_flops_per_token(cfg, seq),
+        hbm_bytes_per_example=cm.train_step_bytes(cfg, seq) / 2,
+        device=dev,
     )
+    rng = np.random.RandomState(0)
+    trainer.start(llama.init_params(cfg, seed=0, device=dev), 1)
+
+    def data_fn(batch):
+        return llama.synthetic_tokens(rng, batch, seq, cfg.vocab)
+
+    trainer.train_steps(data_fn, steps)
+
+    # -- serving: warm pass, then the steady-state loop ----------------
+    def workload(eng):
+        for i in range(4):
+            eng.submit(f"p{i}", [1 + i, 2, 3], 10)
+        eng.run()
+
+    params = {k: v for k, v in trainer.merged_state.params.items()}
+    warm = ContinuousBatchingEngine(params, cfg, max_slots=2, max_len=32,
+                                    horizon=4, device=dev)
+    workload(warm)
+    del warm
+    compilewatch.mark_warm()
+
+    def recompiles():
+        return sum(1 for r in flight.default_recorder().records()
+                   if r.get("kind") == "obs.recompile")
+
+    rec_before = recompiles()
+    eng = ContinuousBatchingEngine(params, cfg, max_slots=2, max_len=32,
+                                   horizon=4, device=dev)
+    # hold a mid-flight view so kv occupancy is non-zero at scrape time
+    for i in range(3):
+        eng.submit(f"s{i}", [3 + i, 1], 12)
+    for _ in range(3):
+        eng.step()
+
+    # -- self-scrape + hard assertions ---------------------------------
+    if exporter is not None:
+        from edl_tpu_torch.obs.exporter import scrape
+
+        text = scrape(exporter.url)
+    else:
+        text = om.default_registry().render()
+    fams = parse_prometheus_text(text)
+    report = report_from_fams(
+        fams, source=exporter.url if exporter else "in-process")
+
+    def val(name, **match):
+        return sum(v for labels, v in fams.get(name, ())
+                   if all(labels.get(k) == mv for k, mv in match.items()))
+
+    for phase in ("train", "decode", "prefill"):
+        assert val("edl_mfu", phase=phase) > 0, (
+            f"edl_mfu{{phase={phase}}} is zero — the efficiency meter "
+            "never fired")
+    assert val("edl_bw_util_ratio", phase="decode") > 0, (
+        "edl_bw_util_ratio{phase=decode} is zero")
+    assert val("edl_hbm_bytes", category="kv") > 0, (
+        "edl_hbm_bytes{category=kv} is zero — the KV cache never "
+        "registered on the memory ledger")
+    for cat in ("params", "opt"):
+        assert val("edl_hbm_bytes", category=cat) > 0, (
+            f"edl_hbm_bytes{{category={cat}}} is zero")
+    assert val("edl_kv_occupancy_ratio") > 0, "kv occupancy gauge is zero"
+    assert val("edl_compile_seconds_count") > 0, (
+        "edl_compile_seconds has no observations")
+    rec_after = recompiles()
+    assert rec_after == rec_before == 0, (
+        f"obs.recompile fired {rec_after} time(s) on the steady-state "
+        "serving loop")
+    eng.run()
+    xc = memledger.default_ledger().crosscheck()
+    if xc is not None:
+        report["crosscheck"] = xc
+    if exporter is not None:
+        exporter.stop()
+    print(f"profile dryrun OK: mfu train/decode/prefill non-zero, "
+          f"kv={val('edl_hbm_bytes', category='kv'):.0f}B on ledger, "
+          f"{int(val('edl_compiles_total'))} compiles, 0 recompiles "
+          "after warmup")
+    return report
 
 
 def is_bench_file(source: str) -> bool:

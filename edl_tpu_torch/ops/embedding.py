@@ -19,8 +19,9 @@ fast-path cases (``MIN_FAST_IDS`` lowered so they take
 ``_blocked_grad``) are held against this op in
 ``tests/test_torch_ctr.py``.
 
-``sharded_embedding_lookup`` (the table split over a mesh axis) waits
-for the mesh slice.
+``sharded_embedding_lookup`` is the table split over a mesh axis of
+processes (``parallel/mesh.Mesh``): a masked local lookup and a sum over
+the axis.
 """
 
 from __future__ import annotations
@@ -53,10 +54,27 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return _Lookup.apply(table, ids)
 
 
-def sharded_embedding_lookup(table, ids, mesh, vocab_axis: str = "tp",
-                             ids_pspec=None):
-    """The vocab-sharded lookup of the reference; not ported yet."""
-    raise NotImplementedError(
-        "sharded_embedding_lookup is not ported yet (ROADMAP Queue A 2b): "
-        "the port runs on one card; use embedding_lookup"
-    )
+def sharded_embedding_lookup(table: torch.Tensor, ids: torch.Tensor, mesh,
+                             vocab_axis: str = "tp", ids_pspec=None
+                             ) -> torch.Tensor:
+    """The reference's vocab-sharded lookup on a mesh of processes:
+    ``table`` is this rank's slice [V / n, E] of a table split over
+    ``vocab_axis`` (n ranks, slice ``i`` holding ids ``i·V/n ..``),
+    ``ids`` the ids this rank looks up (the same on every rank of the
+    axis). Each rank looks up the ids in its range (others read zeros:
+    an id outside [0, V) is zero everywhere, as the reference's) and the
+    partial embeddings are summed over the axis; the backward lands each
+    rank's gradient on its own rows (the f32 scatter-add of
+    :func:`embedding_lookup`). Result [*ids.shape, E]. ``ids_pspec`` is
+    the reference's and places nothing here: a process holds its ids."""
+    from edl_tpu_torch.parallel import collectives as coll
+
+    group = mesh.group(vocab_axis)
+    per = table.shape[0]
+    loc = ids.long() - group.rank * per
+    mine = (loc >= 0) & (loc < per)
+    emb = embedding_lookup(table, torch.where(mine, loc,
+                                              torch.zeros_like(loc)))
+    emb = torch.where(mine[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                        device=emb.device))
+    return coll.reduce_from(emb, group)

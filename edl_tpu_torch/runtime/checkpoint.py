@@ -29,13 +29,21 @@ flight events keyed by step, and the I/O telemetry
 (``edl_checkpoint_save_seconds`` / ``edl_checkpoint_restore_seconds``
 by kind, ``edl_checkpoint_bytes_total`` by op).
 
-The multi-process sharded format of the elastic process runtime, for
-dp states (every process holds every leaf whole): :func:`snapshot_local`,
-:func:`save_shards`, :func:`write_manifest`, :func:`latest_manifest`,
-:func:`gc_step_dirs`, :func:`load_sharded`, :func:`load_sharded_params`
-and :func:`restore_local`. The manifest and the ``p:`` pieces are the
-reference's format; pieces of a sharded (fsdp) layout wait for ROADMAP
-Queue A item 2b.
+Over a mesh (``parallel/mesh.Mesh``) a placed state is each process's
+slices, every param carrying its ``sharding.ShardInfo``. :func:`snapshot`
+keeps them (host copies with the same layout), :func:`restore` and
+:func:`staged_reshard` put a whole or placed state onto another mesh's
+layout (``trainer.reshard_state``: the pieces move over the pool's
+collectives), and the int8 staging takes each moment row's absmax over
+the whole row, whatever splits it, so its bytes equal the reference's.
+
+The multi-process sharded format: :func:`snapshot_local` (a process's
+slices as pieces at their offsets; a piece is primary on the rank that
+holds replica 0 of it), :func:`save_shards`, :func:`write_manifest`,
+:func:`latest_manifest`, :func:`gc_step_dirs`, :func:`load_sharded`
+(whole leaves, or each member's slices of a mesh),
+:func:`load_sharded_params` and :func:`restore_local`. The manifest and
+the ``p:`` pieces are the reference's format.
 
 The peer restore's half (the p2p shard plane,
 ``runtime/shard_server.py`` and ``runtime/p2p_restore.py``):
@@ -52,6 +60,7 @@ on disk and on the wire.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -69,7 +78,8 @@ from edl_tpu_torch.ops import quant
 from edl_tpu_torch.parallel import sharding as shd
 from edl_tpu_torch.train.trainer import (TrainState, leaves,
                                          optimizer_tensors, rebind_state,
-                                         replace_leaves, shard_state)
+                                         replace_leaves, reshard_state,
+                                         shard_state)
 from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
                                         resolve_device)
 from edl_tpu_torch.utils import faults, tracing
@@ -108,28 +118,50 @@ def _emit_ckpt(event: str, step: int, **attrs) -> None:
 def snapshot(state: TrainState) -> TrainState:
     """Device → host RAM (step one of the reshard protocol): params and
     every optimizer tensor in one :func:`~sharding.to_host` pipeline; the
-    result's optimizer is bound to the host params."""
+    result's optimizer is bound to the host params. A placed state's
+    host params keep their ``ShardInfo``: the snapshot is this process's
+    slices."""
     params = leaves(state.params)
     ot = optimizer_tensors(state)
     host = shd.to_host(params + [t for _, _, t, _ in ot])
+    for p, h in zip(params, host):
+        if shd.info(p) is not None:
+            shd.attach(h, shd.info(p))
     moved = {(i, name): h for (i, name, _, _), h in zip(ot, host[len(params):])}
     return rebind_state(state, host[:len(params)], moved)
 
 
-def restore(host_state: TrainState, plan=None, mesh=None,
-            device: DeviceLike = None) -> TrainState:
-    """Host RAM → device (step three of the reshard protocol). A
-    sharding ``plan``/``mesh`` raises."""
-    return shard_state(host_state, plan, mesh, device)
+def _placed(state: Optional[TrainState]) -> bool:
+    return state is not None and any(
+        shd.info(p) is not None for p in leaves(state.params))
 
 
-def staged_reshard(state: TrainState, plan=None, mesh=None,
+def restore(host_state: Optional[TrainState], plan=None, mesh=None,
+            device: DeviceLike = None, param_pspecs=None, pool=None,
+            src_mesh=None) -> Optional[TrainState]:
+    """Host RAM → device (step three of the reshard protocol): a whole
+    state is placed by :func:`~trainer.shard_state` (each member takes
+    its slices); with a ``pool`` (a ``collectives.Group``) a placed
+    snapshot moves onto ``mesh``'s layout over the pool's collectives
+    (:func:`~trainer.reshard_state`; every process of the pool calls
+    it, those with no slices with None)."""
+    if pool is not None:
+        return reshard_state(host_state, plan, mesh, pool, param_pspecs,
+                             device=device, src_mesh=src_mesh)
+    return shard_state(host_state, plan, mesh, device, param_pspecs)
+
+
+def staged_reshard(state: Optional[TrainState], plan=None, mesh=None,
                    stage: Optional[str] = None,
-                   device: DeviceLike = None) -> TrainState:
+                   device: DeviceLike = None, param_pspecs=None, pool=None,
+                   src_mesh=None) -> Optional[TrainState]:
     """Device → host → device as ONE overlapped pipeline — the host
     fallback of the reshard protocol (``snapshot`` + ``restore`` would
     run the two directions back to back). Lands on ``device`` (CUDA
-    unless ``"cpu"`` is named); a sharding ``plan``/``mesh`` raises.
+    unless ``"cpu"`` is named; a mesh's own device). With a ``pool`` (a
+    ``collectives.Group``) a placed state moves onto ``mesh``'s layout
+    through host memory (:func:`_staged_mesh_reshard`): every process of
+    the pool calls it, those with no slices with None.
 
     ``stage`` compresses the OPTIMIZER-MOMENT tensors (never params: the
     f32 masters move exactly) for the host round trip:
@@ -142,8 +174,8 @@ def staged_reshard(state: TrainState, plan=None, mesh=None,
 
     A moment is compressed when it is an f32 tensor of the optimizer's
     state with at least one dim and 4096 elements (the reference's
-    ``_compressible``); the per-param ``step`` never is."""
-    require_unsharded(plan, mesh, "staged_reshard")
+    ``_compressible``: the WHOLE tensor's size); the per-param ``step``
+    never is."""
     stage = stage or os.environ.get("EDL_RESHARD_STAGE", "int8")
     if stage not in ("int8", "bf16", "f32"):
         raise ValueError(f"unknown reshard staging mode {stage!r}")
@@ -153,6 +185,14 @@ def staged_reshard(state: TrainState, plan=None, mesh=None,
         kv_logger("checkpoint").info(
             "staged reshard with lossy moment compression", stage=stage,
             override="EDL_RESHARD_STAGE=f32 for exact staging")
+    if pool is not None:
+        return _staged_mesh_reshard(state, plan, mesh, stage, device,
+                                    param_pspecs, pool, src_mesh)
+    if mesh is not None and not isinstance(mesh, _port_mesh()):
+        from edl_tpu_torch.parallel.mesh import foreign_mesh
+
+        raise foreign_mesh(mesh, "staged_reshard")
+    require_unsharded(plan, None, "staged_reshard")
     dev = resolve_device(device)
     moved: List[torch.Tensor] = []
     targets: List[torch.device] = []
@@ -188,6 +228,116 @@ def staged_reshard(state: TrainState, plan=None, mesh=None,
             q, s = placed[slots[0]], placed[slots[1]]
             tensors[key] = quant.dequantize_to(q, s, q.device)
     return rebind_state(state, [placed[j] for j in params], tensors)
+
+
+def _port_mesh():
+    from edl_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh
+
+
+def _row_absmax_int8(t: torch.Tensor, inf: Optional[shd.ShardInfo]):
+    """(q int8, scale f32 [...]) of ``t`` with each row's absmax taken
+    over the WHOLE last dim (all-reduced over the axes that split it),
+    so the bytes equal those of ``quant.quantize_int8`` of the whole
+    tensor."""
+    m = t.abs().amax(dim=-1, keepdim=True)
+    if inf is not None:
+        from edl_tpu_torch.parallel import collectives as coll
+
+        for a in inf.dim_axes(len(inf.shape) - 1):
+            coll.all_reduce(m, inf.mesh.group(a), "max")
+    s = torch.where(m > 0, m / 127.0, 1.0)
+    q = torch.clamp(torch.round(t / s), -127, 127).to(torch.int8)
+    return q, s[..., 0]
+
+
+def _staged_mesh_reshard(state, plan, mesh, stage, device, param_pspecs,
+                         pool, src_mesh) -> Optional[TrainState]:
+    """The host path of a reshard between meshes: each source member
+    compresses its moment slices on its device (int8 rows with whole-row
+    absmax, or bf16) and copies everything to host memory
+    (:func:`~sharding.to_host`); the pieces move between the processes'
+    host buffers over the pool (``sharding.redistribute``, target the
+    CPU); each target member uploads its slices through the overlapped
+    pipeline (:func:`~sharding.stream_reshard`) and decompresses them on
+    its device."""
+    from edl_tpu_torch.parallel import collectives as coll
+    from edl_tpu_torch.parallel.mesh import _group_shape
+    from edl_tpu_torch.train import trainer as tr
+
+    schema = None
+    if state is not None:
+        src = src_mesh
+        if src is None:
+            src = next(shd.info(p).mesh for p in leaves(state.params)
+                       if shd.info(p) is not None)
+        schema = tr.state_schema(state, src)
+    schema = coll.broadcast_object(schema, 0, pool)
+    _, me = _group_shape()
+    dev = torch.device(device) if device is not None else mesh.device
+    cpu = torch.device("cpu")
+    dst_specs, base = tr.reshard_plans(schema, plan, mesh, param_pspecs, dev)
+    n = len(schema.params)
+    src_t = tr.state_tensors(state) if state is not None else None
+    ps = leaves(state.params) if state is not None else None
+    moved: List[Optional[torch.Tensor]] = []
+    plans: List[shd.LeafPlan] = []
+    ops = []  # (kind, slots, target device)
+
+    def put(t, lp) -> int:
+        moved.append(t)
+        plans.append(dataclasses.replace(lp, device=cpu))
+        return len(moved) - 1
+
+    for j, lp in enumerate(base):
+        x = src_t[j] if src_t is not None else None
+        if j < n:
+            ops.append(("raw", (put(x, lp),), lp.device))
+            continue
+        i, name, shape, dt, spec, host = schema.opt[j - n]
+        if not (stage != "f32" and dt == torch.float32 and len(shape) >= 1
+                and int(np.prod(shape)) >= 4096):
+            ops.append(("raw", (put(x, lp),), lp.device))
+        elif stage == "bf16":
+            y = None if x is None else x.to(torch.bfloat16)
+            ops.append(("bf16", (put(y, dataclasses.replace(
+                lp, dtype=torch.bfloat16)),), lp.device))
+        else:
+            q = sc = None
+            if x is not None:
+                pinf = shd.info(ps[i])
+                inf = (shd.ShardInfo(shape, spec, pinf.mesh)
+                       if pinf is not None else None)
+                q, sc = _row_absmax_int8(x, inf)
+            jq = put(q, dataclasses.replace(lp, dtype=torch.int8))
+            sfull = shd.full_spec(lp.src_spec, len(shape))
+            dfull = shd.full_spec(lp.dst_spec, len(shape))
+            js = put(sc, shd.LeafPlan(shape[:-1], torch.float32,
+                                      sfull[:-1], dfull[:-1], cpu))
+            ops.append(("int8", (jq, js), lp.device))
+    if state is not None:
+        idx = [k for k, t in enumerate(moved) if t is not None]
+        for k, h in zip(idx, shd.to_host([moved[k] for k in idx])):
+            moved[k] = h
+    got = shd.redistribute(moved, plans, (schema.plan, schema.ranks),
+                           (plan, mesh.world_ranks()), me)
+    if not mesh.member:
+        return None
+    slots = [k for _, ks, _ in ops for k in ks]
+    targets = [t for _, ks, t in ops for _ in ks]
+    placed = dict(zip(slots, shd.stream_reshard([got[k] for k in slots],
+                                                targets)))
+    out = []
+    for kind, ks, target in ops:
+        if kind == "raw":
+            out.append(placed[ks[0]])
+        elif kind == "bf16":
+            out.append(placed[ks[0]].to(torch.float32))
+        else:
+            out.append(quant.dequantize_to(placed[ks[0]], placed[ks[1]],
+                                           target))
+    return tr.assemble_state(schema, out, mesh, dst_specs)
 
 
 def state_nbytes(state) -> int:
@@ -427,20 +577,59 @@ def to_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
     return t.view(torch.bfloat16) if name == "bfloat16" else t
 
 
+def _leaf_layouts(state: TrainState) -> List[Optional[shd.ShardInfo]]:
+    """The ``ShardInfo`` of each item of :func:`_state_leaf_items` (None
+    for a whole leaf): a moment's from its param's
+    (``trainer.moment_spec``)."""
+    from edl_tpu_torch.train.trainer import moment_spec
+
+    ps = leaves(state.params)
+    out = [shd.info(p) for p in ps]
+    for i, name, t, _ in optimizer_tensors(state):
+        inf = out[i]
+        if inf is None:
+            out.append(None)
+            continue
+        shape, spec = moment_spec(name, t.shape, inf.shape, ps[i].shape,
+                                  inf.spec)
+        out.append(shd.ShardInfo(shape, spec, inf.mesh))
+    return out
+
+
+def _replica0(inf: shd.ShardInfo) -> bool:
+    """Whether this process holds replica 0 of its slice: its coordinate
+    is 0 on every axis that does not split the leaf."""
+    split = set(inf.axes())
+    c = inf.mesh.coords()
+    return all(c[a] == 0 for a, n in inf.mesh.layout.axes
+               if n > 1 and a not in split)
+
+
 def snapshot_local(state: TrainState, rank: int = 0) -> LocalSnapshot:
     """Device → host of this process's state (one
-    :func:`~sharding.to_host` pipeline). Under dp the process holds
-    every leaf whole; rank 0 owns replica 0 of every leaf, so its
-    pieces are the primary ones and the other ranks' are none."""
+    :func:`~sharding.to_host` pipeline). A whole state (dp: every leaf
+    whole on every process) is one piece a leaf at offset 0, primary on
+    ``rank`` 0. A state placed on a mesh is this process's slices at
+    their offsets in the whole leaves, each primary where this process
+    holds replica 0 of it (its coordinate 0 on every axis that does not
+    split the leaf), so the primary pieces of all ranks tile every leaf
+    once."""
     items = _state_leaf_items(state)
+    layouts = _leaf_layouts(state)
     host = shd.to_host([t for _, t in items])
     pieces, primary, shapes, dtypes = {}, {}, {}, {}
-    for (key, _), h in zip(items, host):
+    for (key, _), h, inf in zip(items, host, layouts):
         arr, name = host_array(h)
-        off = tuple(0 for _ in arr.shape)
+        if inf is None:
+            off = tuple(0 for _ in arr.shape)
+            prim = rank == 0
+            shapes[key] = tuple(arr.shape)
+        else:
+            off = inf.box()[0]
+            prim = _replica0(inf)
+            shapes[key] = tuple(inf.shape)
         pieces[key] = [(off, arr)]
-        primary[key] = [off] if rank == 0 else []
-        shapes[key] = tuple(arr.shape)
+        primary[key] = [off] if prim else []
         dtypes[key] = name
     return LocalSnapshot(step=int(state.step), pieces=pieces,
                          primary=primary, shapes=shapes, dtypes=dtypes)
@@ -713,10 +902,13 @@ def _whole(shape) -> Tuple[slice, ...]:
 
 
 def _leaf_from_index(index: _PieceIndex, fq: str, shape,
-                     name: str) -> torch.Tensor:
+                     name: str, box=None) -> torch.Tensor:
+    """Leaf ``fq`` whole, or its ``box`` ((offset, extent))."""
     shape = tuple(shape)
-    return to_tensor(index.assemble(fq, _whole(shape), shape,
-                                    storage_dtype(name)), name)
+    idx = _whole(shape) if box is None else tuple(
+        slice(o, o + e) for o, e in zip(*box))
+    return to_tensor(index.assemble(fq, idx, shape, storage_dtype(name)),
+                     name)
 
 
 def _params_from_index(index: _PieceIndex, shapes, dtypes,
@@ -732,6 +924,67 @@ def _params_from_index(index: _PieceIndex, shapes, dtypes,
                          _leaf_from_index(index, fq, shape,
                                           dtypes[fq]).to(dev))
     return _restore_lists(params)
+
+
+def _mesh_state_from_index(index: _PieceIndex, step: int, shapes, dtypes,
+                           tx, mesh, param_pspecs) -> Optional[TrainState]:
+    """This member's slices of a stored state on ``mesh`` (None outside
+    it): params by ``param_pspecs`` (default ``sharding.param_pspecs``
+    of the whole shapes), each moment by its param's layout
+    (``trainer.moment_spec``). Only this member's boxes are read."""
+    from edl_tpu_torch.runtime.export import _restore_lists, _tree_insert
+    from edl_tpu_torch.train import trainer as tr
+
+    if not mesh.member:
+        return None
+    plan = mesh.layout
+    pkeys = [fq for fq in shapes if fq.startswith("p:")]
+    meta: Dict[str, Any] = {}
+    for fq in pkeys:
+        _tree_insert(meta, fq[2:].split("/"), torch.empty(
+            tuple(shapes[fq]), device="meta"))
+    meta = _restore_lists(meta)
+    spec_of = dict(shd.spec_items(param_pspecs if param_pspecs is not None
+                                  else shd.param_pspecs(meta, plan)))
+    order = [k for k, _ in _leaf_keys(meta)]
+    coords = plan.coords(mesh.rank)
+
+    def box(fq, spec):
+        return shd.local_box(tuple(shapes[fq]), spec, plan, coords)
+
+    wants = []
+    pspec = {f"p:{k}": spec_of[k] for k in order}
+    mspec = {}
+    for fq in shapes:
+        if fq.startswith("o:"):
+            key, name = fq[2:].rsplit("/", 1)
+            mspec[fq] = tr._moment_dst_spec(name, tuple(shapes[fq]),
+                                            tuple(shapes[f"p:{key}"]),
+                                            spec_of[key])
+    for fq, sp in list(pspec.items()) + list(mspec.items()):
+        off, ext = box(fq, sp)
+        wants.append((fq, off, tuple(o + e for o, e in zip(off, ext))))
+    index.prefetch(wants)
+    params: Dict[str, Any] = {}
+    for k in order:
+        fq = f"p:{k}"
+        t = _leaf_from_index(index, fq, shapes[fq], dtypes[fq],
+                             box(fq, pspec[fq])).to(mesh.device)
+        shd.attach(t, shd.ShardInfo(tuple(shapes[fq]), tuple(pspec[fq]),
+                                    mesh))
+        _tree_insert(params, k.split("/"), t)
+    params = _restore_lists(params)
+    state = TrainState.create(params, tx)
+    index_of = {k: i for i, (k, _) in enumerate(_leaf_keys(state.params))}
+    tensors = {}
+    for fq, sp in mspec.items():
+        key, name = fq[2:].rsplit("/", 1)
+        t = _leaf_from_index(index, fq, shapes[fq], dtypes[fq], box(fq, sp))
+        tensors[(index_of[key], name)] = t if name == "step" else \
+            t.to(mesh.device)
+    state = rebind_state(state, leaves(state.params), tensors)
+    state.step = int(step)
+    return state
 
 
 def _state_from_index(index: _PieceIndex, step: int, shapes, dtypes, tx,
@@ -765,14 +1018,22 @@ def load_sharded(
     ram: Optional[LocalSnapshot] = None,
     manifest: Optional[Dict[str, Any]] = None,
     device: DeviceLike = None,
-) -> TrainState:
+    plan=None,
+    mesh=None,
+    param_pspecs=None,
+) -> Optional[TrainState]:
     """Restore a TrainState of ``tx``'s optimizer (an
     :class:`~edl_tpu_torch.train.trainer.Optimizer`) on ``device`` (CUDA
     unless ``"cpu"`` is named) from the newest committed sharded
     checkpoint, or the one ``manifest`` pins, preferring RAM pieces when
     ``ram`` is at the manifest's step. The param tree follows the
-    writer's leaf order."""
-    dev = resolve_device(device)
+    writer's leaf order. With a ``mesh`` that has fsdp or tp, each
+    member reads only its slices (``param_pspecs``, default
+    ``sharding.param_pspecs``) onto the mesh's device, whatever mesh
+    wrote the pieces; a process outside the mesh gets None."""
+    sharded = mesh is not None and any(
+        n > 1 and a != "dp" for a, n in mesh.layout.axes)
+    dev = mesh.device if sharded else resolve_device(device)
     if manifest is None:
         manifest = latest_manifest(root)
     if manifest is None:
@@ -783,6 +1044,10 @@ def load_sharded(
     t0 = time.perf_counter()
     try:
         with tracing.span("checkpoint.load_sharded", step=manifest["step"]):
+            if sharded:
+                return _mesh_state_from_index(
+                    index, int(manifest["step"]), manifest["shapes"],
+                    manifest["dtypes"], tx, mesh, param_pspecs)
             return _state_from_index(index, int(manifest["step"]),
                                      manifest["shapes"], manifest["dtypes"],
                                      tx, dev)

@@ -141,7 +141,7 @@ def bootstrap(
     return ctx
 
 
-BACKEND = "gloo"  # every device in this slice (NCCL: ROADMAP item 2b)
+BACKEND = "gloo"  # every device (NCCL for workers of other meshes: item 2h)
 
 
 def collective_timeout_s(member_ttl_s: float) -> float:

@@ -16,7 +16,8 @@ step. Leaf keys come from the checkpoint format's one rule
 
 :func:`export_from_checkpoint` assembles an export from a sharded
 checkpoint (the elastic worker's commit leader). Not ported yet (ROADMAP
-Queue A item 2b, the mesh): :func:`load_export_sharded`, which raises.
+Queue A item 2g, of item 2b's second half): :func:`load_export_sharded`,
+which raises.
 """
 
 from __future__ import annotations
@@ -182,11 +183,11 @@ def export_from_checkpoint(ckpt_root: str, export_root: str,
 
 
 def load_export_sharded(root: str, mesh, pspecs):
-    """The reference loads an export onto a device mesh; the mesh is
-    not ported yet."""
+    """The reference loads an export onto a device mesh; not ported
+    yet."""
     raise NotImplementedError(
-        "load_export_sharded is not ported yet (ROADMAP item 2b: the "
-        "device mesh)")
+        "load_export_sharded is not ported yet (ROADMAP item 2g, of item "
+        "2b's second half)")
 
 
 def export_status(root: str) -> Optional[Dict[str, Any]]:

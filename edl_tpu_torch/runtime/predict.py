@@ -27,7 +27,7 @@ off. The chunking is part of the moe family's function: an expert's
 capacity depends on the tokens one forward routes. Rows come from an
 npz or the head of a shards-dir dataset (:func:`load_rows`,
 ``runtime/shards.py``). Not ported yet: a sharded load over
-``mesh_spec`` (ROADMAP Queue A item 2b), which raises
+``mesh_spec`` (ROADMAP Queue A item 2f, the sharded loading), which raises
 ``NotImplementedError``.
 """
 
@@ -60,7 +60,7 @@ def load_params_for_predict(
     if mesh_spec:
         raise NotImplementedError(
             "predict over a mesh is not ported yet (ROADMAP Queue A item "
-            "2b)")
+            "2f, of item 2b's second half)")
     return load_export(export_dir, device=device)
 
 

@@ -32,7 +32,7 @@ Lifecycle, per membership epoch:
      an all-reduce. Tasks are leased per step and acked after the
      optimizer update; a rank without a task replays its last batch
      with ``_w = 0``, which adds no gradient (the step is the global
-     weighted mean, train/trainer.py ``_dp_update``);
+     weighted mean, train/trainer.py ``_mesh_update``);
   5. on ``reshard``: snapshot to host RAM, commit the sharded checkpoint
      (the commit leader refuses it unless every member's param digest
      agrees), destroy the process group, and loop back to (1) — the
@@ -65,7 +65,7 @@ under ``("reshard", epoch)``, so ``trace --step`` and ``trace
 --reshard-epoch`` select them across workers.
 
 Not ported yet: meshes other than dp and several devices a process
-(ROADMAP Queue A item 2b) raise at start.
+(ROADMAP Queue A item 2h, of item 2b's second half) raise at start.
 
 Run as ``python -m edl_tpu_torch.runtime.worker_main`` with the EDL_*
 env contract (``WorkerConfig.from_env``).
@@ -775,7 +775,7 @@ class ElasticWorker:
             self._gc.defer_late(rmark(cfg.worker_id))
             if rank == 0:
                 self._confirm_restore(cl, epoch, members, state.step)
-            loss_fn = wl.loss_fn
+            loss_fn = wl.loss_for(plan, mesh)
             step = trainer.make_train_step(loss_fn, tx, plan, mesh,
                                            donate=False,
                                            weight_fn=wl.loss_weight)
@@ -968,7 +968,7 @@ class ElasticWorker:
                 h["block"].observe(time.perf_counter() - t_sync)
             except RuntimeError as e:
                 # a peer died mid-collective: the optimizer has not
-                # touched the state (train/trainer.py _dp_update)
+                # touched the state (train/trainer.py _mesh_update)
                 log.warn("step failed; recovering", step=i, error=str(e))
                 if task_id is not None:
                     cl.nack(task_id)

@@ -13,10 +13,13 @@ rows)`` is the held-out metric the commit leader publishes
 (runtime/eval_hook.py); ``model_meta`` is the architecture record an
 export carries; ``flops_per_example`` is the port's cost model's.
 
-The elastic runtime here is dp only, so a workload carries none of the
-reference's ``pspecs`` (every leaf is replicated) nor its mesh-aware
-``make_loss`` (llama's sp/pp losses): both wait for ROADMAP Queue A
-item 2b. ``loss_weight(batch)`` is a process's share of the loss's denominator,
+A workload may carry the reference's ``pspecs`` (``plan -> spec tree``,
+llama's 2D TP x FSDP layout) and its mesh-aware ``make_loss(plan,
+mesh)`` (llama's loss over a mesh's slices); :meth:`Workload.loss_for`
+picks the loss for a mesh, as the reference's does. The elastic process
+runtime itself still runs dp meshes (ROADMAP Queue A item 2h); an
+``ElasticTrainer`` over a pool runs the others. ``loss_weight(batch)``
+is a process's share of the loss's denominator,
 which the data-parallel step all-reduces
 (:func:`edl_tpu_torch.models.losses.batch_weight`).
 """
@@ -45,6 +48,13 @@ class Workload:
     eval_fn: Optional[Callable[[Any, Dict[str, np.ndarray]], float]] = None
     flops_per_example: Optional[float] = None
     loss_weight: Optional[Callable[[Any], Any]] = None
+    pspecs: Optional[Callable[[Any], Any]] = None
+    make_loss: Optional[Callable[[Any, Any], Callable]] = None
+
+    def loss_for(self, plan, mesh) -> Callable:
+        """The loss for ``plan``/``mesh``: the mesh-aware ``make_loss``
+        when the workload has one, else the static ``loss_fn``."""
+        return self.make_loss(plan, mesh) if self.make_loss else self.loss_fn
 
 
 def _generator(cfg: WorkerConfig) -> torch.Generator:
@@ -151,6 +161,8 @@ def _llama_workload(cfg: WorkerConfig) -> Workload:
         lambda dev: llama.init_params(mcfg, seed=cfg.seed, device=dev),
         llama.make_loss_fn(mcfg),
         batch_fn,
+        pspecs=lambda plan: llama.param_pspecs(mcfg, plan),
+        make_loss=lambda plan, mesh: llama.make_loss_fn(mcfg, plan, mesh),
         model_meta=mcfg.to_meta(),
         eval_fn=_lm_ppl_eval(lambda p, t: llama.forward(p, t, mcfg)),
         flops_per_example=cfg.seq_len
@@ -219,7 +231,7 @@ def _moe_workload(cfg: WorkerConfig) -> Workload:
     """Mixture-of-Experts decoder. Under the dp step its router aux term
     and its expert capacity are per process (the reference computes both
     over the global batch), so a dp moe job is not the reference's
-    function at world > 1; the ep mesh waits for item 2b."""
+    function at world > 1; the ep mesh waits for item 2e."""
     from edl_tpu_torch.models import moe
 
     mcfg = dataclasses.replace(

@@ -19,17 +19,35 @@ card, or the host snapshot back onto it), :func:`global_batch` and
 optimizer is a new instance of the same class and hyperparameters,
 bound to the placed params (:func:`rebind_state`).
 
-Data parallelism over processes (the elastic process runtime's dp
-mesh, :class:`edl_tpu_torch.parallel.mesh.Mesh`): every process holds
-the whole state; :func:`make_train_step` all-reduces each step's
-gradients over the process group, and :class:`LocalSyncStepper` takes
-K local steps between averages. A ``plan``/``mesh`` that shards
-anything else raises (ROADMAP Queue A item 2b).
+Training over a mesh of processes (:class:`edl_tpu_torch.parallel.mesh.
+Mesh`, one rank a process):
+
+- dp alone: every process holds the whole state; :func:`make_train_step`
+  all-reduces each step's gradients over the dp group, and
+  :class:`LocalSyncStepper` takes K local steps between averages.
+- fsdp and tp (with or without dp): every process holds the slices the
+  reference's PartitionSpecs give its device (:func:`state_pspecs`,
+  :func:`shard_state`; each placed leaf carries its
+  ``parallel/sharding.ShardInfo``). A step's loss either takes the local
+  slices itself (a loss made for the mesh, such as ``llama.
+  make_loss_fn(cfg, plan, mesh)``, marked ``local_shards``) or gets the
+  leaves gathered whole (``sharding.gather_tree``; the backward
+  reduce-scatters over fsdp). Gradients are then summed over the batch
+  axes that do not split the leaf, and the optimizer steps the local
+  slices. Adafactor's factored moments and whole-tensor RMS reduce over
+  every slice (:class:`Adafactor`), so the sharded step is the
+  unsharded one.
+- The loss is the global batch's: each batch shard weighs its share by
+  its rows' weight over the global weight (Σ ``_w``, as the dp step's
+  Σw·loss / Σw).
+
+sp, pp and ep plans raise (ROADMAP Queue A items 2c-2e).
 """
 
 from __future__ import annotations
 
 import inspect
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -40,8 +58,9 @@ import torch
 from edl_tpu_torch.models.losses import batch_weight
 from edl_tpu_torch.obs import compilewatch
 from edl_tpu_torch.obs import metrics as obs_metrics
-from edl_tpu_torch.utils.device import (DeviceLike, require_unsharded,
-                                        resolve_device)
+from edl_tpu_torch.parallel import collectives as coll
+from edl_tpu_torch.parallel import sharding as shd
+from edl_tpu_torch.utils.device import DeviceLike, resolve_device
 from edl_tpu_torch.utils.tree import leaves, replace_leaves
 
 
@@ -106,6 +125,14 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         ps, lr=learning_rate, betas=betas, eps=eps))
 
 
+def sgd(learning_rate: float, momentum: Optional[float] = None,
+        nesterov: bool = False) -> Optimizer:
+    """``optax.sgd``: ``p − lr·g``, with optax's momentum (a trace
+    ``m = g + momentum·m``, torch's SGD momentum with no dampening)."""
+    return Optimizer(lambda ps: torch.optim.SGD(
+        ps, lr=learning_rate, momentum=momentum or 0.0, nesterov=nesterov))
+
+
 class Adafactor(torch.optim.Optimizer):
     """``optax.adafactor(lr)``'s chain with optax's other defaults, step
     for step (optax 0.2.6, ``_src/factorized.py`` and ``_src/alias.py``),
@@ -133,7 +160,13 @@ class Adafactor(torch.optim.Optimizer):
     count, a CPU tensor as torch's Adam keeps it. ``torch.optim.
     Adafactor`` is another algorithm (it factors the last two dims of
     every tensor of 2 or more dims, does not clip, and steps by
-    ``min(lr, 1/sqrt(t))``)."""
+    ``min(lr, 1/sqrt(t))``).
+
+    A param that is a mesh slice (``sharding.info``) is factored by its
+    WHOLE shape, and every mean and RMS above spans the whole tensor: a
+    local partial sum is all-reduced over the axes that split the
+    reduced dims. ``v_row`` (``v_col``) is then split like the param
+    with ``d0`` (``d1``) removed (:func:`moment_spec`)."""
 
     MIN_DIM_SIZE_TO_FACTOR = 128
     DECAY_RATE = 0.8
@@ -168,7 +201,23 @@ class Adafactor(torch.optim.Optimizer):
 
     def _update(self, p: torch.Tensor, lr: float) -> None:
         g = p.grad
-        dims = self.factored_dims(tuple(p.shape))
+        inf = shd.info(p)
+        gshape = inf.shape if inf is not None else tuple(p.shape)
+        dims = self.factored_dims(gshape)
+
+        def mean(x, dim, d_global, keepdim=False):
+            # a mean over the param's (global) dim ``d_global``
+            if inf is None:
+                return x.mean(dim=dim, keepdim=keepdim)
+            out = inf.sum(x.sum(dim=dim, keepdim=keepdim), [d_global])
+            return out / gshape[d_global]
+
+        def rms(x):
+            if inf is None:
+                return x.square().mean().sqrt()
+            out = inf.sum(x.square().sum(), range(len(gshape)))
+            return (out / math.prod(gshape)).sqrt()
+
         st = self.state[p]
         if not st:
             st["step"] = torch.tensor(0.0)
@@ -189,14 +238,14 @@ class Adafactor(torch.optim.Optimizer):
             u = g * v.pow(-0.5)
         else:
             d1, d0 = dims
-            v_row = st["v_row"].mul_(beta).add_(g2.mean(dim=d0) * keep)
-            v_col = st["v_col"].mul_(beta).add_(g2.mean(dim=d1) * keep)
+            v_row = st["v_row"].mul_(beta).add_(mean(g2, d0, d0) * keep)
+            v_col = st["v_col"].mul_(beta).add_(mean(g2, d1, d1) * keep)
             r1 = d1 - 1 if d1 > d0 else d1
-            row = (v_row / v_row.mean(dim=r1, keepdim=True)).pow(-0.5)
+            row = (v_row / mean(v_row, r1, d1, keepdim=True)).pow(-0.5)
             u = g * row.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
         del g2
-        u = u / torch.clamp(u.square().mean().sqrt(), min=1.0)
-        u = lr * u * torch.clamp(p.square().mean().sqrt(), min=1e-3)
+        u = u / torch.clamp(rms(u), min=1.0)
+        u = lr * u * torch.clamp(rms(p), min=1e-3)
         p.add_(-1 * u)
         st["step"] += 1
 
@@ -285,61 +334,105 @@ def _apply_update(loss_fn, state: TrainState, batch) -> Tuple[TrainState,
                        opt_state=opt), loss.detach())
 
 
-def _dp_mesh(plan, mesh, what: str):
-    """The dp mesh a step all-reduces over, or None on one process. A
-    port :class:`~edl_tpu_torch.parallel.mesh.Mesh` needs a dp-only
-    plan; anything else that shards raises (item 2b)."""
-    from edl_tpu_torch.parallel.mesh import Mesh, require_dp
+def _mesh_kind(plan, mesh, what: str):
+    """("one", None) on one process; ("dp", mesh) for a dp mesh of more
+    than one process; ("sharded", mesh) for a mesh with fsdp or tp. A
+    plan that shards with no port mesh raises."""
+    from edl_tpu_torch.parallel.mesh import (Mesh, foreign_mesh, require_dp,
+                                             require_ported)
 
     if isinstance(mesh, Mesh):
-        require_dp(plan, what)
-        return mesh if mesh.world > 1 else None
-    require_unsharded(plan, mesh, what)
-    return None
+        if mesh.plan is None:  # the elastic process runtime's dp mesh
+            require_dp(plan, what)
+        require_ported(mesh.layout, what)
+        if any(n > 1 and a != "dp" for a, n in mesh.layout.axes):
+            return "sharded", mesh
+        return ("dp", mesh) if mesh.world > 1 else ("one", None)
+    if mesh is not None:
+        raise foreign_mesh(mesh, what)
+    require_ported(plan, what)
+    if any(n > 1 for _, n in getattr(plan, "axes", ())):
+        raise ValueError(f"{what}: plan {dict(plan.axes)} shards; pass its "
+                         f"mesh (MeshPlan.build)")
+    return "one", None
 
 
-def _dp_update(loss_fn, state: TrainState, batch, mesh, weight_fn
-               ) -> Tuple[TrainState, torch.Tensor, float]:
-    """One data-parallel update: the reference's global weighted mean.
+def _sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for a in axes:
+        coll.all_reduce(t, mesh.group(a))
+    return t
 
-    The loss is a weighted mean (``row_mean``: Σ w·l / max(Σ w, 1)), so
-    each process scales its local gradient and loss back to sums by
-    ``max(W_local, 1)`` (W_local = ``weight_fn(batch)``; a replayed
-    all-zero ``_w`` batch has zero gradient either way), ONE all-reduce
-    sums them with the W_locals over the group, and the update divides
-    by ``max(W_global, 1)``: the gradient of the loss over the global
-    batch, whatever the ragged tail leaves on each process. The
-    optimizer steps only after the all-reduce has returned, so a failed
-    collective (a dead peer) leaves params and moments as they were.
-    Returns (state, loss over the global batch, all-reduce seconds)."""
-    import torch.distributed as dist
 
-    opt = state.opt_state
-    ps = [p for p in leaves(state.params) if p.requires_grad]
-    loss = loss_fn(state.params, batch)
-    grads = torch.autograd.grad(loss, ps)
-    w = batch_weight(batch, weight_fn).to(loss.device, torch.float32)
-    scale = w.clamp_min(1.0)
-    flat = torch.cat([g.reshape(-1).float() for g in grads]
-                     + [loss.detach().float().reshape(1), w.reshape(1)])
-    flat[:-1] *= scale
-    if flat.is_cuda:
-        # the collective starts once the backward is done: the timer
-        # below measures the all-reduce, not the kernels before it
-        torch.cuda.current_stream(flat.device).synchronize()
+def sharded_value_and_grad(loss_fn, params, batch, mesh, weight_fn=None
+                           ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                                      float]:
+    """The loss over the global batch and the gradients of this rank's
+    slices (one a param of :func:`leaves` that requires grad, laid out
+    like it) over a mesh of more than one process, as
+    :func:`_mesh_update` takes them; and the seconds of the gradient
+    all-reduces.
+
+    The global weight W (Σ over the batch axes of ``weight_fn(batch)``)
+    is all-reduced first; this rank's loss, weighed by ``max(W_local,
+    1) / max(W, 1)``, is its share of the global batch's loss, so the
+    shares' gradients sum to the global one. The loss sees the local
+    slices (a ``local_shards`` loss) or the leaves gathered whole. After
+    the backward each gradient is summed over the batch axes that do not
+    split its leaf (one flat all-reduce a set of axes)."""
+    plan = mesh.layout
+    batch_axes = plan.batch_axes()
+    ps = [p for p in leaves(params) if p.requires_grad]
+    w = batch_weight(batch, weight_fn).to(torch.float32)
+    dev = ps[0].device if ps else mesh.device
+    wl = w.to(dev).reshape(1)
+    wg = _sum_over(wl.clone(), mesh, batch_axes)
+    full = (params if getattr(loss_fn, "local_shards", False)
+            else shd.gather_tree(params))
+    loss = loss_fn(full, batch)
+    share = loss * (wl.clamp_min(1.0) / wg.clamp_min(1.0))[0]
+    grads = torch.autograd.grad(share, ps)
+    buckets: Dict[Tuple[str, ...], List[int]] = {}
+    for i, p in enumerate(ps):
+        inf = shd.info(p)
+        split = inf.axes() if inf is not None else ()
+        axes = tuple(a for a in batch_axes if a not in split)
+        buckets.setdefault(axes, []).append(i)
+    out: List[Optional[torch.Tensor]] = [None] * len(ps)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
     t = time.perf_counter()
-    dist.all_reduce(flat)
-    allreduce_s = time.perf_counter() - t
-    flat[:-1] /= flat[-1].clamp_min(1.0)
-    off = 0
-    for p in ps:
-        n = p.numel()
-        p.grad = flat[off:off + n].view_as(p).to(p.dtype)
-        off += n
+    total = share.detach().float().reshape(1)
+    for axes, idx in buckets.items():
+        flat = torch.cat([grads[i].reshape(-1).float() for i in idx])
+        _sum_over(flat, mesh, axes)
+        off = 0
+        for i in idx:
+            n = ps[i].numel()
+            out[i] = flat[off:off + n].view_as(ps[i]).to(ps[i].dtype)
+            off += n
+    _sum_over(total, mesh, batch_axes)
+    return total[0], out, time.perf_counter() - t
+
+
+def _mesh_update(loss_fn, state: TrainState, batch, mesh, weight_fn
+                 ) -> Tuple[TrainState, torch.Tensor, float]:
+    """One update over a mesh of more than one process (dp, fsdp, tp,
+    and the process runtime's planless dp mesh): the gradients of
+    :func:`sharded_value_and_grad`, then the optimizer on the local
+    slices (the whole leaves under dp alone), only after every
+    collective returned, so a failed collective (a dead peer) leaves
+    params and moments as they were. Returns (state, loss over the
+    global batch, seconds in the gradient all-reduces)."""
+    opt = state.opt_state
+    loss, grads, reduce_s = sharded_value_and_grad(loss_fn, state.params,
+                                                   batch, mesh, weight_fn)
+    for p, g in zip([p for p in leaves(state.params) if p.requires_grad],
+                    grads):
+        p.grad = g
     opt.step()
     opt.zero_grad(set_to_none=True)
     return (TrainState(step=state.step + 1, params=state.params,
-                       opt_state=opt), flat[-2], allreduce_s)
+                       opt_state=opt), loss, reduce_s)
 
 
 def make_train_step(
@@ -356,20 +449,21 @@ def make_train_step(
     the state's optimizer (:meth:`TrainState.create`) and is not read
     again. The update is in place.
 
-    With a dp :class:`~edl_tpu_torch.parallel.mesh.Mesh` of more than
-    one process the step is :func:`_dp_update` (``metrics`` also holds
-    ``allreduce_s``), whose loss is the loss over the global batch;
+    With a :class:`~edl_tpu_torch.parallel.mesh.Mesh` of more than one
+    process the step is :func:`_mesh_update`; ``metrics`` also holds
+    ``allreduce_s``, and the loss is the loss over the global batch.
     ``weight_fn(batch)`` gives a process's share of the loss's
     denominator (default :func:`~edl_tpu_torch.models.losses.
-    batch_weight`, Σ ``_w``). Under dp the params are replicated, so
-    ``param_pspecs`` places nothing; ``donate`` is the reference's flag
-    and changes nothing here: the optimizer steps only after every
-    collective of the step has returned, so a failed step leaves the
-    state as it was either way. Any other sharding raises. The
-    factory's first step lands in ``edl_compile_seconds{program=
-    "train.step"}`` (the compile watch)."""
-    dp = _dp_mesh(plan, mesh, "make_train_step")
-    if dp is None:
+    batch_weight`, Σ ``_w``). The state must be placed on the mesh
+    (:func:`shard_state`), whose leaves carry their layout, so
+    ``param_pspecs`` is read there and not here; ``donate`` is the
+    reference's flag and changes nothing here: the optimizer steps only
+    after every collective of the step has returned, so a failed step
+    leaves the state as it was either way. A sharding plan without its
+    mesh raises. The factory's first step lands in
+    ``edl_compile_seconds{program="train.step"}`` (the compile watch)."""
+    kind, mesh = _mesh_kind(plan, mesh, "make_train_step")
+    if kind == "one":
         update = compilewatch.wrap(_apply_update, "train.step")
 
         def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -380,16 +474,16 @@ def make_train_step(
 
         return step
 
-    update = compilewatch.wrap(_dp_update, "train.step")
+    update = compilewatch.wrap(_mesh_update, "train.step")
 
-    def dp_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def mesh_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         t = time.perf_counter()
-        state, loss, allreduce_s = update(loss_fn, state, batch, dp,
+        state, loss, allreduce_s = update(loss_fn, state, batch, mesh,
                                           weight_fn)
         _record_dispatch(time.perf_counter() - t)
         return state, {"loss": loss, "allreduce_s": allreduce_s}
 
-    return dp_step
+    return mesh_step
 
 
 def make_train_multistep(
@@ -404,15 +498,20 @@ def make_train_multistep(
     steps over a leading steps axis of ``batches`` (every leaf
     [K, ...]) in one call. ``metrics["losses"]`` holds all K per-step
     losses, ``"loss"`` the last. Semantically K calls of
-    :func:`make_train_step`. The factory's first call lands in
+    :func:`make_train_step` (over a mesh, K of its mesh steps). The
+    factory's first call lands in
     ``edl_compile_seconds{program="train.multistep"}``."""
-    require_unsharded(plan, mesh, "make_train_multistep")
+    kind, mesh = _mesh_kind(plan, mesh, "make_train_multistep")
+    update = None if kind == "one" else _mesh_update
 
     def run(state: TrainState, batches, k: int):
         losses = []
         for i in range(k):
             batch = {name: x[i] for name, x in batches.items()}
-            state, loss = _apply_update(loss_fn, state, batch)
+            if update is None:
+                state, loss = _apply_update(loss_fn, state, batch)
+            else:
+                state, loss, _ = update(loss_fn, state, batch, mesh, None)
             losses.append(loss)
         return state, torch.stack(losses)
 
@@ -428,23 +527,57 @@ def make_train_multistep(
     return multi
 
 
+def moment_spec(name: str, local_shape, param_shape, param_local_shape,
+                param_spec) -> Tuple[Tuple[int, ...], tuple]:
+    """(whole shape, spec) of the optimizer tensor ``name`` of a param
+    whose whole shape, local shape and spec are given: an elementwise
+    moment (``exp_avg``, ``exp_avg_sq``, Adafactor's ``v``) is laid out
+    like its param, a scalar (``step``) is replicated, and Adafactor's
+    ``v_row`` / ``v_col`` are the param's layout without the dim they
+    reduced (``d0`` / ``d1``)."""
+    param_shape = tuple(param_shape)
+    if name in ("v_row", "v_col"):
+        d1, d0 = Adafactor.factored_dims(param_shape)
+        drop = d0 if name == "v_row" else d1
+        full = shd.full_spec(param_spec, len(param_shape))
+        return (tuple(n for i, n in enumerate(param_shape) if i != drop),
+                tuple(e for i, e in enumerate(full) if i != drop))
+    if tuple(local_shape) == tuple(param_local_shape):
+        return param_shape, tuple(param_spec)
+    if len(local_shape) == 0:
+        return (), ()
+    raise ValueError(f"optimizer tensor {name} {tuple(local_shape)} of a "
+                     f"param {tuple(param_local_shape)} has no known layout")
+
+
 def state_pspecs(state: TrainState, plan=None, param_pspecs=None
                  ) -> TrainState:
-    """The reference's ``state_pspecs`` for a dp plan: every leaf
-    replicated, written ``()`` (``PartitionSpec()``), in the state's
-    shape — ``params`` as a tree, ``opt_state`` keyed like
-    :func:`optimizer_tensors` by (param leaf index, state name). A plan
-    that shards anything but dp raises (item 2b)."""
-    from edl_tpu_torch.parallel.mesh import require_dp
+    """The reference's ``state_pspecs``: a TrainState of specs (tuples,
+    ``()`` replicated) — ``params`` as a tree (``param_pspecs``, else
+    the leaves' own when they are placed, else
+    ``sharding.param_pspecs`` over the whole leaves), ``opt_state``
+    keyed like :func:`optimizer_tensors` by (param leaf index, state
+    name), each moment laid out by :func:`moment_spec`."""
+    from edl_tpu_torch.parallel.mesh import require_ported
 
-    require_dp(plan, "state_pspecs")
-    return TrainState(
-        step=(),
-        params=replace_leaves(state.params,
-                              [()] * len(leaves(state.params))),
-        opt_state={(i, name): () for i, name, _, _ in
-                   optimizer_tensors(state)},
-    )
+    require_ported(plan, "state_pspecs")
+    ps = leaves(state.params)
+    if plan is None or all(n == 1 or a == "dp" for a, n in plan.axes):
+        specs = [()] * len(ps)
+    elif any(shd.info(p) is not None for p in ps):  # placed: its own
+        specs = [shd.info(p).spec if shd.info(p) else () for p in ps]
+    elif param_pspecs is not None:
+        specs = shd.specs_for(state.params, param_pspecs)
+    else:
+        specs = shd.spec_leaves(shd.param_pspecs(state.params, plan))
+    opt = {}
+    for i, name, t, _ in optimizer_tensors(state):
+        inf = shd.info(ps[i])
+        gshape = inf.shape if inf is not None else tuple(ps[i].shape)
+        opt[(i, name)] = moment_spec(name, t.shape, gshape, ps[i].shape,
+                                     specs[i])[1]
+    return TrainState(step=(), params=replace_leaves(state.params, specs),
+                      opt_state=opt)
 
 
 class LocalSyncStepper:
@@ -485,13 +618,13 @@ class LocalSyncStepper:
                 f"per-group copy to run ahead on"
             )
         if not isinstance(mesh, Mesh):
-            raise NotImplementedError(
-                "LocalSyncStepper needs the port's dp Mesh "
-                "(parallel/mesh.MeshPlan.build); device meshes are not "
-                "ported yet (ROADMAP Queue A item 2b)")
+            from edl_tpu_torch.parallel.mesh import foreign_mesh
+
+            raise foreign_mesh(mesh, "LocalSyncStepper")
         self.loss_fn = loss_fn
         self.plan = plan
         self.mesh = mesh
+        self.group = mesh.group("dp")
         self.dp = mesh.world
         self.sync_moments = sync_moments
         self._update = compilewatch.wrap(_apply_update, "train.localsync")
@@ -503,15 +636,13 @@ class LocalSyncStepper:
     def _average(self, state: TrainState, moments: bool):
         """(params, {(leaf index, name): moment}) averaged over the
         group into new tensors."""
-        import torch.distributed as dist
-
         params = leaves(state.params)
         ot = [(i, name, t) for i, name, t, _ in optimizer_tensors(state)
               if moments and name != "step" and t.is_floating_point()]
         src = [p.detach() for p in params] + [t for _, _, t in ot]
         flat = torch.cat([x.reshape(-1).float() for x in src])
         if self.dp > 1:
-            dist.all_reduce(flat)
+            coll.all_reduce(flat, self.group)
             flat /= self.dp
         out, off = [], 0
         for x in src:
@@ -542,13 +673,11 @@ class LocalSyncStepper:
         the loss: the mean of the groups' losses, as the reference
         reports it (its one SPMD step reduces them), and the step's
         lockstep point — no process runs a step ahead of its group."""
-        import torch.distributed as dist
-
         t = time.perf_counter()
         state, loss = self._update(self.loss_fn, lstate, batch)
         if self.dp > 1:
             loss = loss.float().reshape(1)
-            dist.all_reduce(loss)
+            coll.all_reduce(loss, self.group)
             loss = (loss / self.dp)[0]
         _record_dispatch(time.perf_counter() - t)
         return state, {"loss": loss}
@@ -618,34 +747,325 @@ def rebind_state(state: TrainState, new_params: Sequence[torch.Tensor],
 
 
 def shard_state(state: TrainState, plan=None, mesh=None,
-                device: DeviceLike = None) -> TrainState:
-    """Place a TrainState — a host snapshot, or a state on another
-    device — on ``device`` (CUDA unless ``"cpu"`` is named): every param
-    and moment is copied there, the host-kept ``step`` tensors are
-    copied on the CPU, and the optimizer is rebound to the copies. A
-    sharding ``plan``/``mesh`` raises."""
-    require_unsharded(plan, mesh, "shard_state")
-    dev = resolve_device(device)
-    params = [p.detach().to(dev, copy=True) for p in leaves(state.params)]
-    tensors = {(i, name): t.to("cpu" if host else dev, copy=True)
-               for i, name, t, host in optimizer_tensors(state)}
+                device: DeviceLike = None, param_pspecs=None) -> TrainState:
+    """Place a WHOLE TrainState — a host snapshot, or a state on another
+    device — on ``device`` (CUDA unless ``"cpu"`` is named; a mesh's own
+    device with a mesh): every param and moment is copied there, the
+    host-kept ``step`` tensors are copied on the CPU, and the optimizer
+    is rebound to the copies. Over a mesh with fsdp or tp each member
+    keeps the slices :func:`state_pspecs` gives it (``param_pspecs``
+    over the whole leaves, else ``sharding.param_pspecs``), each with
+    its ``ShardInfo``, and a process outside the mesh gets None; under
+    dp alone every member keeps the whole state. (A placed state moves
+    to another mesh with :func:`reshard_state`.)"""
+    kind, m = _mesh_kind(plan, mesh, "shard_state")
+    if mesh is not None and not mesh.member:
+        return None
+    if kind != "sharded":
+        dev = (resolve_device(device) if mesh is None or device is not None
+               else mesh.device)
+        params = [p.detach().to(dev, copy=True) for p in leaves(state.params)]
+        tensors = {(i, name): t.to("cpu" if host else dev, copy=True)
+                   for i, name, t, host in optimizer_tensors(state)}
+        return rebind_state(state, params, tensors)
+    specs = state_pspecs(state, m.layout, param_pspecs)
+    pspecs = shd.spec_leaves(specs.params)
+    params = [shd.place_leaf(p, sp, m) for p, sp in
+              zip(leaves(state.params), pspecs)]
+    tensors = {}
+    for i, name, t, host in optimizer_tensors(state):
+        tensors[(i, name)] = shd.place_leaf(
+            t, specs.opt_state[(i, name)], m,
+            device="cpu" if host else m.device)
     return rebind_state(state, params, tensors)
 
 
 def global_batch(batch, plan=None, mesh=None, device: DeviceLike = None):
-    """Place a host batch (a dict of arrays) on ``device``: on one
-    device the batch axes split nothing. A sharding plan raises."""
-    require_unsharded(plan, mesh, "global_batch")
-    dev = resolve_device(device)
-    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    """Place a host batch (a dict of arrays) on ``device`` (a mesh's own
+    device with a mesh): on one device whole; over a mesh each member
+    keeps its rows, the batch split over the batch axes in order (the
+    reference's ``batch_pspec``); None outside the mesh."""
+    rows = _batch_rows(plan, mesh, "global_batch")
+    if rows is False:
+        return None
+    dev = mesh.device if mesh is not None and device is None \
+        else resolve_device(device)
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v) if not isinstance(v, torch.Tensor) else v
+        out[k] = torch.as_tensor(_rows(v, rows, 0, k), device=dev)
+    return out
+
+
+def _batch_rows(plan, mesh, what):
+    """(shards, index) of this member's rows, None for the whole batch,
+    False outside the mesh."""
+    kind, m = _mesh_kind(plan, mesh, what)
+    if mesh is not None and not mesh.member:
+        return False
+    if m is None:
+        return None
+    lay = m.layout
+    n, idx, c = 1, 0, m.coords()
+    for a in lay.batch_axes():
+        n, idx = n * lay.axis_size(a), idx * lay.axis_size(a) + c[a]
+    return (n, idx) if n > 1 else None
+
+
+def _rows(v, rows, dim, key):
+    if rows is None:
+        return v
+    n, idx = rows
+    if v.shape[dim] % n:
+        raise ValueError(f"batch {key!r}: {v.shape[dim]} rows do not "
+                         f"split over {n} batch shards")
+    k = v.shape[dim] // n
+    sl = [slice(None)] * v.ndim
+    sl[dim] = slice(idx * k, (idx + 1) * k)
+    return v[tuple(sl)]
 
 
 def stack_batches(batches, plan=None, mesh=None, device: DeviceLike = None):
     """Stack host batches along a new leading steps axis and place them
-    on ``device`` for :func:`make_train_multistep`. A sharding plan
-    raises."""
-    require_unsharded(plan, mesh, "stack_batches")
-    dev = resolve_device(device)
-    return {k: torch.as_tensor(np.stack([np.asarray(b[k]) for b in batches]),
-                               device=dev)
+    on ``device`` for :func:`make_train_multistep`; over a mesh each
+    member keeps its rows of every batch (None outside it)."""
+    rows = _batch_rows(plan, mesh, "stack_batches")
+    if rows is False:
+        return None
+    dev = mesh.device if mesh is not None and device is None \
+        else resolve_device(device)
+    return {k: torch.as_tensor(_rows(np.stack([np.asarray(b[k])
+                                                for b in batches]),
+                                      rows, 1, k), device=dev)
             for k in batches[0]}
+
+
+# -- moving a placed state to another mesh ---------------------------------
+
+
+class _Leaf:
+    """A leaf's place in a pickled tree skeleton."""
+
+
+def _skeleton(tree):
+    if isinstance(tree, torch.Tensor):
+        return _Leaf
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_skeleton(v) for v in tree]
+    return tree
+
+
+def _fill(skel, it):
+    if skel is _Leaf:
+        return next(it)
+    if isinstance(skel, dict):
+        return {k: _fill(v, it) for k, v in skel.items()}
+    if isinstance(skel, list):
+        return [_fill(v, it) for v in skel]
+    return skel
+
+
+@dataclass(frozen=True)
+class StateSchema:
+    """What every process needs to know of a placed state to take part
+    in moving it: the step, the params' tree, whole shapes, dtypes,
+    specs and grad flags, the optimizer's class, hyperparameters and
+    groups, and each optimizer tensor's (leaf index, name, whole shape,
+    dtype, spec, host-kept); and the source mesh's plan and world
+    ranks."""
+
+    step: int
+    skeleton: Any
+    params: Tuple[Tuple[Tuple[int, ...], torch.dtype, tuple, bool], ...]
+    opt_cls: Any
+    opt_kwargs: Dict[str, Any]
+    opt_groups: Tuple[Tuple[Dict[str, Any], Tuple[int, ...]], ...]
+    opt: Tuple[Tuple[int, str, Tuple[int, ...], torch.dtype, tuple, bool],
+               ...]
+    plan: Any
+    ranks: Tuple[int, ...]
+
+
+def state_schema(state: TrainState, mesh) -> StateSchema:
+    """The :class:`StateSchema` of a state placed on ``mesh`` (or of a
+    whole state on one process: every spec ``()``)."""
+    ps = leaves(state.params)
+    infos = [shd.info(p) for p in ps]
+    pinfo = tuple((i.shape if i else tuple(p.shape), p.dtype,
+                   i.spec if i else (), p.requires_grad)
+                  for p, i in zip(ps, infos))
+    index = {id(p): i for i, p in enumerate(ps)}
+    opt = state.opt_state
+    groups = tuple(({k: v for k, v in g.items() if k != "params"},
+                    tuple(index[id(p)] for p in g["params"]))
+                   for g in opt.param_groups)
+    ot = []
+    for i, name, t, host in optimizer_tensors(state):
+        shape, spec = moment_spec(name, t.shape, pinfo[i][0], ps[i].shape,
+                                  pinfo[i][2])
+        ot.append((i, name, shape, t.dtype, spec, host))
+    return StateSchema(
+        step=int(state.step), skeleton=_skeleton(state.params),
+        params=pinfo, opt_cls=type(opt), opt_kwargs=_init_kwargs(opt),
+        opt_groups=groups, opt=tuple(ot), plan=mesh.layout,
+        ranks=mesh.world_ranks())
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """The params then the optimizer tensors, in :class:`StateSchema`
+    order."""
+    return ([p.detach() for p in leaves(state.params)]
+            + [t for _, _, t, _ in optimizer_tensors(state)])
+
+
+def assemble_state(schema: StateSchema, tensors: Sequence[torch.Tensor],
+                   mesh, specs: Optional[Sequence[tuple]] = None
+                   ) -> TrainState:
+    """A TrainState over ``tensors`` (the params' then the optimizer's
+    local slices, in schema order) placed on ``mesh`` with the params'
+    ``specs`` (default the schema's): params carry their ``ShardInfo``
+    and grad flags, and a new optimizer of the schema's class holds the
+    moments."""
+    n = len(schema.params)
+    specs = list(specs) if specs is not None else \
+        [sp for _, _, sp, _ in schema.params]
+    sharded = mesh is not None and any(
+        n > 1 and a != "dp" for a, n in mesh.layout.axes)
+    params = []
+    for t, (shape, _, _, grad), sp in zip(tensors[:n], schema.params, specs):
+        if sharded:
+            shd.attach(t, shd.ShardInfo(shape, tuple(sp), mesh))
+        params.append(t.requires_grad_(grad))
+    opt = schema.opt_cls(
+        [{**hp, "params": [params[i] for i in idx]}
+         for hp, idx in schema.opt_groups], **schema.opt_kwargs)
+    for (i, name, *_), t in zip(schema.opt, tensors[n:]):
+        opt.state[params[i]][name] = t
+    return TrainState(step=schema.step,
+                      params=_fill(schema.skeleton, iter(params)),
+                      opt_state=opt)
+
+
+def _moment_dst_spec(name: str, shape, param_shape, param_spec) -> tuple:
+    """:func:`moment_spec` from whole shapes."""
+    if name in ("v_row", "v_col"):
+        return moment_spec(name, (), param_shape, (), param_spec)[1]
+    if tuple(shape) == tuple(param_shape):
+        return tuple(param_spec)
+    if not tuple(shape):
+        return ()
+    raise ValueError(f"optimizer tensor {name} {tuple(shape)} of a param "
+                     f"{tuple(param_shape)} has no known layout")
+
+
+def reshard_plans(schema: StateSchema, plan, mesh, param_pspecs, dev
+                  ) -> Tuple[List[tuple], List[Any]]:
+    """(the params' target specs, a ``sharding.LeafPlan`` for each tensor
+    of the schema) of a move onto ``plan``: the params' specs from
+    ``param_pspecs`` (a spec tree over the whole leaves; default
+    ``sharding.param_pspecs`` of the whole shapes, or all ``()`` under
+    dp alone), each moment following its param, params on ``dev`` and
+    host-kept tensors on the CPU."""
+    skel = _fill(schema.skeleton, iter(
+        torch.empty(shape, dtype=dt, device="meta")
+        for shape, dt, _, _ in schema.params))
+    if param_pspecs is not None:
+        dst_specs = shd.specs_for(skel, param_pspecs)
+    elif all(n == 1 or a == "dp" for a, n in plan.axes):
+        dst_specs = [()] * len(schema.params)
+    else:
+        dst_specs = shd.spec_leaves(shd.param_pspecs(skel, plan))
+    lplans = [shd.LeafPlan(shape, dt, sp, tuple(dsp), dev)
+              for (shape, dt, sp, _), dsp in zip(schema.params, dst_specs)]
+    for i, name, shape, dt, sp, host in schema.opt:
+        lplans.append(shd.LeafPlan(
+            shape, dt, sp,
+            _moment_dst_spec(name, shape, schema.params[i][0], dst_specs[i]),
+            torch.device("cpu") if host else dev))
+    return dst_specs, lplans
+
+
+def reshard_state(state: Optional[TrainState], plan, mesh, pool,
+                  param_pspecs=None, device: DeviceLike = None,
+                  src_mesh=None, alias: bool = True) -> Optional[TrainState]:
+    """Move a state placed on one mesh onto ``mesh`` (``plan``) over the
+    pool's collectives, slice by slice (``sharding.redistribute``).
+    Every process of the pool calls it: a member of the old mesh with its
+    state (``src_mesh`` defaults to the params' own mesh), any other
+    with None. The old mesh's first rank broadcasts the
+    :class:`StateSchema` over ``pool`` (a ``collectives.Group``), so a
+    joining process learns the layout. The target layout is
+    ``param_pspecs`` (a spec tree over the whole leaves; default
+    ``sharding.param_pspecs`` of the whole shapes), each moment following
+    its param (:func:`moment_spec`). Params land on ``device`` (default
+    the mesh's), the host-kept ``step`` tensors on the CPU. A slice that
+    stays where it is keeps its tensor (``alias``; a copy without, so the
+    result shares nothing with ``state``). The old mesh's first rank must
+    be the pool's first. Returns this process's state on ``mesh``, or
+    None outside it.
+
+    Every process first does its local part: the schema, the target
+    layout and its target slices, allocated (``sharding.
+    prepare_redistribute``). The pool then agrees (``collectives.agree``)
+    before any slice moves: if that part failed anywhere, the process
+    that failed raises its own error and every other one
+    ``collectives.PeerError``, so no process is left in a transfer its
+    peers will not join. Under gloo the transfers allocate no device
+    memory; a failure during them (a collective) raises on its process
+    and fails the pool's waits at the process group's timeout."""
+    from edl_tpu_torch.parallel.mesh import _group_shape
+
+    root = 0  # the old mesh's first rank is the pool's first holder
+    err: Optional[BaseException] = None
+    schema = None
+    try:
+        if state is not None:
+            src = src_mesh
+            if src is None:
+                inf = next((shd.info(p) for p in leaves(state.params)
+                            if shd.info(p) is not None), None)
+                src = inf.mesh if inf is not None else mesh
+            schema = state_schema(state, src)
+        elif pool.rank == root:
+            raise ValueError("reshard_state: the pool's first process holds "
+                             "no state (the old mesh's first rank must be "
+                             "the pool's first)")
+    except Exception as e:  # agreed on below
+        err, schema = e, None
+    schema = coll.broadcast_object(schema, root, pool)
+    moves = None
+    if err is None and schema is not None:
+        try:
+            _, me = _group_shape()
+            dev = torch.device(device) if device is not None else mesh.device
+            dst_specs, lplans = reshard_plans(schema, plan, mesh,
+                                              param_pspecs, dev)
+            tensors = state_tensors(state) if state is not None else \
+                [None] * len(lplans)
+            moves = shd.prepare_redistribute(
+                tensors, lplans, (schema.plan, schema.ranks),
+                (plan, mesh.world_ranks()), me, alias)
+        except Exception as e:  # agreed on below
+            err = e
+    # with no schema the first process failed: agree raises its error
+    coll.agree(err, pool)
+    out = moves.run()
+    if not mesh.member:
+        return None
+    return assemble_state(schema, out, mesh, dst_specs)
+
+
+def gather_state(state: Optional[TrainState], src_mesh, pool,
+                 device: DeviceLike = "cpu") -> Optional[TrainState]:
+    """A copy of the whole state on the mesh's first rank (on
+    ``device``, the host by default), None elsewhere:
+    :func:`reshard_state` onto a mesh of that one rank. Every process of
+    ``pool`` calls it."""
+    from edl_tpu_torch.parallel.mesh import MeshPlan
+
+    dev = torch.device(device)
+    one = MeshPlan.create().build([dev], ranks=src_mesh.world_ranks()[:1])
+    return reshard_state(state, one.layout, one, pool, device=dev,
+                         src_mesh=src_mesh, alias=False)

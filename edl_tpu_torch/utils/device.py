@@ -1,4 +1,5 @@
-"""Device selection — the port's counterpart of ``edl_tpu/utils/platform.py``.
+"""Device selection — beside ``utils/platform.py`` (the port's
+counterpart of ``edl_tpu/utils/platform.py``, the process pool).
 
 The reference forces a virtual CPU platform for hardware-free tests.
 The port's rule is the opposite direction: every entry point runs on
@@ -54,12 +55,14 @@ def tree_device(tree) -> Optional[torch.device]:
 
 
 def require_unsharded(plan=None, mesh=None, what: str = "this path") -> None:
-    """Raise unless ``plan``/``mesh`` describe one device: the port runs
-    on one card until the mesh slice lands. ``plan`` is duck typed as
+    """Raise unless ``plan``/``mesh`` describe one device: for the paths
+    that take whole params only (the MoE's, BERT's and ResNet's
+    partition specs; the one-device staging). ``plan`` is duck typed as
     the reference's ``MeshPlan`` (``axes`` = ((name, size), ...))."""
     sharded = [(a, n) for a, n in getattr(plan, "axes", ()) if n > 1]
     if mesh is not None or sharded:
         raise NotImplementedError(
             f"{what}: mesh/sharding plans {sharded or mesh} are not ported "
-            f"yet (ROADMAP Queue A item 2); the port trains on one card"
+            f"yet here (ROADMAP Queue A, item 2b's second half); this path "
+            f"takes whole params"
         )

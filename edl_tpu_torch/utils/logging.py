@@ -1,5 +1,5 @@
 """Structured key-value logging — the port's copy of
-``edl_tpu/utils/logging.py`` (``kv_logger``).
+``edl_tpu/utils/logging.py`` (``kv_logger`` and ``Timer``).
 
 ``kv_logger("serving").info("engine ready", slots=8)`` renders
 ``msg key=value ...`` lines (values as ``repr``) under the
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import logging
 import sys
+import time
 from typing import Any
 
 _FORMAT = "%(asctime)s %(levelname)-5s [%(name)s] %(message)s"
@@ -75,3 +76,19 @@ class KVLogger:
 
 def kv_logger(name: str) -> KVLogger:
     return KVLogger(name)
+
+
+class Timer:
+    """Context-manager stopwatch (``elapsed`` seconds): the reshard
+    stall's clock in ``runtime/elastic.py``."""
+
+    def __init__(self):
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self._t0
+        return False

@@ -167,9 +167,19 @@ def test_embedding_bf16_table_close_to_f32_scatter(monkeypatch):
 
 
 def test_sharded_embedding_lookup_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue A 2b"):
-        temb.sharded_embedding_lookup(torch.zeros(4, 2), torch.zeros(1),
-                                      mesh=None)
+    """Ported since the mesh slice (the vocab split over processes:
+    tests/test_torch_mesh.py); on a mesh of one process the axis splits
+    nothing and the lookup is ``embedding_lookup``'s, ids outside the
+    vocab reading zeros as the reference's."""
+    from edl_tpu_torch.parallel.mesh import MeshPlan as TMeshPlan
+
+    mesh = TMeshPlan.create().build([torch.device("cpu")])
+    table = torch.randn(8, 3, generator=torch.Generator().manual_seed(0))
+    ids = torch.tensor([[0, 7, 3], [8, -1, 2]])
+    got = temb.sharded_embedding_lookup(table, ids, mesh)
+    inside = (ids >= 0) & (ids < 8)
+    want = temb.embedding_lookup(table, ids) * inside[..., None]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # -- the CTR model ---------------------------------------------------------------

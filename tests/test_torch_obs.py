@@ -588,8 +588,13 @@ def test_profile_report_matches_the_reference(tmp_path):
     path.write_text(json.dumps(bench))
     assert (tprof.report_for_source(str(path))
             == jprof.report_for_source(str(path)))
-    with pytest.raises(NotImplementedError, match="ElasticTrainer"):
-        tprof.run_dryrun()
+    # the dryrun trains through the port's ElasticTrainer: on the card
+    # unless the CPU is named
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tprof.run_dryrun()
+    report = tprof.run_dryrun(device="cpu", steps=2)
+    assert {"train", "decode", "prefill"} <= set(report["phases"])
 
 
 # -- checkpoint hooks ---------------------------------------------------------------

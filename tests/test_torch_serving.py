@@ -465,7 +465,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                  "analysis/rules/__init__", "analysis/rules/_util",
                  "analysis/rules/donation", "analysis/rules/kvblock",
                  "analysis/rules/lockset", "analysis/rules/recompile",
-                 "analysis/rules/silentfail", "analysis/rules/telemetry"):
+                 "analysis/rules/silentfail", "analysis/rules/telemetry",
+                 "utils/platform", "parallel/collectives", "parallel/mesh",
+                 "parallel/sharding", "runtime/elastic", "train/mesh_check"):
         assert os.path.join(ROOT, "edl_tpu_torch", f"{name}.py") in files
     for path in files:
         for mod in _imports(path):

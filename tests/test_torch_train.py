@@ -268,15 +268,24 @@ def test_unported_remat_policies_raise(policy):
 
 
 def test_sharding_plans_raise_and_one_device_plan_runs():
+    """A plan that shards needs its port mesh (the sharded step itself:
+    tests/test_torch_mesh.py); a foreign mesh object and the axes still
+    to come (sp, pp, ep) raise."""
+    from edl_tpu_torch.parallel.mesh import MeshPlan as TMeshPlan
+
     tx = trainer.adamw(1e-3)
     plan = MeshPlan.create(fsdp=2, dp=2)
     for make in (trainer.make_train_step, trainer.make_train_multistep):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="pass its mesh"):
             make(tl.make_loss_fn(TCFG), tx, plan=plan)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             make(tl.make_loss_fn(TCFG), tx, mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(NotImplementedError, match="item 2c"):
+            make(tl.make_loss_fn(TCFG), tx, plan=TMeshPlan.create(sp=2))
+    with pytest.raises(ValueError, match="pass its mesh"):
         tl.make_loss_fn(TCFG, plan=MeshPlan.create(tp=2))
+    with pytest.raises(NotImplementedError, match="item 2d"):
+        tl.make_loss_fn(TCFG, plan=MeshPlan.create(pp=2))
     # a plan of one device shards nothing
     trainer.make_train_step(tl.make_loss_fn(TCFG, plan=MeshPlan.create()),
                             tx, plan=MeshPlan.create())

@@ -598,7 +598,9 @@ def test_mesh_plan_parses_as_the_reference_and_builds_dp_only():
             tmesh.MeshPlan.parse(*bad)
     m = tmesh.MeshPlan.data_parallel(1).build([torch.device("cpu")])
     assert (m.device, m.world, m.rank) == (torch.device("cpu"), 1, 0)
-    with pytest.raises(NotImplementedError, match="item 2b"):
+    # an fsdp plan builds over a pool of processes (tests/test_torch_mesh.py);
+    # a world of one process has too few
+    with pytest.raises(ValueError, match="group has 1"):
         tmesh.MeshPlan.parse("fsdp", 4).build([torch.device("cpu")])
     with pytest.raises(ValueError, match="group has 1"):
         tmesh.MeshPlan.data_parallel(2).build([torch.device("cpu")])
@@ -611,8 +613,12 @@ def test_mesh_plan_parses_as_the_reference_and_builds_dp_only():
         tmesh.process_device(2)
     sp = ttrainer.state_pspecs(_port_state()[0], tmesh.MeshPlan.create(dp=2))
     assert sp.step == () and set(sp.opt_state.values()) == {()}
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        ttrainer.state_pspecs(_port_state()[0], tmesh.MeshPlan.create(tp=2))
+    # a tp plan with no model specs: the generic rule, fsdp over nothing
+    sp = ttrainer.state_pspecs(_port_state()[0], tmesh.MeshPlan.create(tp=2))
+    from edl_tpu_torch.parallel.sharding import spec_leaves
+
+    assert set(spec_leaves(sp.params)) == {()}
+    assert set(sp.opt_state.values()) == {()}
 
 
 def test_process_device_zero_is_the_card_and_never_the_cpu(monkeypatch):

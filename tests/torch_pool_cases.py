@@ -1,0 +1,410 @@
+"""Per-rank programs of the port's pool tests (``tests/test_torch_mesh*.py``):
+top-level functions a ``utils/platform.ProcessPool`` rank runs. No jax:
+a pool rank imports only the port."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from edl_tpu_torch.api.job import MeshSpec
+from edl_tpu_torch.models import ctr, linreg
+from edl_tpu_torch.models.convert import params_from_numpy
+from edl_tpu_torch.parallel import sharding as shd
+from edl_tpu_torch.runtime import checkpoint as ckpt
+from edl_tpu_torch.runtime import elastic as el
+from edl_tpu_torch.train import mesh_check, trainer
+
+
+def _optimizer(name: str, lr: float):
+    return {"adamw": trainer.adamw, "adam": trainer.adam,
+            "adafactor": trainer.adafactor}[name](lr)
+
+
+def _loss_and_specs(model: str, cfg_kw, plan, mesh):
+    if model == "llama":
+        from edl_tpu_torch.models import llama
+
+        cfg = llama.LlamaConfig(**{**cfg_kw, "dtype": torch.float32})
+        return (llama.make_loss_fn(cfg, plan, mesh),
+                llama.param_pspecs(cfg, plan))
+    if model == "linreg":
+        return linreg.loss_fn, None
+    return ctr.make_loss_fn(), None
+
+
+def mesh_steps(model, params_np, batches, sizes, opt="adamw", lr=1e-3,
+               cfg_kw=None, grads=False):
+    """Train ``model`` ("llama" in f32, "linreg" or "ctr") on the CPU
+    from ``params_np`` over the mesh ``sizes`` of the pool's first
+    ranks, one step a batch of ``batches`` (whole global batches). Rank
+    0 returns {"losses", "params" (flat, whole), "step_s", "grads" (flat,
+    whole, of the first batch, when ``grads``), "collectives" (this
+    rank's ``collectives.stats``)}; every rank its losses."""
+    import time
+
+    from edl_tpu_torch.parallel import collectives as coll
+    from edl_tpu_torch.utils.tree import leaves, replace_leaves
+
+    plan, mesh, pool = mesh_check.pool_mesh(sizes, "cpu")
+    loss_fn, pspecs = _loss_and_specs(model, cfg_kw, plan, mesh)
+    tx = _optimizer(opt, lr)
+    state = None
+    if mesh.member:
+        whole = params_from_numpy(mesh_check.unflat(params_np),
+                                  device=mesh.device)
+        state = trainer.shard_state(trainer.TrainState.create(whole, tx),
+                                    plan, mesh, param_pspecs=pspecs)
+    coll.reset_stats()
+    g_whole = None
+    if grads:
+        g_state = None
+        if mesh.member:
+            b = trainer.global_batch(batches[0], plan, mesh)
+            _, g, _ = trainer.sharded_value_and_grad(loss_fn, state.params,
+                                                     b, mesh)
+            gp = replace_leaves(state.params, [
+                mesh_check._with_info(x, p)
+                for x, p in zip(g, leaves(state.params))])
+            g_state = trainer.TrainState(
+                step=0, params=gp,
+                opt_state=torch.optim.SGD(leaves(gp), lr=0))
+        g_whole = trainer.gather_state(g_state, mesh, pool)
+    step = trainer.make_train_step(loss_fn, tx, plan, mesh)
+    losses, step_s = [], []
+    for b in batches:
+        if mesh.member:
+            t = time.perf_counter()
+            state, m = step(state, trainer.global_batch(b, plan, mesh))
+            losses.append(float(m["loss"]))
+            step_s.append(time.perf_counter() - t)
+    stats = coll.stats()
+    whole = trainer.gather_state(state, mesh, pool)
+    out = {"losses": losses, "step_s": step_s, "collectives": stats}
+    if whole is None:
+        return out
+    out["params"] = mesh_check.flat(whole.params)
+    if g_whole is not None:
+        out["grads"] = mesh_check.flat(g_whole.params)
+    return out
+
+
+def linreg_data_fn():
+    x, y = linreg.synthetic_dataset(4096)
+    state = {"i": 0}
+
+    def fn(batch_size):
+        lo = state["i"] % (4096 - batch_size)
+        state["i"] += batch_size
+        return {"x": x[lo: lo + batch_size], "y": y[lo: lo + batch_size]}
+
+    return fn
+
+
+def whole(tr):
+    """The trainer's state gathered whole on the pool's first rank
+    (flat numpy params and optimizer tensors), None elsewhere."""
+    st = tr._whole_state()
+    if st is None:
+        return None
+    ps = trainer.leaves(st.params)
+    return {"params": mesh_check.flat(st.params),
+            "opt": {f"{i}/{name}": t.detach().cpu().numpy().copy()
+                    for i, name, t, _ in trainer.optimizer_tensors(st)},
+            "step": int(st.step), "n": len(ps)}
+
+
+class _FailOnce:
+    """``trainer.reshard_plans`` that raises ``kind`` on its next call
+    and is itself after: armed just before a rescale, it fails the
+    device path's local part on this rank alone (the host path's own
+    call, after it, runs)."""
+
+    def __init__(self, kind):
+        self.kind, self.armed = kind, False
+        self.real = trainer.reshard_plans
+
+    def __call__(self, *a, **k):
+        if self.armed:
+            self.armed = False
+            raise self.kind("CUDA out of memory (planted on one rank)")
+        return self.real(*a, **k)
+
+
+def elastic_linreg(params_np, schedule, opt="sgd", lr=0.05,
+                   chips_per_worker=1, per_chip_batch=16, spec=None,
+                   fail_device=False, fail_kind=RuntimeError):
+    """An ``ElasticTrainer`` on linreg through ``schedule``: [(workers,
+    steps)] — start at the first count, then rescale before each next
+    entry. Returns rank 0's losses, events, steps and the whole state
+    before and after each rescale. ``fail_device``: True makes the
+    device path raise on every rank; a rank number makes the device
+    path's local part raise ``fail_kind`` on that rank alone, at each
+    rescale."""
+    tx = {"sgd": trainer.sgd, "adam": trainer.adam}[opt](lr)
+    tr = el.ElasticTrainer(linreg.loss_fn, tx, mesh_spec=spec or MeshSpec(),
+                           chips_per_worker=chips_per_worker,
+                           per_chip_batch=per_chip_batch, device="cpu")
+    one = None
+    if fail_device is True:
+        def _boom(*a, **k):
+            raise RuntimeError("transfer layer down")
+
+        el._device_reshard, keep = _boom, el._device_reshard
+    elif fail_device is not False and torch.distributed.get_rank() == \
+            fail_device:
+        one = trainer.reshard_plans = _FailOnce(fail_kind)
+    try:
+        data = linreg_data_fn()
+        tr.start(params_from_numpy(params_np, device="cpu"), schedule[0][0])
+        snaps = []
+        for i, (n, steps) in enumerate(schedule):
+            if i:
+                snaps.append(whole(tr))
+                tr.request_rescale(n)
+                if one is not None:
+                    one.armed = True
+                tr._maybe_rescale()
+                snaps.append(whole(tr))
+            tr.train_steps(data, steps)
+    finally:
+        if fail_device is True:
+            el._device_reshard = keep
+        if one is not None:
+            trainer.reshard_plans = one.real
+    return {"losses": tr.report.losses,
+            "events": [(e.from_workers, e.to_workers, e.step, e.fallback,
+                        e.stall_s) for e in tr.report.reshards],
+            "steps": tr.report.steps, "n_devices": tr.n_devices,
+            "batch": tr.global_batch_size, "snaps": snaps,
+            "final": whole(tr), "member": tr.member,
+            "state_step": None if tr.state is None else int(tr.state.step)}
+
+
+def elastic_ctr_fsdp(params_np, vocab=4096, steps=5):
+    """The fsdp CTR job: 2 workers x 2 chips on MeshSpec(fsdp=2), then 4
+    workers... on a pool of 4 ranks: 1 worker x 2 chips (fsdp 2), then
+    2 workers (dp 2 x fsdp 2). Returns each phase's embedding slice
+    shape on this rank and rank 0's losses and plans."""
+    tr = el.ElasticTrainer(ctr.loss_fn, trainer.adam(1e-2),
+                           mesh_spec=MeshSpec(fsdp=2), chips_per_worker=2,
+                           per_chip_batch=32, device="cpu")
+    rng = np.random.RandomState(0)
+
+    def data(bs):
+        return ctr.synthetic_batch(rng, bs, vocab=vocab)
+
+    tr.start(params_from_numpy(params_np, device="cpu"), 1)
+    tr.train_steps(data, steps)
+    shape0 = None if tr.state is None else \
+        tuple(tr.state.params["embedding"].shape)
+    plan0 = tr.plan.describe()
+    tr.request_rescale(2)
+    tr.train_steps(data, steps)
+    shape1 = tuple(tr.state.params["embedding"].shape)
+    return {"shapes": (shape0, shape1), "plans": (plan0, tr.plan.describe()),
+            "losses": tr.report.losses,
+            "stall": tr.report.reshards[0].stall_s,
+            "final": whole(tr)}
+
+
+def _ctr_state(params_np, sizes, vocab, steps=1, seed=0, opt="adam"):
+    """A CTR state placed on the mesh ``sizes`` after ``steps`` Adam
+    steps (so the moments exist); (plan, mesh, pool, state)."""
+    plan, mesh, pool = mesh_check.pool_mesh(sizes, "cpu")
+    tx = trainer.adam(1e-3)
+    state = None
+    if mesh.member:
+        whole = ctr_params(params_np)
+        state = trainer.shard_state(trainer.TrainState.create(whole, tx),
+                                    plan, mesh)
+        step = trainer.make_train_step(ctr.loss_fn, tx, plan, mesh)
+        rng = np.random.RandomState(seed)
+        for _ in range(steps):
+            b = ctr.synthetic_batch(rng, 64, vocab=vocab)
+            state, _ = step(state, trainer.global_batch(b, plan, mesh))
+    return plan, mesh, pool, state
+
+
+def ctr_params(params_np):
+    from edl_tpu_torch.models.convert import ctr_params_from_numpy
+
+    return ctr_params_from_numpy(params_np, device="cpu")
+
+
+def _flat_state(st):
+    if st is None:
+        return None
+    return {"params": mesh_check.flat(st.params),
+            "opt": {f"{i}/{name}": t.detach().cpu().numpy().copy()
+                    for i, name, t, _ in trainer.optimizer_tensors(st)},
+            "step": int(st.step)}
+
+
+def staged_vs_restore(params_np, vocab, src, dst, chunk_bytes, stage):
+    """A CTR state on mesh ``src`` moved onto mesh ``dst`` (of the pool's
+    first ranks) by ``staged_reshard`` and by ``restore(snapshot)``;
+    rank 0 returns both gathered whole, the source gathered whole, and
+    the local embedding slice shapes of each rank."""
+    from edl_tpu_torch.parallel.mesh import MeshPlan
+
+    keep = shd._CHUNK_BYTES
+    shd._CHUNK_BYTES = chunk_bytes
+    try:
+        splan, smesh, pool, state = _ctr_state(params_np, src, vocab)
+        before = trainer.gather_state(state, smesh, pool)
+        dplan = MeshPlan.create(**dst)
+        dmesh = dplan.build([torch.device("cpu")])
+        out = ckpt.staged_reshard(state, dplan, dmesh, stage=stage,
+                                  pool=pool, src_mesh=smesh)
+        snap = ckpt.snapshot(state) if state is not None else None
+        ref = ckpt.restore(snap, dplan, dmesh, pool=pool, src_mesh=smesh)
+        shapes = None if out is None else \
+            tuple(out.params["embedding"].shape)
+        a = trainer.gather_state(out, dmesh, pool)
+        b = trainer.gather_state(ref, dmesh, pool)
+    finally:
+        shd._CHUNK_BYTES = keep
+    return {"staged": _flat_state(a), "restored": _flat_state(b),
+            "before": _flat_state(before), "shape": shapes,
+            "step": None if out is None else int(out.step)}
+
+
+def checkpoint_roundtrip(params_np, root, cfg_kw, src, dst):
+    """A llama tiny state on mesh ``src`` after one AdamW step, written
+    as sliced pieces (``snapshot_local`` + ``save_shards`` on every rank,
+    the manifest by rank 0), then loaded onto mesh ``dst``
+    (``load_sharded``: each member reads its slices) and whole on rank
+    0. Rank 0 returns the source, the re-loaded state (gathered) and the
+    whole load; each rank its pieces' offsets and primaries."""
+    import torch.distributed as dist
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.parallel.mesh import MeshPlan
+
+    cfg = llama.LlamaConfig(**{**cfg_kw, "dtype": torch.float32})
+    tx = trainer.adamw(1e-3)
+    splan, smesh, pool = mesh_check.pool_mesh(src, "cpu")
+    whole = mesh_check.unflat({k: torch.tensor(v)
+                               for k, v in params_np.items()})
+    state = trainer.shard_state(trainer.TrainState.create(whole, tx),
+                                splan, smesh,
+                                param_pspecs=llama.param_pspecs(cfg, splan))
+    step = trainer.make_train_step(llama.make_loss_fn(cfg, splan, smesh), tx,
+                                   splan, smesh)
+    b = llama.synthetic_tokens(np.random.RandomState(0), 4, 16, cfg.vocab)
+    state, _ = step(state, trainer.global_batch(b, splan, smesh))
+    snap = ckpt.snapshot_local(state)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    fname = ckpt.save_shards(root, snap, rank, world)
+    files = [None] * world
+    dist.all_gather_object(files, fname)
+    if rank == 0:
+        ckpt.write_manifest(root, snap, files)
+    dist.barrier()
+    dplan = MeshPlan.create(**dst)
+    dmesh = dplan.build([torch.device("cpu")])
+    loaded = ckpt.load_sharded(root, tx, device="cpu", plan=dplan,
+                               mesh=dmesh,
+                               param_pspecs=llama.param_pspecs(cfg, dplan))
+    local_shape = None if loaded is None else \
+        tuple(loaded.params["layers"]["wq"].shape)
+    src_whole = trainer.gather_state(state, smesh, pool)
+    got = trainer.gather_state(loaded, dmesh, pool)
+    flat_whole = None
+    if rank == 0:
+        flat_whole = _flat_state(ckpt.load_sharded(root, tx, device="cpu"))
+    return {"src": _flat_state(src_whole), "loaded": _flat_state(got),
+            "whole": flat_whole, "local_wq": local_shape,
+            "primary": {k: v for k, v in snap.primary.items()},
+            "offsets": {k: [o for o, _ in v] for k, v in snap.pieces.items()}}
+
+
+def remat_and_multistep(params_np, cfg_kw, batches, sizes):
+    """On the mesh ``sizes``: the llama loss under each remat policy
+    (the first batch, one value_and_grad each; "attn" keeps each tp
+    rank's flash outputs), and ``make_train_multistep`` over
+    ``stack_batches`` against as many ``make_train_step`` calls. Rank 0
+    returns the losses by policy, the grads' max difference from no
+    remat, and both step paths' losses and gathered params."""
+    import dataclasses
+
+    from edl_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(**{**cfg_kw, "dtype": torch.float32})
+    plan, mesh, pool = mesh_check.pool_mesh(sizes, "cpu")
+    whole = mesh_check.unflat({k: torch.tensor(v)
+                               for k, v in params_np.items()})
+    out = {"loss": {}, "grad_diff": {}}
+    b0 = trainer.global_batch(batches[0], plan, mesh)
+    ref_g = None
+    for policy in (None, "full", "attn", "mlp", "dots"):
+        c = cfg if policy is None else dataclasses.replace(
+            cfg, remat=True, remat_policy=policy)
+        tx = trainer.adamw(1e-3)
+        st = trainer.shard_state(trainer.TrainState.create(whole, tx), plan,
+                                 mesh, param_pspecs=llama.param_pspecs(c,
+                                                                       plan))
+        loss, g, _ = trainer.sharded_value_and_grad(
+            llama.make_loss_fn(c, plan, mesh), st.params, b0, mesh)
+        out["loss"][str(policy)] = float(loss)
+        if ref_g is None:
+            ref_g = g
+        else:
+            out["grad_diff"][str(policy)] = max(
+                float((a - b).abs().max()) for a, b in zip(g, ref_g))
+    runs = {}
+    for kind in ("step", "multistep"):
+        tx = trainer.adamw(1e-3)
+        st = trainer.shard_state(trainer.TrainState.create(whole, tx), plan,
+                                 mesh, param_pspecs=llama.param_pspecs(cfg,
+                                                                       plan))
+        loss_fn = llama.make_loss_fn(cfg, plan, mesh)
+        if kind == "step":
+            step = trainer.make_train_step(loss_fn, tx, plan, mesh)
+            losses = []
+            for b in batches:
+                st, m = step(st, trainer.global_batch(b, plan, mesh))
+                losses.append(float(m["loss"]))
+        else:
+            multi = trainer.make_train_multistep(loss_fn, tx, plan, mesh)
+            st, m = multi(st, trainer.stack_batches(batches, plan, mesh))
+            losses = [float(x) for x in m["losses"]]
+        w = trainer.gather_state(st, mesh, pool)
+        runs[kind] = {"losses": losses,
+                      "params": None if w is None else mesh_check.flat(
+                          w.params)}
+    out["runs"] = runs
+    return out
+
+
+def elastic_checkpoint_resume(params_np, root, vocab=2048):
+    """fsdp CTR on 2 workers of 2 chips with a checkpoint every 3 steps;
+    a second trainer resumes the step-3 checkpoint on 1 worker. Rank 0
+    returns the path written, the resumed step and both whole states
+    at step 3 (the first trainer's gathered before its 4th step)."""
+    tx = trainer.adam(1e-2)
+    rng = np.random.RandomState(0)
+
+    def data(bs):
+        return ctr.synthetic_batch(rng, bs, vocab=vocab)
+
+    tr = el.ElasticTrainer(ctr.loss_fn, tx, mesh_spec=MeshSpec(fsdp=2),
+                           chips_per_worker=2, per_chip_batch=16,
+                           device="cpu", checkpoint_dir=root,
+                           checkpoint_every_steps=3)
+    tr.start(params_from_numpy(params_np, device="cpu"), 2)
+    tr.train_steps(data, 3)
+    at3 = _flat_state(tr._whole_state())
+    tr2 = el.ElasticTrainer(ctr.loss_fn, tx, mesh_spec=MeshSpec(fsdp=2),
+                            chips_per_worker=2, per_chip_batch=16,
+                            device="cpu")
+    import os
+
+    path = os.path.join(root, "step-3")
+    tr2.resume(params_from_numpy(params_np, device="cpu"), 1, path)
+    return {"written": os.path.exists(os.path.join(path, "state.npz")),
+            "step": tr2._host_step, "at3": at3,
+            "resumed": _flat_state(tr2._whole_state()),
+            "shape": None if tr2.state is None else
+            tuple(tr2.state.params["embedding"].shape)}
