@@ -15,6 +15,10 @@
     python3 chip_smoke.py --mesh-only # only: the build, the mesh
                                       # shapes' kernel rows and the mesh
                                       # phase
+    python3 chip_smoke.py --long-context-only
+                                      # only: the build, the long_context
+                                      # shapes' kernel rows and the local
+                                      # and long_context phases
 
 1. Builds every kernel of the serving and training paths from the
    sources in this checkout (``edl_tpu_torch/ops/csrc/*.cu``, one nvcc
@@ -447,8 +451,9 @@ distinct traces, races and seconds, and each static site's verdict;
 exit 0 and no site ``REGRESSED``. The phase fails above
 ``KUBE_CHECK_MAX_S`` (240 s). It launches no kernel.
 
-mesh phase (last; ROADMAP item 2b's first half): a
-``utils/platform.ProcessPool`` of 4 processes on the card(s), gloo on a
+mesh phase (after kube_check; ROADMAP item 2b's first half): a
+``utils/platform.ProcessPool`` of 4 processes on the card(s), which the
+local and long_context phases reuse, gloo on a
 shared ``cuda:0`` (every collective staged through pinned host memory
 and counted), NCCL with a card a rank; the row prints the backend and
 why, the card count and the card. (a) The flagship at full width (cut
@@ -466,6 +471,37 @@ chips_per_worker=2, per_chip_batch=1)`` 1 -> 2 -> 1 workers, 2 steps
 each: the state's digests equal across each rescale, the step never
 resets, two events on the device path, and the first loss after each
 rescale within 1e-3 of the one-rank loss of the gathered params.
+
+local phase (after mesh, in the same pool; ROADMAP item 9e): the CTR
+twin's rank program (``edl_tpu_torch.examples.ctr.train``) through
+``runtime/local.LocalJobRunner`` on the pool's 4 ranks: a ``FakeCluster``
+of 4 hosts x 1 chip, ``examples/ctr/job.yaml`` (min 2, max 8), bench.py's
+vocab 2^20 and emb 16, adam 1e-3, 4096 rows a rank a step, rows read
+from shards on disk through the lease queue (one pass). The job starts
+on 2 workers, an autoscaler tick grows it to 4 (in place), a host dies
+and the runtime shrinks it to the 3 live workers, the queue drains and
+the job is SUCCEEDED. Gates: the phases in order, the workers of every
+step, two reshards on the device path, the job's ``reshard_count`` 1
+with ``last_reshard_stall_s`` the grow's ``stall_s``, the state's step
+the steps run (no restart), and each step's loss within 1e-5 relative
+of one process fed the same global batch from the pool's previous state
+(f32). Prints examples/s and the whole run's losses against one process
+trained from the init (``LOCAL_LOSS_RTOL`` says why not gated).
+
+long_context phase (last, in the same pool; items 2c and 2d): the
+flagship at full width cut to ``LONG["layers"]`` of its 16 layers, f32
+masters, adamw, full remat: (a) sp4 ring attention at B1 T8192, (b) sp4
+Ulysses at B1 T8192 (the flash kernels at B1 T8192 H4 KV2 on each
+rank), (c) pp2 x dp2 at B4 T2048 with 2 microbatches (the flash kernels
+at B1 T2048 H16 KV8 in each stage); each an f32 dense-attention
+gradient pass held leaf by leaf to the one-rank gradient within 1e-5
+relative L2 (at ``grad_seq`` positions, printed) and its f32 loss within
+1e-5, then 3 bf16 steps whose first loss is within 1e-3 of the one-rank
+loss, with every rank's losses equal and 2L/L/L flash launches a rank
+a step on the flash plans; (d) ``ElasticTrainer(MeshSpec(sp=2),
+chips_per_worker=2, per_chip_batch=1)`` 1 -> 2 -> 1 workers at T2048,
+2 steps each, gated as the mesh phase's (b). Prints each plan's step s,
+collectives' share and staged bytes and peak GiB a rank.
 
 Prints one JSON line per phase, then ``{"kernels": [...]}`` (each
 kernel's device ms, its bound, TF/s and bound share at its main-path
@@ -6858,16 +6894,25 @@ def _mesh_plan_name(sizes):
     return "x".join(f"{a}{n}" for a, n in sizes.items())
 
 
+def mesh_pool(device="cuda", c=MESH):
+    """The pool the mesh, local and long_context phases share."""
+    from edl_tpu_torch.utils.platform import ProcessPool
+
+    return ProcessPool(c["world"], device=device, timeout_s=c["timeout_s"])
+
+
 def mesh_phase(card, device="cuda", cfg_kw=None, c=MESH,
-               expect_launches=True):
-    """The mesh phase (see the module doc): returns the flash launches
-    of each rank attention shape, summed over the pool's ranks."""
+               expect_launches=True, pool=None):
+    """The mesh phase (see the module doc) on ``pool`` (a new one of
+    ``c["world"]`` ranks by default): returns the flash launches of each
+    rank attention shape, summed over the pool's ranks."""
+    import contextlib
+
     import numpy as np
     import torch
 
     from edl_tpu_torch.models import llama
     from edl_tpu_torch.train import mesh_check
-    from edl_tpu_torch.utils.platform import ProcessPool
 
     t0 = time.perf_counter()
     cfg_kw = cfg_kw or dict(
@@ -6879,9 +6924,11 @@ def mesh_phase(card, device="cuda", cfg_kw=None, c=MESH,
     batches = [llama.synthetic_tokens(rng, c["batch"], c["seq"],
                                       cfg_kw["vocab"])
                for _ in range(c["steps"])]
-    with ProcessPool(c["world"], device=device,
-                     timeout_s=c["timeout_s"]) as pool:
-        boot_s = time.perf_counter() - t0
+    own = pool is None
+    with (mesh_pool(device, c) if own
+          else contextlib.nullcontext(pool)) as pool:
+        # the pool's boot, when this phase starts it (None: a shared pool)
+        boot_s = time.perf_counter() - t0 if own else None
         backend, why = pool.backend, pool.why
         ta = time.perf_counter()
         a = pool.run(mesh_check.plan_checks, cfg_kw, batches, c["plans"],
@@ -6982,6 +7029,206 @@ def mesh_phase(card, device="cuda", cfg_kw=None, c=MESH,
     return {MESH_TP_SHAPE: tp_launch, MESH_FSDP_SHAPE: fsdp_launch}
 
 
+# the local phase: the CTR twin on the pool (see the module doc). Rows:
+# 7 steps at 2 workers and 14 at 4 (8192 and 16384 rows a step), then
+# about 8 at 3 workers until the one pass of 385024 rows drains
+LOCAL = {"vocab": 2 ** 20, "batch": 4096, "steps": 21, "samples": 385024}
+# each step's loss vs one process's step from the pool's previous state on
+# the same global batch (f32). The whole run's losses against one process
+# trained from the init are printed, not gated: Adam turns the summation
+# order of the pool's all-reduce into updates of up to lr on entries
+# whose gradient cancels to about zero, and that drift grows with the
+# steps (after 29 steps at this size: 7.1e-5 on an H100, 8.8e-5 on a CPU)
+LOCAL_LOSS_RTOL = 1e-5
+# the long_context phase (see the module doc)
+LONG = {"layers": 4, "lr": 1e-3, "seed": 0,
+        "plans": (
+            {"name": "sp4 ring", "sizes": {"sp": 4},
+             "cfg": {"sp_impl": "ring"}, "batch": 1, "seq": 8192,
+             "grad_seq": 8192, "steps": 3},
+            {"name": "sp4 ulysses", "sizes": {"sp": 4},
+             "cfg": {"sp_impl": "ulysses"}, "batch": 1, "seq": 8192,
+             "grad_seq": 8192, "steps": 3},
+            {"name": "pp2 x dp2", "sizes": {"dp": 2, "pp": 2},
+             "cfg": {"pp_microbatches": 2}, "batch": 4, "seq": 2048,
+             "grad_seq": 2048, "steps": 3}),
+        "elastic": ((1, 2), (2, 2), (1, 2)), "elastic_seq": 2048}
+LONG_GRAD_REL_L2 = 1e-5  # f32 dense gradients, sharded vs one rank
+LONG_LOSS_RTOL = 1e-3  # the first bf16 loss vs the one rank's
+LONG_F32_LOSS_RTOL = 1e-5
+# each rank's attention: Ulysses' 16/4 heads and 8/4 KV heads at the whole
+# sequence; the pp stages' microbatch rows (MESH_FSDP_SHAPE)
+LONG_ULYSSES_SHAPE = (1, 8192, 4, 2, True, 128)
+
+
+def local_phase(card, pool, device="cuda", c=LOCAL):
+    """The local phase (see the module doc) on ``pool``'s ranks."""
+    from edl_tpu_torch.examples.ctr import train as ctr_train
+
+    t0 = time.perf_counter()
+    a = dict(devices=pool.world, device=device, steps=c["steps"],
+             batch=c["batch"], vocab=c["vocab"], ckpt_every=0,
+             ckpt_dir="", export_dir="", sync_every=1,
+             passes=1, kill_one_worker=True, drain=True,
+             check_one_rank=True,
+             data_dir=tempfile.mkdtemp(prefix="edl_local_shards_"))
+    a["prepared"] = ctr_train.prepare(a["data_dir"], c["samples"],
+                                      c["vocab"])
+    prep_s = time.perf_counter() - t0
+    out = pool.run(ctr_train.train, a)
+    r0 = out[0]
+    third = max(c["steps"] // 3, 1)
+    grown = c["steps"] - third
+    w = r0["workers"]
+    ev = r0["reshards"]
+    gates = {
+        "phases in order": [p for _, p in r0["phases"]] == [
+            "running", "scaling"] + ["running"] * (
+                len(r0["phases"]) - 3) + ["succeeded"],
+        "workers: 2, then 4, then 3 until the queue drained": (
+            w[:third] == [2] * third and w[third:c["steps"]] == [4] * grown
+            and len(w) > c["steps"] and set(w[c["steps"]:]) == {3}),
+        "reshards 2 -> 4 -> 3 on the device path": [
+            (e["from_workers"], e["to_workers"], e["path"]) for e in ev] == [
+            (2, 4, "device"), (4, 3, "device")],
+        "status stall is the grow's": (
+            r0["reshard_count"] == 1
+            and r0["last_reshard_stall_s"] == ev[0]["stall_s"]),
+        "no restart: the state's step is the steps run":
+            r0["state_step"] == r0["steps"] == len(w),
+        "every rank's losses and steps equal": all(
+            o["losses"] == r0["losses"] and o["steps"] == r0["steps"]
+            for o in out[1:]),
+        "each step's loss within 1e-5 of one process's step from the "
+        "pool's previous state on the same global batch":
+            r0["one_step_max_rel"] <= LOCAL_LOSS_RTOL,
+        "job SUCCEEDED": r0["final_phase"] == "succeeded",
+    }
+    row = {"phase": "local", "card": card, "config": c,
+           "phases": r0["phases"], "workers": w, "reshards": ev,
+           "reshard_count": r0["reshard_count"],
+           "last_reshard_stall_s": r0["last_reshard_stall_s"],
+           "steps": r0["steps"], "examples": r0["examples"],
+           "examples_per_sec": r0["examples_per_sec"],
+           "train_seconds": r0["train_seconds"],
+           "losses": [r0["losses"][0], r0["losses"][-1]],
+           "one_step_max_rel": r0["one_step_max_rel"],
+           "one_step_rel": r0["one_step_rel"],
+           "one_rank_max_rel": r0["one_rank_max_rel"],
+           "one_rank_rel": r0["one_rank_rel"],
+           "lines": r0["lines"], "prepare_s": prep_s, "gates": gates,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    if not all(gates.values()):
+        raise AssertionError(
+            f"local gates failed: {[k for k, v in gates.items() if not v]}")
+    return row
+
+
+def long_context_phase(card, pool, device="cuda", cfg_kw=None, c=LONG,
+                       expect_launches=True):
+    """The long_context phase (see the module doc) on ``pool``'s ranks:
+    returns the flash launches of each rank attention shape, summed
+    over the ranks."""
+    from edl_tpu_torch.train import mesh_check
+
+    t0 = time.perf_counter()
+    cfg_kw = cfg_kw or dict(
+        vocab=32768, d_model=2048, n_layers=c["layers"], n_heads=16,
+        n_kv_heads=8, d_ff=6144, dtype="bfloat16", use_flash=True,
+        remat=True)
+    n_layers = cfg_kw["n_layers"]
+    ta = time.perf_counter()
+    a = pool.run(mesh_check.long_context_checks, cfg_kw, c["plans"],
+                 c["lr"], c["seed"], device)
+    a_s = time.perf_counter() - ta
+    tb = time.perf_counter()
+    b = pool.run(mesh_check.elastic_check,
+                 {**cfg_kw, "sp_impl": "ring"}, c["elastic"],
+                 c["elastic_seq"], c["lr"], c["seed"], device, {"sp": 2})
+    b_s = time.perf_counter() - tb
+    gates, plans = {}, {}
+    per_step = {"flash_fwd_lse": 2 * n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers}
+    launched = {}
+    for pc in c["plans"]:
+        name = pc["name"]
+        rk = [r["plans"][name] for r in a]
+        got = rk[0]["losses"]
+        errs = rk[0]["grad_rel_l2"]
+        worst = max(errs, key=errs.get)
+        g_loss, g_ref = rk[0]["grad_loss"]
+        one = rk[0]["one_rank_first_loss"]
+        share = [sum(v["seconds"] for v in r["collectives"].values())
+                 / sum(r["step_s"]) for r in rk]
+        plans[name] = {
+            "sizes": pc["sizes"], "cfg": pc["cfg"],
+            "batch": [pc["batch"], pc["seq"]], "grad_seq": pc["grad_seq"],
+            "losses": got, "one_rank_first_loss": one,
+            "loss_rel_err": abs(got[0] - one) / abs(one),
+            "grad_rel_l2": errs, "grad_worst_leaf": worst,
+            "grad_f32_loss": g_loss, "grad_f32_one_rank_loss": g_ref,
+            "step_s": rk[0]["step_s"], "grad_pass_s": rk[0]["grad_s"],
+            "collective_share": share,
+            "collectives_rank0": rk[0]["collectives"],
+            "staged_bytes": [sum(v["staged_bytes"] for v in
+                                 r["collectives"].values()) for r in rk],
+            "peak_gib": [r["peak_bytes"] / 2 ** 30 for r in rk],
+            "launches": [r["launches"] for r in rk]}
+        gates[f"{name} f32 grads"] = errs[worst] <= LONG_GRAD_REL_L2
+        gates[f"{name} f32 loss"] =             abs(g_loss - g_ref) / abs(g_ref) <= LONG_F32_LOSS_RTOL
+        gates[f"{name} first loss"] =             plans[name]["loss_rel_err"] <= LONG_LOSS_RTOL
+        gates[f"{name} same losses on every rank"] = all(
+            r["losses"] == got for r in rk)
+        flash = pc["cfg"].get("sp_impl") != "ring"
+        if expect_launches and flash:
+            gates[f"{name} launches {per_step} a step"] = all(
+                r["launches"][k] == v * pc["steps"] for r in rk
+                for k, v in per_step.items())
+        if expect_launches and not flash:
+            gates[f"{name} launches no flash kernel"] = all(
+                not any(r["launches"].values()) for r in rk)
+        if flash:
+            launched[name] = {k: sum(r["launches"][k] for r in rk)
+                              for k in per_step}
+    e0 = b[0]
+    evs = e0["events"]
+    gates["elastic events (1, 2), (2, 1) on the device path"] = [
+        (e["from_workers"], e["to_workers"], e["fallback"]) for e in evs
+    ] == [(1, 2, False), (2, 1, False)]
+    gates["elastic state bit-equal across each rescale"] = bool(
+        e0["digests"]) and all(x == y for x, y in e0["digests"])
+    total = sum(n for _, n in c["elastic"])
+    steps = [s for s in e0["state_steps"] if s is not None]
+    gates["elastic step never resets"] = (
+        steps == sorted(steps) and steps[-1] == total
+        and e0["steps"] == total)
+    gates["elastic first loss after each rescale"] = len(
+        e0["first_losses"]) == 2 and all(
+        abs(x - y) / abs(y) <= LONG_LOSS_RTOL
+        for x, y in e0["first_losses"])
+    row = {
+        "phase": "long_context", "card": card, "layers": n_layers,
+        "cut": (f"depth {n_layers} of the flagship's 16 layers for time"
+                if n_layers < 16 else None),
+        "plans": plans,
+        "elastic": {"spec": {"sp": 2}, "seq": c["elastic_seq"],
+                    "events": evs, "losses": e0["losses"],
+                    "first_losses": e0["first_losses"],
+                    "state_steps": e0["state_steps"],
+                    "stall_s": [e["stall_s"] for e in evs],
+                    "plan_at_end": e0["plans"]},
+        "launches": launched, "plans_s": a_s, "elastic_s": b_s,
+        "gates": gates, "seconds": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    if not all(gates.values()):
+        raise AssertionError(
+            f"long_context gates failed: "
+            f"{[k for k, v in gates.items() if not v]}")
+    return {LONG_ULYSSES_SHAPE: launched.get("sp4 ulysses", {}),
+            MESH_FSDP_SHAPE: launched.get("pp2 x dp2", {})}
+
+
 def main() -> int:
     # a crash in native code (a kernel's host side, ctypes) prints every
     # thread's Python stack before the process dies
@@ -7045,6 +7292,23 @@ def main() -> int:
         print(json.dumps({"phase": "mesh_launches", **{
             str(k): v for k, v in mesh_phase(card).items()}}), flush=True)
         return 0
+    if "--long-context-only" in argv:
+        _bytecode_seconds(bytecode)
+        for shape in (LONG_ULYSSES_SHAPE, MESH_FSDP_SHAPE):
+            train_kernel_row(shape, card)
+        seconds = {}
+        with mesh_pool() as pool:
+            t = time.perf_counter()
+            local_phase(card, pool)
+            seconds["local"] = time.perf_counter() - t
+            t = time.perf_counter()
+            long_launches = long_context_phase(card, pool)
+            seconds["long_context"] = time.perf_counter() - t
+        print(json.dumps({"phase": "long_context_launches", **{
+            str(k): v for k, v in long_launches.items()}}), flush=True)
+        print(json.dumps({"phase": "seconds", **seconds,
+                          "total": time.perf_counter() - t0}), flush=True)
+        return 0
 
     seconds = {}
 
@@ -7102,7 +7366,18 @@ def main() -> int:
         rows[load_shape] = primal_kernel_row(load_shape, card)
     control_counts = timed("control", control_phase, card, slice_metrics)
     timed("kube_check", kube_check_phase, card)
-    mesh_launches = timed("mesh", mesh_phase, card)
+    # the mesh, local and long_context phases share one pool of 4 ranks
+    t = time.perf_counter()
+    with mesh_pool() as pool:
+        seconds["mesh_pool_boot"] = time.perf_counter() - t
+        mesh_launches = timed("mesh", mesh_phase, card, "cuda", None, MESH,
+                              True, pool)
+        timed("local", local_phase, card, pool)
+        long_launches = timed("long_context", long_context_phase, card,
+                              pool)
+    # the Ulysses ranks' attention, held to its plain versions
+    train_rows[LONG_ULYSSES_SHAPE] = train_kernel_row(LONG_ULYSSES_SHAPE,
+                                                      card)
     print(json.dumps({"phase": "seconds", **seconds,
                       "total": time.perf_counter() - t0}), flush=True)
 
@@ -7142,12 +7417,21 @@ def main() -> int:
     by_path["mesh (4 ranks, 3 plans and the elastic job)"] = {
         k: sum(v[k] for v in mesh_launches.values())
         for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
+    by_path["long_context (4 ranks: sp4 ulysses, pp2 x dp2)"] = {
+        k: sum(v.get(k, 0) for v in long_launches.values())
+        for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
+    # the pp stages run the dp2 x fsdp2 ranks' shape: one row, both paths
+    on_mesh = dict(mesh_launches)
+    on_mesh[MESH_FSDP_SHAPE] = {
+        k: n + long_launches[MESH_FSDP_SHAPE].get(k, 0)
+        for k, n in mesh_launches[MESH_FSDP_SHAPE].items()}
+    on_mesh[LONG_ULYSSES_SHAPE] = long_launches[LONG_ULYSSES_SHAPE]
     for shape, launched in ((TRAIN_MAIN, at_main),
                             *((ladder_shapes[key], c)
                               for key, (_, c) in ladder_runs.items()
                               if key[1] == "bf16"),
                             (MOE_TRAIN_SHAPE, moe_launches["train"]),
-                            *mesh_launches.items()):
+                            *on_mesh.items()):
         tr = train_rows[shape]
         for name, source, replaces, errs, ms, plain, library in (
                 # with_lse=True: the fwd rule _flash_fwd (:363) of the

@@ -47,6 +47,18 @@ on its own ``n_heads / tp`` query and ``n_kv_heads / tp`` KV heads
 (whole GQA groups: local query head j reads local KV head j // group).
 The embedding is the vocab-sharded lookup and the loss a vocab-parallel
 cross entropy over the tp ranks' ``vocab / tp`` logits each.
+
+Over a mesh with ``sp`` each rank of a batch shard reads whole rows and
+keeps its ``T / sp`` positions (after the next-token shift, which
+crosses shards); RoPE turns at the global positions and attention is
+ring attention or Ulysses by ``cfg.sp_impl`` (``parallel/
+ring_attention``, ``parallel/ulysses``). Each rank's loss is its part of
+the rows' means, and the trainer sums the parts over sp. Over ``pp`` the
+stacked layers are ``[pp, L / pp, ...]`` stages run by the GPipe
+schedule (``parallel/pipeline``) on ``cfg.pp_microbatches``
+microbatches: the first stage embeds, the last computes the loss, and
+the flash op runs inside each stage. sp and pp do not combine (the
+reference's refusal).
 """
 
 from __future__ import annotations
@@ -64,7 +76,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
-                                    noop_context_fn)
+                                    noop_context_fn,
+                                    set_checkpoint_early_stop)
 
 from edl_tpu_torch.models.losses import row_mean
 from edl_tpu_torch.obs import compilewatch, costmodel
@@ -110,6 +123,13 @@ class LlamaConfig:
     # with int8_mxu: wgrad (a^T @ g) on bf16-rounded operands with an
     # f32 product, while the forward and dgrad stay int8
     int8_wgrad_bf16: bool = False
+    # attention over an sp axis: "ring" (K/V passed around the ring,
+    # scales past the head count) or "ulysses" (two all-to-alls, whole-
+    # sequence attention on H / sp heads). Ignored when sp == 1.
+    sp_impl: str = "ring"
+    # GPipe microbatches when the plan has a pp axis (0 = one a stage).
+    # Bubble fraction (pp - 1) / (n_micro + pp - 1).
+    pp_microbatches: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -297,12 +317,27 @@ def _rope(x: torch.Tensor, tables) -> torch.Tensor:
 
 
 def attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: LlamaConfig
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: LlamaConfig,
+    mesh=None, sp: int = 1,
 ) -> torch.Tensor:
     """Causal GQA attention. q [B,T,H,hd]; k,v [B,T,KV,hd]. With
+    ``sp > 1`` the sequence arrives sharded over the mesh's ``sp`` axis
+    and attention is ring attention or Ulysses by ``cfg.sp_impl``. With
     ``cfg.use_flash`` and a flash-supported T it is the flash op (the
     Hopper kernel on CUDA); otherwise the reference's dense path."""
     b, t, h, hd = q.shape
+    if sp > 1:
+        if mesh is None:
+            raise ValueError("sp attention needs the mesh")
+        if cfg.sp_impl == "ring":
+            from edl_tpu_torch.parallel.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, mesh, axis="sp", causal=True)
+        if cfg.sp_impl == "ulysses":
+            from edl_tpu_torch.parallel.ulysses import ulysses_attention
+
+            return ulysses_attention(q, k, v, mesh, axis="sp", causal=True)
+        raise ValueError(f"unknown sp_impl {cfg.sp_impl!r}")
     if cfg.use_flash and flash_supported(t):
         return attention_auto(q, k, v, causal=True)
     groups = h // k.shape[2]
@@ -501,8 +536,8 @@ def _layer_out(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope):
 
 
 def _sharded_mesh(plan, mesh, what: str):
-    """The port mesh whose fsdp/tp slices the params are, or None for
-    whole params (one process, or dp). sp and pp raise (items 2c, 2d)."""
+    """The port mesh the params are placed on (fsdp, tp, sp or pp), or
+    None for whole params (one process, or dp). ep raises (item 2e)."""
     from edl_tpu_torch.parallel.mesh import Mesh, foreign_mesh, require_ported
 
     require_ported(plan, what)
@@ -540,10 +575,16 @@ def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
     graph. ``cfg.remat_policy`` picks what the remat saves
     (:func:`_remat_policy`). Over a mesh with fsdp or tp the params are
     this rank's slices and the result is this tp rank's ``vocab / tp``
-    logits (:func:`_mesh_forward`)."""
+    logits (:func:`_mesh_forward`); with sp the logits of this rank's
+    ``T / sp`` positions, and with pp on every stage (the last stage's
+    activations broadcast over pp, as the reference's masked psum)."""
     m = _sharded_mesh(plan, mesh, "llama.forward")
     if m is not None:
-        x, lm, _ = _mesh_forward(params, tokens, cfg, m)
+        from edl_tpu_torch.parallel import sharding as shd
+
+        part, pos0 = shd.sequence_part(tokens, m)
+        x, lm, _ = _mesh_forward(params, part, cfg, m, pos0,
+                                 everywhere=True)
         return _matw(x, lm).float()
     _check_remat(cfg, tokens.shape[1])
     context_fn = _remat_policy(cfg) if cfg.remat else None
@@ -1354,7 +1395,8 @@ def _mesh_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope,
     q = _rope(_matw(a, w["wq"]).reshape(b, t, -1, hd), rope)
     k = _rope(_matw(a, w["wk"]).reshape(b, t, -1, hd), rope)
     v = _matw(a, w["wv"]).reshape(b, t, -1, hd)
-    o = attention(q, k, v, cfg).reshape(b, t, -1)
+    o = attention(q, k, v, cfg, mesh=mesh,
+                  sp=mesh.layout.axis_size("sp")).reshape(b, t, -1)
     x = x + coll.reduce_from(_matw(o, w["wo"]), tp)
     m = coll.copy_to(_rmsnorm(x, w["ln2"], cfg.norm_eps), tp)
     with _site("mlp"):
@@ -1364,17 +1406,25 @@ def _mesh_layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict, rope,
 
 
 def _mesh_forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-                  mesh):
+                  mesh, pos0: int = 0, everywhere: bool = False):
     """The forward over this rank's slices up to the lm_head: (the final
     normed activations [B, T, d] inside the lm_head's tp region, the
     lm_head gathered over fsdp [d, vocab / tp or vocab], the first vocab
-    id of this rank's logits)."""
+    id of this rank's logits). ``tokens`` are this rank's rows and, with
+    sp, its positions ``pos0 ..`` of them. Over pp only the last stage
+    has activations: another stage gets (the pipeline's zeros, None, 0),
+    whose backward runs its part of the schedule, unless ``everywhere``
+    (no gradient) broadcasts the last stage's over pp."""
     from edl_tpu_torch.ops.embedding import sharded_embedding_lookup
     from edl_tpu_torch.parallel import collectives as coll
     from edl_tpu_torch.parallel import sharding as shd
 
     lay = mesh.layout
-    ntp = lay.axis_size("tp")
+    ntp, sp, pp = (lay.axis_size(a) for a in ("tp", "sp", "pp"))
+    if sp > 1 and pp > 1:
+        # the reference's refusal: its sp attention is a shard_map that
+        # jax cannot nest inside the pipeline's
+        raise ValueError("sp and pp cannot be combined in one llama mesh")
     if ntp > 1 and (cfg.n_heads % ntp or cfg.n_kv_heads % ntp
                     or cfg.d_ff % ntp):
         raise ValueError(
@@ -1384,29 +1434,85 @@ def _mesh_forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
         raise NotImplementedError(
             "int8_mxu over a mesh with fsdp or tp is not ported yet "
             "(ROADMAP Queue A item 2j: the int8 path under a 3D mesh)")
-    _check_remat(cfg, tokens.shape[1])
+    if sp == 1:
+        _check_remat(cfg, tokens.shape[1])
+    elif cfg.remat and cfg.remat_policy == "attn":
+        # the sp paths never run the flash op whose outputs the policy
+        # saves: it would degrade to full remat
+        raise ValueError(
+            'remat_policy="attn" requires the flash kernel, which the '
+            "sp (ring/Ulysses) attention paths do not use")
     infos = {k: shd.info(v) for k, v in params["layers"].items()}
     if any(i is None for i in infos.values()):
         raise ValueError("llama mesh forward: the params are not placed "
                          "on the mesh (trainer.shard_state)")
     tp = mesh.group("tp")
-    emb_inf = shd.info(params["embed"])
-    emb = shd.gather(params["embed"], emb_inf, ("fsdp",))
-    if "tp" in emb_inf.dim_axes(0):
-        x = sharded_embedding_lookup(emb, tokens, mesh, "tp")
-    else:
-        x = emb[tokens]
-    x = x.to(cfg.dtype)
-    rope = _rope_tables(cfg, tokens.shape[1], x.device)
+    stage = mesh.coords().get("pp", 0)
+    b, t = tokens.shape
+    dev = params["ln_f"].device
+    x = None
+    if stage == 0:
+        emb_inf = shd.info(params["embed"])
+        emb = shd.gather(params["embed"], emb_inf, ("fsdp",))
+        if "tp" in emb_inf.dim_axes(0):
+            x = sharded_embedding_lookup(emb, tokens, mesh, "tp")
+        else:
+            x = emb[tokens]
+        x = x.to(cfg.dtype)
+    positions = (torch.arange(pos0, pos0 + t, device=dev) if sp > 1
+                 else None)
+    rope = _rope_tables(cfg, t, dev, positions)
     remat = cfg.remat and torch.is_grad_enabled()
     context_fn = _remat_policy(cfg) if cfg.remat else None
-    for lp in _unbind_layers(params):
-        if remat:
-            x = checkpoint(_mesh_layer, cfg, x, lp, rope, infos, mesh,
-                           use_reentrant=False, context_fn=context_fn)
-        else:
-            x = _mesh_layer(cfg, x, lp, rope, infos, mesh)
-    x = _rmsnorm(x, params["ln_f"], cfg.norm_eps)
+
+    def run_layers(layers, x):
+        for lp in _unbind_layers(layers):
+            if remat:
+                # a recompute must re-run every sp exchange on every rank
+                # of the ring, also where this rank needs none of their
+                # outputs back
+                with set_checkpoint_early_stop(sp == 1):
+                    x = checkpoint(_mesh_layer, cfg, x, lp, rope, infos,
+                                   mesh, use_reentrant=False,
+                                   context_fn=context_fn)
+            else:
+                x = _mesh_layer(cfg, x, lp, rope, infos, mesh)
+        return x
+
+    if pp > 1:
+        from edl_tpu_torch.parallel.pipeline import pipeline_apply
+
+        L, shards = cfg.n_layers, lay.batch_shards()
+        if L % pp:
+            raise ValueError(f"n_layers {L} not divisible by pp={pp}")
+        n_micro = cfg.pp_microbatches or pp
+        rows = b * shards  # the global batch
+        if rows % n_micro:
+            raise ValueError(
+                f"batch {rows} not divisible by n_micro={n_micro}")
+        if (rows // n_micro) % shards:
+            raise ValueError(
+                f"microbatch rows {rows // n_micro} do not divide over the "
+                f"{shards} data shards (dp×fsdp) — lower pp_microbatches "
+                f"or raise the batch")
+        stages = {k: shd.stage_stack(v, pp)
+                  for k, v in params["layers"].items()}
+        mshape = (n_micro, b // n_micro, t, cfg.d_model)
+        xm = (x.reshape(mshape) if x is not None else
+              torch.empty(mshape, dtype=cfg.dtype, device=dev))
+        ym = pipeline_apply(lambda p, xi: run_layers({"layers": p}, xi),
+                            stages, xm, mesh, data_axes=lay.batch_axes())
+        if stage == pp - 1:
+            x = _rmsnorm(ym.reshape(b, t, -1), params["ln_f"], cfg.norm_eps)
+        elif not everywhere:
+            return ym, None, 0
+        if everywhere:
+            x = (x.detach() if stage == pp - 1 else
+                 torch.empty((b, t, cfg.d_model), dtype=cfg.dtype,
+                             device=dev))
+            coll.broadcast(x, pp - 1, mesh.group("pp"))
+    else:
+        x = _rmsnorm(run_layers(params, x), params["ln_f"], cfg.norm_eps)
     lm_inf = shd.info(params["lm_head"])
     lm = shd.gather(params["lm_head"], lm_inf, ("fsdp",))
     start = 0
@@ -1422,27 +1528,42 @@ def make_loss_fn(cfg: LlamaConfig, plan=None, mesh=None):
     of ``logsumexp − target logit`` on the f32 logits, then
     :func:`row_mean`.
 
-    With a plan and mesh that have fsdp or tp (the reference's
+    With a plan and mesh that have fsdp, tp, sp or pp (the reference's
     ``make_loss(plan, mesh)`` contract) the loss takes this rank's
     slices (it is marked ``local_shards`` for the step): the forward of
     :func:`_mesh_forward` and, over tp, the vocab-parallel cross entropy
     (``losses.vocab_parallel_ce``) — the mean over this rank's rows,
-    which the step weighs into the global batch's loss."""
+    which the step weighs into the global batch's loss. Over sp the
+    targets are shifted on the whole rows and then cut to this rank's
+    positions, and the loss is this rank's part of the rows' means
+    (``losses.sequence_part_mean``); over pp a stage other than the last
+    returns a zero that carries its part of the pipeline's backward. The
+    step sums both over their axis."""
     m = _sharded_mesh(plan, mesh, "llama.make_loss_fn")
     if m is not None:
-        from edl_tpu_torch.models.losses import vocab_parallel_ce
+        from edl_tpu_torch.models.losses import (sequence_part_mean,
+                                                 vocab_parallel_ce)
+        from edl_tpu_torch.parallel import sharding as shd
 
         def mesh_loss_fn(params, batch):
             tokens = batch["tokens"]
             inputs, targets = tokens[:, :-1], tokens[:, 1:]
-            x, lm, start = _mesh_forward(params, inputs, cfg, m)
+            t_all = inputs.shape[1]
+            inputs, pos0 = shd.sequence_part(inputs, m)
+            targets, _ = shd.sequence_part(targets, m)
+            x, lm, start = _mesh_forward(params, inputs, cfg, m, pos0)
+            if lm is None:  # a pp stage before the last
+                return x.sum() * 0.0
             logits = _matw(x, lm).float()
             b, t, v = logits.shape
             ce = vocab_parallel_ce(logits.reshape(b * t, v),
                                    targets.reshape(b * t).long(), start,
                                    m.group("tp") if start or v < cfg.vocab
                                    else None)
-            return row_mean(ce.reshape(b, t).mean(dim=-1), batch)
+            ce = ce.reshape(b, t)
+            per_row = (ce.mean(dim=-1) if t == t_all
+                       else sequence_part_mean(ce, t_all))
+            return row_mean(per_row, batch)
 
         mesh_loss_fn.local_shards = True
         return mesh_loss_fn

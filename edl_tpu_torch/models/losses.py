@@ -27,6 +27,16 @@ def row_mean(per_row: torch.Tensor, batch) -> torch.Tensor:
     return (per_row * w).sum() / w.sum().clamp_min(1.0)
 
 
+def sequence_part_mean(ce: torch.Tensor, t_all: int) -> torch.Tensor:
+    """This rank's part [B] of each row's mean over the sequence, from
+    the per-position losses ``ce`` [B, T / sp] of its positions: their
+    sum over the GLOBAL length ``t_all``. The parts of a row's sp ranks
+    sum to the row's mean, and :func:`row_mean` is linear in its rows,
+    so the ranks' losses (and gradients) sum over sp to the whole
+    sequence's (the trainer's sharded step does that sum)."""
+    return ce.sum(dim=-1) / t_all
+
+
 def batch_weight(batch, weight_fn: Optional[Callable[[Any], Any]] = None
                  ) -> torch.Tensor:
     """The denominator a process contributes to :func:`row_mean` over a

@@ -21,7 +21,7 @@ Report structure (the ``--json`` object)::
      "recompiles_after_warmup": n}
 
 The reference's ``--dryrun`` lane (:func:`run_dryrun`) trains through
-``ElasticTrainer``, which is not ported yet; it raises until then.
+``runtime/elastic.ElasticTrainer`` and renders the live registry.
 """
 
 from __future__ import annotations

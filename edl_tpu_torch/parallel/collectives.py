@@ -27,9 +27,15 @@ visit the host under gloo.
 
 The differentiable ops are the tensor-parallel pair (:func:`copy_to`,
 identity forward and all-reduce backward; :func:`reduce_from`, all-reduce
-forward and identity backward) and :func:`gather`, the fsdp gather whose
+forward and identity backward), :func:`gather`, the fsdp gather whose
 backward reduce-scatters (sums) over a batch axis or slices over a model
-axis.
+axis, and the sequence and pipeline exchanges: :func:`ppermute` (the
+reference's ``lax.ppermute``: each rank sends to and receives from the
+ring neighbours a permutation names; the backward runs the inverse
+permutation) and :func:`all_to_all` (the tiled ``lax.all_to_all``; the
+backward is the inverse exchange). A ppermute posts all of a rank's
+sends and receives before it waits on any (``batch_isend_irecv``), so no
+cycle of blocking sends can deadlock.
 """
 
 from __future__ import annotations
@@ -268,6 +274,91 @@ def recv(t: torch.Tensor, src: int, group: Group) -> torch.Tensor:
     return t
 
 
+def _peer(group: Group, r: int) -> int:
+    import torch.distributed as dist
+
+    return r if group.pg is None else dist.get_global_rank(group.pg, r)
+
+
+def exchange(x: Optional[torch.Tensor], perm, group: Group, like=None
+             ) -> Optional[torch.Tensor]:
+    """One step of a permutation ``perm`` [(source, destination)] of
+    group ranks: this rank sends ``x`` to its destination and receives
+    into a new tensor shaped like ``like`` (default ``x``) from its
+    source, both posted before either is waited on. Returns what it
+    received, or None when no pair names this rank as a destination. A
+    rank that is its own destination gets a copy of ``x``. Not
+    differentiable (:func:`ppermute` is)."""
+    import torch.distributed as dist
+
+    me = group.rank
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"exchange: {perm} is not a permutation")
+    like = x if like is None else like
+    if dst == [me]:
+        return x.clone()
+    if not dst and not src:
+        return None
+    t0 = time.perf_counter()
+    staged = _staged(like, group)
+    ops, sent, out, buf = [], 0, None, None
+    if dst:
+        sbuf = _host(x) if staged else x.contiguous()
+        ops.append(dist.P2POp(dist.isend, sbuf, _peer(group, dst[0]),
+                              group.pg))
+        sent = sbuf.numel() * sbuf.element_size()
+    if src:
+        if staged:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        else:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device=like.device)
+        ops.append(dist.P2POp(dist.irecv, buf, _peer(group, src[0]),
+                              group.pg))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    got = 0
+    if buf is not None:
+        got = buf.numel() * buf.element_size()
+        out = buf.to(like.device) if staged else buf
+    _record("ppermute", sent, (sent + got) if staged else 0,
+            time.perf_counter() - t0)
+    return out
+
+
+def all_to_all_raw(x: torch.Tensor, split_dim: int, concat_dim: int,
+                   group: Group) -> torch.Tensor:
+    """The tiled all-to-all: ``x`` cut into ``group.size`` equal chunks
+    along ``split_dim``, chunk ``i`` sent to group rank ``i``, and the
+    chunks received concatenated along ``concat_dim`` in group-rank
+    order (``lax.all_to_all(..., tiled=True)``). Not differentiable
+    (:func:`all_to_all` is)."""
+    import torch.distributed as dist
+
+    n = group.size
+    if group.trivial:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    t0 = time.perf_counter()
+    src = torch.stack(x.chunk(n, split_dim))  # [n, ...chunk]
+    staged = _staged(src, group)
+    if staged:
+        src = _host(src)
+    out = torch.empty(src.shape, dtype=src.dtype, device=src.device,
+                      pin_memory=staged)
+    dist.all_to_all_single(out, src, group=group.pg)
+    nb = src.numel() * src.element_size()
+    if staged:
+        out = out.to(x.device)
+    _record("all_to_all", nb, 2 * nb if staged else 0,
+            time.perf_counter() - t0)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
 class PeerError(Exception):
     """Raised by :func:`agree` on every rank that did not fail itself:
     the group ranks that failed (``ranks``) and whether each failure was
@@ -344,6 +435,54 @@ class _Gather(torch.autograd.Function):
             n = g.shape[ctx.dim] // ctx.group.size
             out = g.narrow(ctx.dim, ctx.group.rank * n, n)
         return out, None, None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        out = exchange(x, perm, group)
+        return torch.zeros_like(x) if out is None else out
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = tuple((d, s) for s, d in ctx.perm)
+        out = exchange(g.contiguous(), inv, ctx.group)
+        return (torch.zeros_like(g) if out is None else out), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all_raw(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (all_to_all_raw(g, concat_dim, split_dim, ctx.group), None,
+                None, None)
+
+
+def ppermute(x: torch.Tensor, perm, group: Group) -> torch.Tensor:
+    """``lax.ppermute`` over ``group``: for each (source, destination)
+    pair of group ranks in ``perm`` the source's ``x`` lands on the
+    destination; a rank no pair sends to gets zeros. Differentiable:
+    the backward sends each gradient back along the inverse
+    permutation."""
+    if group.trivial:
+        return x
+    return _PPermute.apply(x, tuple(tuple(p) for p in perm), group)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int,
+               group: Group) -> torch.Tensor:
+    """The tiled all-to-all over ``group`` (:func:`all_to_all_raw`),
+    differentiable: the backward is the inverse exchange (split along
+    ``concat_dim``, concatenate along ``split_dim``)."""
+    if group.trivial:
+        return x
+    return _AllToAll.apply(x, split_dim, concat_dim, group)
 
 
 def copy_to(x: torch.Tensor, group: Group) -> torch.Tensor:

@@ -17,8 +17,9 @@ world must call it — also a rank outside the mesh, which gets a mesh
 with ``member`` False — because a process group is made by all ranks
 together. Groups are built once per set of ranks and reused.
 
-The axes ``dp``, ``fsdp`` and ``tp`` are ported. ``sp`` (ROADMAP Queue
-A item 2c), ``pp`` (2d) and ``ep`` (2e) raise in :meth:`MeshPlan.build`.
+The axes ``dp``, ``pp``, ``fsdp``, ``sp`` and ``tp`` are ported (sp:
+``parallel/ring_attention`` and ``ulysses``; pp: ``parallel/pipeline``).
+``ep`` (ROADMAP Queue A item 2e) raises in :meth:`MeshPlan.build`.
 The elastic process runtime still runs one device a process on a dp
 mesh: an EDL_MESH that names another axis, and ``EDL_LOCAL_DEVICES >
 1``, raise (item 2h: workers of other meshes).
@@ -44,11 +45,8 @@ AXIS_ORDER: Tuple[str, ...] = ("dp", "pp", "fsdp", "sp", "ep", "tp")
 # may absorb a membership change
 BATCH_AXES: Tuple[str, ...] = ("dp", "fsdp")
 # the ROADMAP item each axis the port's mesh does not run waits for (it
-# runs dp, fsdp and tp)
-WAITING = {"sp": "2c, of item 2b's second half (sp: parallel/"
-                 "ring_attention and ulysses)",
-           "pp": "2d, of item 2b's second half (pp: parallel/pipeline)",
-           "ep": "2e, of item 2b's second half (the MoE's ep)"}
+# runs dp, pp, fsdp, sp and tp)
+WAITING = {"ep": "2e, of item 2b's second half (the MoE's ep)"}
 
 _ITEM_WORKERS = ("not ported yet (ROADMAP Queue A item 2h, of item 2b's "
                  "second half: workers of other meshes; the elastic "

@@ -26,6 +26,10 @@ reshard read.
   another's over the pool's collectives (point-to-point pieces, each
   sent once to the rank that needs it) — the device path of a reshard,
   and the exchange between hosts of the host path.
+- :func:`stage_pspec` and :func:`stage_stack`: a stacked layer leaf
+  split over ``pp`` seen as ``[pp, layers / pp, ...]`` stages, and
+  :func:`sequence_part`: this rank's part of a ``[B, T, ...]`` array
+  laid out by ``MeshPlan.sequence_pspec`` (the sequence over ``sp``).
 - :func:`to_host` (device → host RAM, the snapshot half of the reshard
   protocol) and :func:`stream_reshard` (device → host → device as one
   overlapped pipeline, the host fallback), on a process's own tensors.
@@ -299,6 +303,55 @@ def gather(x: torch.Tensor, inf: ShardInfo, axes: Sequence[str],
                 x = coll.gather(x, d, inf.mesh.group(a),
                                 reduce_grad=a in batch_axes)
     return x
+
+
+def stage_pspec(spec: Spec, ndim: int, axis: str = "pp") -> Spec:
+    """The spec of a ``[n, L / n, ...]`` stage view of a stacked leaf
+    laid out by ``spec`` (``ndim`` dims, its layer dim over ``axis``):
+    the stage dim over ``axis``, the layers within a stage whole, the
+    rest as they were."""
+    full = full_spec(spec, ndim)
+    if entry_axes(full[0]) != (axis,):
+        raise ValueError(f"stage_pspec: dim 0 of {spec} is not split over "
+                         f"{axis!r} alone")
+    return (axis, None) + full[1:]
+
+
+def stage_stack(x: torch.Tensor, n_stages: int, axis: str = "pp"
+                ) -> torch.Tensor:
+    """This rank's slice ``[L / n, ...]`` of a stacked leaf split over
+    ``axis`` on its layer dim, viewed as ``[1, L / n, ...]``: its stage
+    of the ``[n, L / n, ...]`` stack, carrying that layout
+    (:func:`stage_pspec`), so ``parallel/pipeline.pipeline_apply`` sees
+    its leading dim is ``n`` stages. Differentiable (a view)."""
+    inf = info(x)
+    if inf is None or inf.dim_axes(0) != (axis,):
+        raise ValueError(f"stage_stack: the leaf is not split over "
+                         f"{axis!r} on its layer dim")
+    if inf.shape[0] % n_stages:
+        raise ValueError(f"stage_stack: {inf.shape[0]} layers do not "
+                         f"split into {n_stages} stages")
+    shape = (n_stages, inf.shape[0] // n_stages) + tuple(inf.shape[1:])
+    return attach(x.unsqueeze(0), ShardInfo(
+        shape, stage_pspec(inf.spec, len(inf.shape), axis), inf.mesh))
+
+
+def sequence_part(x, mesh, dim: int = 1) -> Tuple[Any, int]:
+    """(this rank's part of ``x`` along its sequence dim ``dim``, the
+    part's first position): the sequence split over the mesh's ``sp``
+    axis, as ``MeshPlan.sequence_pspec`` lays it out; ``x`` whole when
+    the mesh has no sp."""
+    sp = mesh.layout.axis_size("sp")
+    if sp <= 1:
+        return x, 0
+    t = x.shape[dim]
+    if t % sp:
+        raise ValueError(f"sequence {t} not divisible by sp={sp}")
+    n = t // sp
+    off = mesh.coords()["sp"] * n
+    sl = [slice(None)] * x.ndim
+    sl[dim] = slice(off, off + n)
+    return x[tuple(sl)], off
 
 
 def gather_tree(tree, axes: Optional[Sequence[str]] = None) -> Any:

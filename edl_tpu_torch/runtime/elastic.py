@@ -8,12 +8,14 @@ The reference is one SPMD process over a pool of devices. Here the pool
 is a ``torch.distributed`` world of processes, one a device slot
 (``utils/platform.ProcessPool``), and every rank runs the same
 ``ElasticTrainer`` program. At n workers the mesh covers the pool's
-first ``n * chips_per_worker`` ranks, laid out dp x fsdp x tp in the
-reference's axis order (``MeshPlan.from_spec``: the spec's axes, the
-rest on dp). A rank outside the mesh holds no state: at each step it
-reads the batch (so the data stream stays aligned) and waits at the
-step boundary; it takes part in every rescale's collectives. A world of
-one process with no process group is a pool of one.
+first ``n * chips_per_worker`` ranks, laid out dp x pp x fsdp x sp x tp
+in the reference's axis order (``MeshPlan.from_spec``: the spec's axes,
+the rest on dp; a spec that pins sp or pp rescales over dp, its loss
+rebuilt for each mesh by ``make_loss``). A rank outside the mesh holds
+no state: at each step it reads the batch (so the data stream stays
+aligned) and waits at the step boundary; it takes part in every
+rescale's collectives. A world of one process with no process group is
+a pool of one.
 
 The rescale keeps the reference's spans (``reshard``,
 ``reshard.build_mesh``, ``reshard.device_transfer``,
@@ -158,6 +160,11 @@ class ElasticTrainer:
     device : this rank's device (default the card)
     make_loss : ``(plan, mesh) -> loss_fn``, re-invoked at every
         (re)build (a loss made for the mesh, such as llama's)
+    agree_target : ``f(pending) -> pending``, called on every rank at
+        each step boundary before a pending rescale is applied, with this
+        rank's pending worker target (or None); what it returns is the
+        target this rank applies. ``runtime/local.LocalJobRunner`` makes
+        every rank apply the pool's first rank's.
     """
 
     def __init__(
@@ -177,8 +184,11 @@ class ElasticTrainer:
         flops_per_example: Optional[float] = None,
         hbm_bytes_per_example: Optional[float] = None,
         device: DeviceLike = None,
+        agree_target: Optional[Callable[[Optional[int]],
+                                        Optional[int]]] = None,
     ):
         self.loss_fn = loss_fn
+        self.agree_target = agree_target
         self.make_loss = make_loss
         self.tx = tx
         self.mesh_spec = mesh_spec or MeshSpec()
@@ -517,6 +527,8 @@ class ElasticTrainer:
     def _train_steps_inner(self, data_fn, n_steps, h_step, h_data,
                            c_examples, raw_losses) -> None:
         for _ in range(n_steps):
+            if self.agree_target is not None:
+                self._scale_target = self.agree_target(self._scale_target)
             self._maybe_rescale()
             ts = time.perf_counter()
             batch = data_fn(self.global_batch_size)

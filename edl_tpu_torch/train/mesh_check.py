@@ -1,7 +1,8 @@
 """Per-rank programs of the card's mesh check: the functions a
 ``utils/platform.ProcessPool`` runs on every rank of ``chip_smoke.py``'s
-``mesh`` phase (:func:`plan_checks`, :func:`elastic_check`) to train
-over a dp x fsdp x tp mesh and bring the result back whole, so it can be
+``mesh`` and ``long_context`` phases (:func:`plan_checks`,
+:func:`long_context_checks`, :func:`elastic_check`) to train over a dp
+x fsdp x tp, sp or pp mesh and bring the result back whole, so it can be
 held against one process's step; and the helpers they share with the
 tests' rank programs (``tests/torch_pool_cases.py``).
 
@@ -234,6 +235,113 @@ def plan_checks(cfg_kw: dict, batches: Sequence[Dict[str, np.ndarray]],
     return out
 
 
+def long_context_checks(cfg_kw: dict, plans: Sequence[Dict[str, Any]],
+                        lr: float = 1e-3, seed: int = 0,
+                        device: str = "cuda") -> Dict[str, Any]:
+    """Parts (a)-(c) of chip_smoke's long_context phase, on every rank of
+    the pool: for each plan of ``plans`` ({"name", "sizes": the mesh,
+    "cfg": overrides of ``cfg_kw`` such as ``sp_impl`` or
+    ``pp_microbatches``, "batch", "seq", "grad_seq": the f32 pass's
+    length, "steps"}), rank 0 first takes the one-rank loss and
+    gradients of the f32 dense-attention config (``grad_cfg``) on the
+    plan's first batch cut to ``grad_seq`` positions, and the one-rank
+    loss of the model's own config (bf16, flash) on the first whole
+    batch; then every rank places the params of ``seed`` on the plan's
+    mesh, takes the sharded f32 pass (gradients gathered whole to rank 0
+    and held to the one-rank ones leaf by leaf, relative L2) and the
+    plan's bf16 steps. Each rank returns, by plan: its losses, step
+    seconds, collective stats (over the steps), peak device bytes and
+    flash launches (of the steps); rank 0 also each leaf's gradient
+    error, the f32 loss pair and the one-rank bf16 first loss."""
+    import torch.distributed as dist
+
+    from edl_tpu_torch.models import llama
+    from edl_tpu_torch.ops import flash_attention as fa
+    from edl_tpu_torch.parallel import collectives as coll
+    from edl_tpu_torch.train import trainer
+
+    dev = _device(device)
+    rank = dist.get_rank()
+    out: Dict[str, Any] = {"rank": rank, "plans": {}}
+    for pc in plans:
+        cfg = _llama_cfg({**cfg_kw, **pc.get("cfg", {})})
+        g_cfg = grad_cfg(cfg)
+        rng = np.random.RandomState(seed)
+        batches = [llama.synthetic_tokens(rng, pc["batch"], pc["seq"],
+                                          cfg.vocab)
+                   for _ in range(pc["steps"])]
+        g_batch = {"tokens": batches[0]["tokens"][:, :pc["grad_seq"] + 1]}
+        ref_grads = ref_loss = one_first = None
+        if rank == 0:
+            params = _init(cfg, seed, dev)
+            for p in leaves(params):
+                p.requires_grad_(True)
+            loss, g = trainer.value_and_grad(llama.make_loss_fn(g_cfg))(
+                params, trainer.global_batch(g_batch, device=dev))
+            ref_loss, ref_grads = float(loss), flat(g)
+            del g
+            with torch.no_grad():
+                one_first = float(llama.make_loss_fn(cfg)(
+                    params, trainer.global_batch(batches[0], device=dev)))
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+        plan, mesh, pool = pool_mesh(pc["sizes"], device)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        tx = trainer.adamw(lr)
+        state = trainer.shard_state(
+            trainer.TrainState.create(_init(cfg, seed, dev), tx), plan,
+            mesh, param_pspecs=llama.param_pspecs(cfg, plan))
+        t = time.perf_counter()
+        g_loss, g, _ = trainer.sharded_value_and_grad(
+            llama.make_loss_fn(g_cfg, plan, mesh), state.params,
+            trainer.global_batch(g_batch, plan, mesh), mesh)
+        _sync(dev)
+        grad_s = time.perf_counter() - t
+        gp = replace_leaves(state.params, [
+            _with_info(x, p) for x, p in zip(g, leaves(state.params))])
+        del g
+        gw = trainer.gather_state(trainer.TrainState(
+            step=0, params=gp, opt_state=torch.optim.SGD(leaves(gp), lr=0)),
+            mesh, pool)
+        del gp
+        grad_err = None
+        if gw is not None:
+            got = flat(gw.params)
+            grad_err = {k: _rel_l2(torch.from_numpy(got[k]),
+                                   torch.from_numpy(ref_grads[k]))
+                        for k in ref_grads}
+            del got
+        del gw
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        fa.reset_launches()
+        step = trainer.make_train_step(llama.make_loss_fn(cfg, plan, mesh),
+                                       tx, plan, mesh)
+        coll.reset_stats()
+        losses, secs = [], []
+        for b in batches:
+            t = time.perf_counter()
+            state, m = step(state, trainer.global_batch(b, plan, mesh))
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t)
+        out["plans"][pc["name"]] = {
+            "losses": losses, "step_s": secs, "grad_s": grad_s,
+            "collectives": coll.stats(),
+            "peak_bytes": int(torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else 0),
+            "launches": fa.launch_counts(), "grad_rel_l2": grad_err,
+            "grad_loss": (float(g_loss), ref_loss) if rank == 0 else None,
+            "one_rank_first_loss": one_first}
+        del state, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
 def _digest(state, keys: Sequence[str], pool) -> List[int]:
     """Two position-keyed sums over every element's bits of each leaf
     ``keys`` (``checkpoint``'s ``p:``/``o:`` names) of a placed state,
@@ -295,10 +403,11 @@ class _Recorded:
 
 def elastic_check(cfg_kw: dict, schedule: Sequence[Tuple[int, int]],
                   seq: int = 2048, lr: float = 1e-3, seed: int = 0,
-                  device: str = "cuda") -> Dict[str, Any]:
-    """Part (b) of the mesh phase, on every rank of the pool: an
-    ``ElasticTrainer(mesh_spec=MeshSpec(tp=2), chips_per_worker=2,
-    per_chip_batch=1)`` on the llama of ``cfg_kw`` (adamw, the mesh
+                  device: str = "cuda", spec=None) -> Dict[str, Any]:
+    """Part (b) of the mesh phase (and (d) of the long_context phase),
+    on every rank of the pool: an ``ElasticTrainer(mesh_spec=
+    MeshSpec(**spec), chips_per_worker=2, per_chip_batch=1)`` (``spec``
+    default ``{"tp": 2}``) on the llama of ``cfg_kw`` (adamw, the mesh
     loss), through ``schedule`` [(workers, steps)]: start at the first
     count, then rescale before each next entry. At each rescale every
     rank takes part in: the state's digests before and after
@@ -320,7 +429,8 @@ def elastic_check(cfg_kw: dict, schedule: Sequence[Tuple[int, int]],
     dev = _device(device)
     rank = dist.get_rank()
     tr = ElasticTrainer(
-        None, trainer.adamw(lr), mesh_spec=MeshSpec(tp=2),
+        None, trainer.adamw(lr),
+        mesh_spec=MeshSpec(**(spec or {"tp": 2})),
         chips_per_worker=2, per_chip_batch=1,
         param_pspecs=lambda plan: llama.param_pspecs(cfg, plan),
         make_loss=lambda plan, mesh: llama.make_loss_fn(cfg, plan, mesh),

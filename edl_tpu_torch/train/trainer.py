@@ -40,8 +40,15 @@ Mesh`, one rank a process):
 - The loss is the global batch's: each batch shard weighs its share by
   its rows' weight over the global weight (Σ ``_w``, as the dp step's
   Σw·loss / Σw).
+- sp and pp: a loss made for the mesh (``local_shards``) returns this
+  rank's part: its sequence positions' share of the rows' means over
+  sp, the loss on the last pp stage and a zero on the others. The
+  parts, and the gradients of every leaf the axis does not split, are
+  summed over sp and pp; the batch rows (and the row weight) are split
+  over the batch axes only, so the ranks of an sp or pp group read the
+  same rows.
 
-sp, pp and ep plans raise (ROADMAP Queue A items 2c-2e).
+ep plans raise (ROADMAP Queue A item 2e).
 """
 
 from __future__ import annotations
@@ -378,24 +385,30 @@ def sharded_value_and_grad(loss_fn, params, batch, mesh, weight_fn=None
     shares' gradients sum to the global one. The loss sees the local
     slices (a ``local_shards`` loss) or the leaves gathered whole. After
     the backward each gradient is summed over the batch axes that do not
-    split its leaf (one flat all-reduce a set of axes)."""
+    split its leaf and, for a ``local_shards`` loss (whose value is this
+    rank's part over sp and pp), over sp and over pp unless pp splits
+    the leaf (one flat all-reduce a set of axes). A leaf this rank's
+    part does not reach (the embedding off the first pp stage) has a
+    zero gradient. The loss is summed over the same axes."""
     plan = mesh.layout
     batch_axes = plan.batch_axes()
+    local = getattr(loss_fn, "local_shards", False)
+    parts = tuple(a for a in ("pp", "sp") if local and plan.axis_size(a) > 1)
     ps = [p for p in leaves(params) if p.requires_grad]
     w = batch_weight(batch, weight_fn).to(torch.float32)
     dev = ps[0].device if ps else mesh.device
     wl = w.to(dev).reshape(1)
     wg = _sum_over(wl.clone(), mesh, batch_axes)
-    full = (params if getattr(loss_fn, "local_shards", False)
-            else shd.gather_tree(params))
+    full = params if local else shd.gather_tree(params)
     loss = loss_fn(full, batch)
     share = loss * (wl.clamp_min(1.0) / wg.clamp_min(1.0))[0]
-    grads = torch.autograd.grad(share, ps)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+        ps, torch.autograd.grad(share, ps, allow_unused=True))]
     buckets: Dict[Tuple[str, ...], List[int]] = {}
     for i, p in enumerate(ps):
         inf = shd.info(p)
         split = inf.axes() if inf is not None else ()
-        axes = tuple(a for a in batch_axes if a not in split)
+        axes = tuple(a for a in batch_axes + parts if a not in split)
         buckets.setdefault(axes, []).append(i)
     out: List[Optional[torch.Tensor]] = [None] * len(ps)
     if dev.type == "cuda":
@@ -410,7 +423,7 @@ def sharded_value_and_grad(loss_fn, params, batch, mesh, weight_fn=None
             n = ps[i].numel()
             out[i] = flat[off:off + n].view_as(ps[i]).to(ps[i].dtype)
             off += n
-    _sum_over(total, mesh, batch_axes)
+    _sum_over(total, mesh, batch_axes + parts)
     return total[0], out, time.perf_counter() - t
 
 

@@ -326,10 +326,10 @@ def test_the_backend_follows_the_topology():
 
 
 def test_sp_pp_ep_plans_name_their_items():
-    for sizes, item in ((dict(sp=2), "2c"), (dict(pp=2), "2d"),
-                        (dict(ep=2), "2e")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            MeshPlan.create(**sizes).build([torch.device("cpu")])
+    """ep still waits for its item; sp and pp are ported
+    (tests/test_torch_sp_pp.py)."""
+    with pytest.raises(NotImplementedError, match="item 2e"):
+        MeshPlan.create(ep=2).build([torch.device("cpu")])
 
 
 def test_remat_policies_and_multistep_over_a_mesh(pool):

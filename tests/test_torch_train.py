@@ -269,8 +269,9 @@ def test_unported_remat_policies_raise(policy):
 
 def test_sharding_plans_raise_and_one_device_plan_runs():
     """A plan that shards needs its port mesh (the sharded step itself:
-    tests/test_torch_mesh.py); a foreign mesh object and the axes still
-    to come (sp, pp, ep) raise."""
+    tests/test_torch_mesh.py and, for sp and pp,
+    tests/test_torch_sp_pp.py); a foreign mesh object and the axis still
+    to come (ep) raise."""
     from edl_tpu_torch.parallel.mesh import MeshPlan as TMeshPlan
 
     tx = trainer.adamw(1e-3)
@@ -280,11 +281,13 @@ def test_sharding_plans_raise_and_one_device_plan_runs():
             make(tl.make_loss_fn(TCFG), tx, plan=plan)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             make(tl.make_loss_fn(TCFG), tx, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 2c"):
+        with pytest.raises(ValueError, match="pass its mesh"):
             make(tl.make_loss_fn(TCFG), tx, plan=TMeshPlan.create(sp=2))
+        with pytest.raises(NotImplementedError, match="item 2e"):
+            make(tl.make_loss_fn(TCFG), tx, plan=TMeshPlan.create(ep=2))
     with pytest.raises(ValueError, match="pass its mesh"):
         tl.make_loss_fn(TCFG, plan=MeshPlan.create(tp=2))
-    with pytest.raises(NotImplementedError, match="item 2d"):
+    with pytest.raises(ValueError, match="pass its mesh"):
         tl.make_loss_fn(TCFG, plan=MeshPlan.create(pp=2))
     # a plan of one device shards nothing
     trainer.make_train_step(tl.make_loss_fn(TCFG, plan=MeshPlan.create()),

@@ -18,7 +18,7 @@ from edl_tpu_torch.train import mesh_check, trainer
 
 def _optimizer(name: str, lr: float):
     return {"adamw": trainer.adamw, "adam": trainer.adam,
-            "adafactor": trainer.adafactor}[name](lr)
+            "adafactor": trainer.adafactor, "sgd": trainer.sgd}[name](lr)
 
 
 def _loss_and_specs(model: str, cfg_kw, plan, mesh):
@@ -408,3 +408,269 @@ def elastic_checkpoint_resume(params_np, root, vocab=2048):
             "resumed": _flat_state(tr2._whole_state()),
             "shape": None if tr2.state is None else
             tuple(tr2.state.params["embedding"].shape)}
+
+
+# -- sequence and pipeline parallelism (tests/test_torch_sp_pp.py) ----------
+
+
+def _batch_part(x, plan, mesh):
+    """This member's rows of ``x`` (the batch split over the batch
+    axes, as ``trainer.global_batch``)."""
+    return trainer.global_batch({"x": x}, plan, mesh, device="cpu")["x"]
+
+
+def _row_span(plan, mesh, rows):
+    """(first, end) of this member's rows of a batch of ``rows``."""
+    c, idx = mesh.coords(), 0
+    for a in plan.batch_axes():
+        idx = idx * plan.axis_size(a) + c[a]
+    n = rows // plan.batch_shards()
+    return idx * n, (idx + 1) * n
+
+
+def seq_attention(impl, q, k, v, sizes, causal=True):
+    """``impl`` ("ring" or "ulysses") on the mesh ``sizes`` over this
+    rank's rows and sequence part of q/k/v [B, T, H, d]; returns this
+    rank's output, its q gradient under ``sum(out * w)`` for a fixed
+    weight, and its place (batch rows, first position)."""
+    from edl_tpu_torch.parallel.ring_attention import ring_attention
+    from edl_tpu_torch.parallel.ulysses import ulysses_attention
+
+    plan, mesh, _ = mesh_check.pool_mesh(sizes, "cpu")
+    if not mesh.member:
+        return None
+    parts = []
+    for x in (q, k, v):
+        rows = _batch_part(x, plan, mesh)
+        part, pos0 = shd.sequence_part(rows, mesh)
+        parts.append(part.clone().requires_grad_(True))
+    fn = ring_attention if impl == "ring" else ulysses_attention
+    out = fn(*parts, mesh, axis="sp", causal=causal)
+    w = torch.linspace(-1.0, 1.0, out.numel()).reshape(out.shape)
+    (out * w).sum().backward()
+    return {"out": out.detach().numpy(), "dq": parts[0].grad.numpy(),
+            "rows": _row_span(plan, mesh, q.shape[0]), "pos0": pos0}
+
+
+def pipeline_case(params_np, x, sizes, loss=True):
+    """``pipeline_apply`` of ``tanh(x @ w + b)`` stages over the mesh
+    ``sizes`` (the pp group this rank's, the microbatch rows its batch
+    shard's: x [n_micro, mb, d] split on mb); returns the output on the
+    last stage and, with ``loss``, this stage's gradients of the mean
+    of out² over the global batch (the loss on the last stage)."""
+    from edl_tpu_torch.parallel.pipeline import pipeline_apply
+
+    plan, mesh, _ = mesh_check.pool_mesh(sizes, "cpu")
+    if not mesh.member:
+        return None
+    params = {k: torch.tensor(v, requires_grad=True)
+              for k, v in params_np.items()}
+    xt = torch.tensor(x)
+    r0, r1 = _row_span(plan, mesh, xt.shape[1])
+    xl = xt[:, r0:r1]
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    out = pipeline_apply(stage_fn, params, xl, mesh,
+                         data_axes=plan.batch_axes())
+    pp = mesh.group("pp")
+    last = pp.rank == pp.size - 1
+    res = {"stage": pp.rank, "rows": (r0, r1),
+           "out": out.detach().numpy() if last else None}
+    if loss:
+        if last:
+            val = (out ** 2).sum() / (xt.shape[0] * xt.shape[1] * xt.shape[2])
+        else:
+            val = out.sum() * 0.0
+        val.backward()
+        g = {k: v.grad[pp.rank].clone() for k, v in params.items()}
+        from edl_tpu_torch.parallel import collectives as coll
+
+        for t in g.values():  # the batch shards' parts of the gradient
+            for a in plan.batch_axes():
+                coll.all_reduce(t, mesh.group(a))
+        res["grads"] = {k: t.numpy() for k, t in g.items()}
+    return res
+
+
+def sp_logits(params_np, cfg_kw, tokens, sizes):
+    """``llama.forward`` over the mesh ``sizes`` on whole tokens [B, T]:
+    this rank's rows and positions of the logits, and where they are."""
+    from edl_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(**{**cfg_kw, "dtype": torch.float32})
+    plan, mesh, _ = mesh_check.pool_mesh(sizes, "cpu")
+    whole = params_from_numpy(mesh_check.unflat(params_np), device="cpu")
+    st = trainer.shard_state(trainer.TrainState.create(whole,
+                                                       trainer.sgd(0.0)),
+                             plan, mesh,
+                             param_pspecs=llama.param_pspecs(cfg, plan))
+    rows = _batch_part(np.asarray(tokens), plan, mesh)
+    with torch.no_grad():
+        logits = llama.forward(st.params, rows, cfg, mesh=mesh, plan=plan)
+    _, pos0 = shd.sequence_part(rows, mesh)
+    return {"logits": logits.numpy(),
+            "rows": _row_span(plan, mesh, tokens.shape[0]), "pos0": pos0}
+
+
+def elastic_llama_sp(params_np, cfg_kw, schedule, seq=16, per_chip_batch=4,
+                     lr=1e-3):
+    """``ElasticTrainer(MeshSpec(sp=2), chips_per_worker=2)`` on llama
+    (adam, the mesh loss rebuilt at each rescale) through ``schedule``
+    [(workers, steps)]; rank 0's losses, plans, events and state step."""
+    from edl_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(**{**cfg_kw, "dtype": torch.float32})
+    tr = el.ElasticTrainer(
+        None, trainer.adam(lr), mesh_spec=MeshSpec(sp=2),
+        chips_per_worker=2, per_chip_batch=per_chip_batch,
+        param_pspecs=lambda plan: llama.param_pspecs(cfg, plan),
+        make_loss=lambda plan, mesh: llama.make_loss_fn(cfg, plan, mesh),
+        device="cpu")
+    tr.start(params_from_numpy(mesh_check.unflat(params_np), device="cpu"),
+             schedule[0][0])
+    rng = np.random.RandomState(0)
+
+    def data(bs):
+        return llama.synthetic_tokens(rng, bs, seq, cfg.vocab)
+
+    plans = []
+    for i, (n, steps) in enumerate(schedule):
+        if i:
+            tr.request_rescale(n)
+        tr.train_steps(data, steps)
+        plans.append(tr.plan.describe())
+    return {"losses": tr.report.losses, "plans": plans,
+            "events": [(e.from_workers, e.to_workers, e.step, e.fallback)
+                       for e in tr.report.reshards],
+            "state_step": None if tr.state is None else int(tr.state.step)}
+
+
+# -- LocalJobRunner (tests/test_torch_local.py) -------------------------------
+
+
+E2E_JOB_YAML = """
+apiVersion: edl-tpu.org/v1
+kind: TrainingJob
+metadata: {name: fit-a-line}
+spec:
+  fault_tolerant: true
+  passes: 2
+  worker:
+    entrypoint: "python train_ft.py"
+    min_replicas: 2
+    max_replicas: 4
+    resources:
+      requests: {cpu: "500m", memory: "1Gi", tpu: 2}
+      limits: {tpu: 2}
+"""
+
+
+def _e2e_fleet(n=4):
+    from edl_tpu_torch.cluster.fake import FakeCluster, FakeHost
+
+    return FakeCluster(hosts=[FakeHost(f"h{i}", 8000, 16000, 2)
+                              for i in range(n)])
+
+
+def local_e2e(scenario, params_np, use_pool=True):
+    """``tests/test_e2e.py``'s scenario ("grow": 2 → 4 workers by an
+    autoscaler tick; "kill": a host dies and the job finishes on the
+    live workers) with the port's ``LocalJobRunner`` at 1 chip a worker:
+    the controller on rank 0 (the only rank with ``use_pool=False``).
+    Rank 0 returns the losses, the phases at each check, the job's
+    reshard count, status stall and the report's stalls, the final step
+    and the workers."""
+    from edl_tpu_torch.api.job import TrainingJob
+    from edl_tpu_torch.controller.controller import Controller
+    from edl_tpu_torch.runtime.data import ElasticDataQueue, QueueBatcher
+    from edl_tpu_torch.runtime.local import LocalJobRunner
+
+    lead = (not use_pool) or torch.distributed.get_rank() == 0
+    job = TrainingJob.from_yaml(E2E_JOB_YAML)
+    cluster = ctl = None
+    phases = []
+
+    def phase():
+        if lead:
+            phases.append(ctl.phase_of("fit-a-line").value)
+
+    if lead:
+        cluster = _e2e_fleet()
+        ctl = Controller(cluster, max_load_desired=1.0)
+        cluster.submit_job(job)
+        ctl.step()
+        if scenario == "kill":
+            ctl.autoscaler.tick()  # grow to 4
+    phase()
+    params = params_from_numpy(params_np, device="cpu")
+    if scenario == "grow":
+        x, y = linreg.synthetic_dataset(2048)
+        cursor = {"i": 0}
+
+        def data_fn(bs):
+            lo = cursor["i"] % (2048 - bs)
+            cursor["i"] += bs
+            return {"x": x[lo:lo + bs], "y": y[lo:lo + bs]}
+
+        runner = LocalJobRunner(ctl, job, linreg.loss_fn, trainer.sgd(0.05),
+                                params, chips_per_worker=1,
+                                per_chip_batch=16, device="cpu")
+        n0 = runner.trainer.n_workers
+        runner.trainer.train_steps(data_fn, 5)
+        if lead:
+            ctl.autoscaler.tick()
+        phase()
+        report = runner.trainer.train_steps(data_fn, 5)
+        phase()
+        mid = (job.status.reshard_count, job.status.last_reshard_stall_s,
+               [e.stall_s for e in report.reshards]) if lead else None
+        report = runner.run(data_fn, n_steps=5)
+    else:
+        queue = ElasticDataQueue(n_samples=640, chunk_size=64, passes=1)
+        x, y = linreg.synthetic_dataset(640)
+        batcher = QueueBatcher(
+            queue, lambda t: {"x": x[t.start:t.end], "y": y[t.start:t.end]})
+
+        def data_fn(bs):
+            b = batcher.next_batch(bs)
+            if b is None:
+                return {"x": x[:bs], "y": y[:bs]}
+            if b["x"].shape[0] < bs:
+                b = {k: np.resize(v, (bs,) + v.shape[1:])
+                     for k, v in b.items()}
+            return b
+
+        runner = LocalJobRunner(ctl, job, linreg.loss_fn, trainer.sgd(0.05),
+                                params, chips_per_worker=1,
+                                per_chip_batch=8, device="cpu")
+        n0 = runner.trainer.n_workers
+        runner.trainer.train_steps(data_fn, 2)
+        pods = None
+        if lead:
+            victim = next(p for p in cluster.pods.values()
+                          if p.role == "worker")
+            cluster.remove_host(victim.host)
+        queue.release_worker("w-dead")
+        if lead:
+            cluster.reconcile()
+            pods = cluster.job_pods(job)
+            ctl.autoscaler.tick()
+        phase()
+        mid = pods
+        report = runner.run(data_fn, queue=queue)
+    phase()
+    out = {"losses": report.losses, "steps": report.steps,
+           "n0": n0, "workers": runner.trainer.n_workers,
+           "state_step": None if runner.trainer.state is None
+           else int(runner.trainer.state.step)}
+    if lead:
+        out.update(phases=phases, mid=mid,
+                   reshard_count=job.status.reshard_count,
+                   last_stall=job.status.last_reshard_stall_s,
+                   stalls=[e.stall_s for e in report.reshards],
+                   events=[(e.from_workers, e.to_workers, e.fallback)
+                           for e in report.reshards],
+                   live=runner.live_workers)
+    return out
